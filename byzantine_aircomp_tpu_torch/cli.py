@@ -3,7 +3,10 @@
     python -m byzantine_aircomp_tpu_torch --var 1e-2 --attack classflip --K 50 --B 10
 
 runs the paper's experiment (``MNIST_Air_weight.py``, default aggregator
-``gm``) on the GPU; ``--device cpu`` runs it on the CPU.
+``gm``) on the GPU; ``--device cpu`` runs it on the CPU.  ``--agg`` also
+takes ``gm2``, ``mean``, ``median``, ``trimmed_mean``, ``krum`` and
+``signmv`` (with ``--sign-bits 1 --sign-eta E`` for the packed one-bit
+vote).
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=2021)
     p.add_argument("--dataset", type=str, default="mnist")
     p.add_argument("--model", type=str, default="MLP")
+    p.add_argument("--sign-eta", type=float, default=None,
+                   help="signmv step size (default: median |delta|)")
+    p.add_argument("--sign-bits", type=int, choices=[1, 8, 16, 32], default=32,
+                   help="signmv ballot width: 32 = full precision, 1 = packed "
+                        "words + popcount (needs --sign-eta)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -44,6 +52,8 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
         seed=args.seed,
         dataset=args.dataset,
         model=args.model,
+        sign_eta=args.sign_eta,
+        sign_bits=args.sign_bits,
     )
     # reference --K/--B override: honestSize = K - B (:531-533); with K
     # alone the total node count becomes K, keeping the Byzantine count

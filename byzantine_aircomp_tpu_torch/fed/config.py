@@ -39,6 +39,13 @@ class FedConfig:
     agg_maxiter: int = 1000
     agg_tol: float = 1e-5
     gm_p_max: float = 1.0
+    # signmv (one-bit OTA majority vote) step; None = the coordinatewise
+    # median of |w_i - guess|
+    sign_eta: Optional[float] = None
+    # sign-channel payload width for signmv: 32 = full-precision ballots,
+    # 1 = bit-packed words + popcount reduce (needs sign_eta); the JAX
+    # package's 8/16 quantize emulation is not ported
+    sign_bits: int = 32
 
     # determinism
     seed: int = 2021
@@ -88,6 +95,29 @@ class FedConfig:
             raise ValueError(f"gm_p_max must be > 0, got {self.gm_p_max}")
         if self.noise_var is not None and self.noise_var < 0:
             raise ValueError(f"noise_var must be >= 0, got {self.noise_var}")
+        if self.sign_eta is not None and not self.sign_eta > 0:
+            raise ValueError(f"sign_eta must be positive when set, got {self.sign_eta}")
+        if self.sign_bits not in (1, 8, 16, 32):
+            raise ValueError(
+                f"sign_bits must be one of 1, 8, 16, 32 (payload width of the "
+                f"sign channel), got {self.sign_bits}"
+            )
+        if self.sign_bits in (8, 16):
+            raise ValueError(
+                f"sign_bits={self.sign_bits} (quantize emulation) is not ported "
+                "to the torch package yet; use 1 or 32"
+            )
+        if self.sign_bits != 32 and self.agg != "signmv":
+            raise ValueError(
+                f"sign_bits={self.sign_bits} narrows the SIGN channel; only "
+                f"signmv transmits it, agg={self.agg!r} sends full-precision "
+                "weights (use --agg signmv, or leave sign_bits at 32)"
+            )
+        if self.sign_bits == 1 and self.sign_eta is None:
+            raise ValueError(
+                "sign_bits=1 requires an explicit --sign-eta: the one-bit wire "
+                "carries no delta magnitudes for the adaptive eta"
+            )
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
         # unknown names fail here, not mid-run (KeyError lists known names)

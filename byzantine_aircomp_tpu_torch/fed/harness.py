@@ -35,6 +35,11 @@ def run_title(cfg: FedConfig) -> str:
     title = f"{cfg.model}_{cfg.opt}_{attack_name}_{cfg.agg}"
     if cfg.noise_var is not None:
         title += f"_{cfg.noise_var}"
+    # the JAX package's suffixes for the sign channel, only off the default
+    if cfg.sign_eta is not None:
+        title += f"_eta{cfg.sign_eta}"
+    if cfg.sign_bits != 32:
+        title += f"_sb{cfg.sign_bits}"
     if cfg.mark:
         title += f"_{cfg.mark}"
     return title

@@ -5,7 +5,7 @@ Port of the resident round of ``byzantine_aircomp_tpu/fed/train.py``
 momentum and sharding off).  One global iteration is
 
     flat_params [d] --per-client local SGD step--> weight stack [K, d]
-      --message attack--> --OMA channel (not for gm)--> --aggregate--> [d]
+      --message attack--> --OMA channel (not for gm, signmv)--> --aggregate--> [d]
 
 with per-client gradients taken with respect to the flat parameter vector
 through ``torch.func`` (``functional_call`` + ``vmap(grad)``), so the
@@ -166,9 +166,17 @@ class Trainer:
 
         Returns ``(new flat params, honest variance or None)``.  ``draws``
         may supply any of: ``"u"`` [K, B] batch uniforms, ``"oma"`` the
-        OMA prepass terms (:class:`..ops.channel.OmaTerms`), ``"fades"``
+        OMA link's terms (:class:`..ops.channel.OmaTerms`), ``"fades"``
         (h_r, h_i) [T, K] and ``"noise"`` [T, d+1] for gm's Weiszfeld
-        steps; the rest comes from ``generators``."""
+        steps, ``"vote_noise"`` [d] for signmv's receiver; the rest comes
+        from ``generators``.
+
+        With ``--var`` set, median and trimmed_mean take the OMA terms as
+        ``channel=`` and fold the corruption into their one read of the
+        stack; the other rules (except gm and signmv, which own their
+        channel) get the corrupted stack.  Either way the terms are the
+        same draws, and the honest variance is taken on the post-channel
+        stack, as the reference does (``:351-352``, ``:360-361``)."""
         cfg = self.cfg
         draws = draws or {}
         gens = generators or IterationGenerators(None, None, None, None)
@@ -187,26 +195,44 @@ class Trainer:
             w_stack = self.attack.apply_message(
                 w_stack, cfg.byz_size, gens.message
             )
+        terms = None
         if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
-            w_stack = channel_lib.oma(
-                w_stack, cfg.noise_var, generator=gens.channel,
-                terms=draws.get("oma"),
-            )
+            terms = draws.get("oma")
+            if terms is None:
+                k, d = w_stack.shape
+                terms = channel_lib.oma_terms(
+                    k, d, cfg.noise_var, generator=gens.channel,
+                    device=w_stack.device,
+                )
+            if not agg_lib.supports_fused_epilogue(cfg.agg):
+                w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
+                terms = None
 
         new_flat = self.agg_fn(
             w_stack,
             guess=flat_params,
+            honest_size=cfg.honest_size,
             noise_var=cfg.noise_var,
+            channel=terms,
             maxiter=cfg.agg_maxiter,
             tol=cfg.agg_tol,
             p_max=cfg.gm_p_max,
+            sign_eta=cfg.sign_eta,
+            sign_bits=cfg.sign_bits,
             generator=gens.aggregation,
             fades=draws.get("fades"),
             noise=draws.get("noise"),
+            vote_noise=draws.get("vote_noise"),
         ).to(torch.float32)  # reference semantics (:354-358)
-        variance = (
-            honest_variance(w_stack, cfg.honest_size) if want_variance else None
-        )
+        variance = None
+        if want_variance:
+            w_h = w_stack[: cfg.honest_size]
+            if terms is not None:
+                # the received honest rows, bitwise those channel.oma makes
+                w_h = w_h + channel_lib.oma_residual(
+                    channel_lib.OmaTerms(*(t[: cfg.honest_size] for t in terms))
+                )
+            variance = honest_variance(w_h, cfg.honest_size)
         return new_flat, variance
 
     def run_round(self, round_idx: int) -> torch.Tensor:

@@ -5,6 +5,10 @@ The JAX package's parameters arrive as numpy: either the flax tree
 flat [d] vector.  :func:`from_jax` returns the port's module state dict and
 flat vector; :func:`to_jax` is its inverse (the tests use it to round-trip).
 The layout mapping itself lives in :mod:`.ops.flatten`.
+
+The JAX package's packed sign words are ``uint32``; the port carries them as
+``int32`` with the same bits (:func:`sign_words_from_jax`,
+:func:`sign_words_to_jax`).
 """
 
 from __future__ import annotations
@@ -58,3 +62,19 @@ def to_jax(
             flat[leaf.offset : leaf.offset + leaf.size].reshape(leaf.jax_shape)
         )
     return {"params": tree}, flat
+
+
+def sign_words_from_jax(words: np.ndarray) -> torch.Tensor:
+    """JAX packed sign words (``uint32`` [K, W]) -> the port's ``int32``
+    [K, W] with the same bits."""
+    w = np.ascontiguousarray(words)
+    if w.dtype != np.uint32:
+        raise TypeError(f"sign words must be uint32, got {w.dtype}")
+    return torch.from_numpy(w.view(np.int32).copy())
+
+
+def sign_words_to_jax(words: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`sign_words_from_jax`: ``int32`` -> ``uint32``."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"sign words must be int32, got {words.dtype}")
+    return words.detach().cpu().contiguous().numpy().view(np.uint32).copy()

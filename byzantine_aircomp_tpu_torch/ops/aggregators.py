@@ -1,10 +1,12 @@
-"""Robust aggregation rules of the main path over the [K, d] client stack.
+"""Robust aggregation rules over the [K, d] client stack.
 
-Port of ``mean``, ``gm2`` and ``gm`` from
-``byzantine_aircomp_tpu/ops/aggregators.py`` (reference
-``MNIST_Air_weight.py:131-187``).  Each Weiszfeld step runs through
-:mod:`.kernels`: the hand-written CUDA kernel for a stack on the card, its
-plain version for one on the CPU.
+Port of ``mean``, ``gm2``, ``gm``, ``median``, ``trimmed_mean``, ``krum``
+and ``signmv`` from ``byzantine_aircomp_tpu/ops/aggregators.py`` (reference
+``MNIST_Air_weight.py:131-204``; ``signmv`` goes beyond it).  Each
+Weiszfeld step, each selection and each packed vote count runs through
+:mod:`.kernels`: the hand-written CUDA kernel for a tensor on the card, its
+plain version for one on the CPU.  Krum's Gram product is one matmul, as
+the JAX package leaves it to XLA.
 
 The JAX package keeps the Weiszfeld loop on the device
 (``lax.while_loop``).  Here the loop runs in chunks of ``chunk`` steps with
@@ -17,9 +19,11 @@ draws are discarded.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..registry import AGGREGATORS
 from . import channel
@@ -29,10 +33,7 @@ from . import kernels
 WEISZFELD_CHUNK = 16
 
 # aggregators of the JAX package that later slices of the port bring over
-NOT_PORTED = (
-    "median", "trimmed_mean", "krum", "Krum", "multi_krum", "bulyan",
-    "cclip", "signmv", "bev", "dnc",
-)
+NOT_PORTED = ("multi_krum", "bulyan", "cclip", "bev", "dnc")
 
 
 def _finite_rows(wmatrix: torch.Tensor) -> torch.Tensor:
@@ -191,6 +192,180 @@ def gm(wmatrix: torch.Tensor, *, noise_var=None, guess=None, maxiter: int = 1000
     )[0]
 
 
+@AGGREGATORS.register("median", supports_fused_epilogue=True)
+def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
+           **_) -> torch.Tensor:
+    """Coordinatewise median with torch semantics: the lower-middle order
+    statistic ``sorted[(K-1)//2]`` (reference ``median``, ``:194-195``),
+    selected over IEEE total-order keys, so a NaN or +-Inf row ranks as a
+    sort ranks it.  ``channel``: the OMA link's terms, folded into the
+    stack read (``w + oma_residual(channel)``, bitwise the received stack
+    of ``channel.oma``)."""
+    return kernels.fused_median(wmatrix.to(torch.float32).contiguous(), channel)
+
+
+@AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True)
+def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio: float = 0.1,
+                 beta: Optional[int] = None,
+                 channel: Optional[channel.OmaTerms] = None, **_) -> torch.Tensor:
+    """Coordinatewise beta-trimmed mean: ``b = int(K * trim_ratio)`` (or
+    ``beta``) entries dropped at each end, the mean of the middle K - 2b
+    (reference ``trimmed_mean``, ``:189-192``), with the optional channel
+    fold of :func:`median`."""
+    k = wmatrix.shape[0]
+    b = int(k * trim_ratio) if beta is None else int(beta)
+    return kernels.fused_trimmed_mean(
+        wmatrix.to(torch.float32).contiguous(), b, channel
+    )
+
+
+def pairwise_sq_dists(wmatrix: torch.Tensor) -> torch.Tensor:
+    """[K, K] squared distances by the Gram form
+    ``||w_i||^2 + ||w_j||^2 - 2 <w_i, w_j>``, clamped at 0 (JAX
+    ``pairwise_sq_dists``, :340).  A NaN distance (Inf - Inf from a
+    non-finite row) becomes +Inf: NaN would rank as the smallest distance.
+    The diagonal is 0 for a row with a finite squared norm and +Inf for a
+    poisoned one, so a poisoned row can never win the selection."""
+    w = wmatrix.to(torch.float32)
+    sq = torch.einsum("kd,kd->k", w, w)
+    gram = w @ w.T
+    dist = sq[:, None] + sq[None, :] - 2.0 * gram
+    dist = torch.where(torch.isnan(dist), math.inf, dist)
+    dist = torch.clamp(dist, min=0.0)
+    k = w.shape[0]
+    diag = torch.where(torch.isfinite(sq), 0.0, math.inf)
+    eye = torch.eye(k, dtype=torch.bool, device=w.device)
+    return torch.where(eye, diag[:, None], dist)
+
+
+def krum_scores(wmatrix: torch.Tensor, honest_size: int) -> torch.Tensor:
+    """Per-client Krum score: the sum of the ``honest_size - 1`` smallest
+    entries of its distance row, self-distance included (reference
+    ``:200-202``).  Summed directly, never as the row sum minus the largest
+    entries: under attack the largest distances dwarf the honest ones and
+    the f32 subtraction would cancel them away."""
+    dist = pairwise_sq_dists(wmatrix)
+    smallest = torch.topk(dist, honest_size - 1, dim=1, largest=False).values
+    return torch.sum(smallest, dim=1)
+
+
+@AGGREGATORS.register("krum", aliases=("Krum",), needs_honest_size=True)
+def krum(wmatrix: torch.Tensor, *, honest_size: int, **_) -> torch.Tensor:
+    """Single-Krum: the client row with the least Krum score (reference
+    ``Krum``, ``:197-204``); ``argmin`` takes the first index on a tie."""
+    return wmatrix[torch.argmin(krum_scores(wmatrix, honest_size))]
+
+
+# packed one-bit sign channel: [K, W = ceil(d/32)] words, LSB-first,
+# coordinate c at bit c % 32 of word c // 32 (JAX ops/aggregators.py:600-626).
+# Bit 1 = ballot +1 (delta >= 0, so a zero delta votes +1), bit 0 = ballot
+# -1; a row with any non-finite delta packs all-zero and leaves k_valid.
+# torch carries the words as int32 with the uint32 bits.
+
+
+def packed_words(d: int) -> int:
+    """Sign words per client for a d-coordinate delta."""
+    return -(-d // kernels.SIGN_WORD_BITS)
+
+
+def pack_signs(wmatrix: torch.Tensor, guess: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, d] stack + pre-round params -> ``(words [K, W] int32, k_valid)``,
+    ``k_valid`` the count of all-finite rows (an int32 device scalar)."""
+    k, d = wmatrix.shape
+    w_cnt = packed_words(d)
+    delta = wmatrix.to(torch.float32) - guess[None, :].to(torch.float32)
+    finite = torch.isfinite(delta).all(dim=1)
+    ballot_up = finite[:, None] & (delta >= 0.0)
+    bits = F.pad(ballot_up, (0, w_cnt * kernels.SIGN_WORD_BITS - d))
+    bits = bits.reshape(k, w_cnt, kernels.SIGN_WORD_BITS).to(torch.int64)
+    shifts = torch.arange(kernels.SIGN_WORD_BITS, dtype=torch.int64, device=bits.device)
+    # the word as int64 in [0, 2^32), then wrapped to the int32 with the same
+    # bits (summing 1 << 31 in int32 would overflow)
+    words = torch.sum(bits << shifts, dim=-1)
+    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return words.contiguous(), torch.sum(finite).to(torch.int32)
+
+
+def packed_sign_votes(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Per-coordinate set-bit counts [d] int32 of the packed sign words."""
+    return kernels.packed_vote_counts(words, d)
+
+
+def _packed_sign_step(wmatrix, guess, noise, sign_eta):
+    """sign_bits = 1: pack, count the ballots, recover the signed votes
+    ``2*counts - k_valid`` (each set bit +1, each clear bit of a valid row
+    -1), and step ``sign_eta`` in the voted direction."""
+    if sign_eta is None:
+        raise ValueError(
+            "signmv at sign_bits=1 needs an explicit sign_eta: the one-bit "
+            "channel carries no magnitudes for the adaptive eta median"
+        )
+    words, k_valid = pack_signs(wmatrix, guess)
+    counts = packed_sign_votes(words, wmatrix.shape[1])
+    votes = (2 * counts - k_valid).to(torch.float32) + noise
+    return guess + _f32(sign_eta, guess) * torch.sign(votes)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+@AGGREGATORS.register("signmv", owns_channel=True)
+def sign_majority_vote(
+    wmatrix: torch.Tensor,
+    *,
+    guess: Optional[torch.Tensor] = None,
+    noise_var: Optional[float] = None,
+    sign_eta: Optional[float] = None,
+    sign_bits: int = 32,
+    generator: Optional[torch.Generator] = None,
+    vote_noise: Optional[torch.Tensor] = None,
+    **_,
+) -> torch.Tensor:
+    """One-bit over-the-air aggregation, sign-SGD with majority vote (JAX
+    ``sign_majority_vote``, :748; beyond the reference):
+
+        new = guess + eta * sign( sum_i sign(w_i - guess) + n )
+
+    Each client sends the sign of its delta; the receiver sees their sum
+    over the air, plus ``n = sqrt(noise_var/2) * z`` with ``z`` [d] standard
+    normals from ``generator`` (or ``vote_noise``) when ``noise_var`` is
+    set.  A tied coordinate does not move.  ``eta`` is ``sign_eta``, else
+    the coordinatewise median of ``|w_i - guess|``.  ``sign_bits``: 32 sends
+    full-precision ballots (a non-finite delta casts a 0 ballot); 1 packs
+    them into 32-bit words and counts them with the popcount kernel (a row
+    with any non-finite delta casts none, and needs ``sign_eta``)."""
+    if guess is None:
+        raise ValueError("signmv needs the pre-round params as `guess`")
+    if sign_bits not in (1, 32):
+        raise ValueError(
+            f"signmv sign_bits={sign_bits} is not ported to the torch package "
+            "yet (1 and 32 are)"
+        )
+    d = wmatrix.shape[1]
+    dev = wmatrix.device
+    guess = guess.to(torch.float32)
+    if noise_var is None:
+        noise = torch.zeros(d, dtype=torch.float32, device=dev)
+    else:
+        z = (torch.randn(d, generator=generator, device=dev)
+             if vote_noise is None else vote_noise)
+        noise = torch.sqrt(_f32(noise_var, guess) / 2.0) * z
+    if sign_bits == 1:
+        return _packed_sign_step(wmatrix, guess, noise, sign_eta)
+    delta = wmatrix.to(torch.float32) - guess[None, :]
+    finite = torch.isfinite(delta)
+    votes = torch.sum(torch.where(finite, torch.sign(delta), 0.0), dim=0) + noise
+    if sign_eta is None:
+        eta = median(torch.where(finite, torch.abs(delta), math.inf))
+        # where >= ceil(K/2) deltas are non-finite the median is Inf, and
+        # Inf * sign(0) on a tie would be NaN: no step there instead
+        eta = torch.where(torch.isfinite(eta), eta, 0.0)
+    else:
+        eta = _f32(sign_eta, guess)
+    return guess + eta * torch.sign(votes)
+
+
 def resolve(name: str):
     """Look up an aggregator by its reference-compatible CLI name."""
     if name in NOT_PORTED:
@@ -203,6 +378,13 @@ def resolve(name: str):
 
 def needs_oma_prepass(name: str) -> bool:
     """Channel-dispatch rule (reference ``:351-352``): with ``--var`` set,
-    every aggregator except ``gm`` sees a one-shot per-client OMA corruption
-    of the stack; ``gm`` runs its own OMA2 inside each Weiszfeld step."""
+    every aggregator except ``gm`` and ``signmv`` sees a one-shot per-client
+    OMA corruption of the stack; ``gm`` runs its own OMA2 inside each
+    Weiszfeld step, ``signmv`` adds receiver noise to its vote."""
     return not AGGREGATORS.meta(name).get("owns_channel", False)
+
+
+def supports_fused_epilogue(name: str) -> bool:
+    """Aggregators that take the OMA terms as ``channel=`` and fold the
+    corruption into their one read of the stack (median, trimmed_mean)."""
+    return bool(AGGREGATORS.meta(name).get("supports_fused_epilogue", False))

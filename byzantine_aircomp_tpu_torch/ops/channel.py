@@ -70,6 +70,17 @@ def oma_terms(
     return OmaTerms(h_r, h_i, floored_hsq(h_r, h_i), n_r, n_i)
 
 
+def oma_residual(terms: OmaTerms) -> torch.Tensor:
+    """The post-equalization residual ``(h_r*n_r + h_i*n_i)/|h|^2`` [K, d]
+    that the OMA link adds to each client's message.  One op per launch,
+    each rounded to f32, in this order: the selection kernel's in-read
+    channel fold (``csrc/select_columns.cu``) and the trainer's variance use
+    the same order, so all three agree bit for bit."""
+    return (
+        terms.h_r[:, None] * terms.n_r + terms.h_i[:, None] * terms.n_i
+    ) / terms.h_sq[:, None]
+
+
 def oma(
     message: torch.Tensor,
     noise_var: float,
@@ -82,10 +93,7 @@ def oma(
     k, d = message.shape
     if terms is None:
         terms = oma_terms(k, d, noise_var, generator=generator, device=message.device)
-    de_noise = (
-        terms.h_r[:, None] * terms.n_r + terms.h_i[:, None] * terms.n_i
-    ) / terms.h_sq[:, None]
-    return message + de_noise
+    return message + oma_residual(terms)
 
 
 def oma2(

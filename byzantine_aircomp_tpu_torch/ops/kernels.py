@@ -1,24 +1,29 @@
-"""Hand-written Hopper kernels for the Weiszfeld step, and their plain
-versions.
+"""Hand-written Hopper kernels of the port, and their plain versions.
 
-Counterpart of ``byzantine_aircomp_tpu/ops/pallas_kernels.py`` for the two
-kernels on the main path:
+Counterpart of ``byzantine_aircomp_tpu/ops/pallas_kernels.py``, one kernel
+for each TPU kernel there:
 
 * :func:`weiszfeld_step` (``csrc/weiszfeld_step.cu``) — one ideal step,
   ``num = sum_i w_i/d_i``, ``den = sum_i 1/d_i`` (the ``gm2`` aggregator);
 * :func:`aircomp_weiszfeld_step` (``csrc/aircomp_weiszfeld_step.cu``) — one
-  over-the-air step with OMA2 power control (the ``gm`` aggregator).
+  over-the-air step with OMA2 power control (the ``gm`` aggregator);
+* :func:`fused_median` / :func:`fused_trimmed_mean`
+  (``csrc/select_columns.cu``) — coordinatewise order statistics over
+  IEEE total-order keys, with the OMA channel optionally folded into the
+  read (``median``, ``trimmed_mean``);
+* :func:`packed_vote_counts` (``csrc/packed_vote_counts.cu``) — per-bit
+  ballot counts of the packed one-bit sign words (``signmv``).
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` into shared
 libraries with a plain C interface, loaded with ``ctypes`` (an ``nvcc``
 build of such a file takes seconds; one that includes PyTorch's headers,
 minutes).  The build runs at first use, or through :func:`build`, into
-``build/torch_kernels/`` at the repository root, keyed by a digest of the
-sources.
+``build/torch_kernels/`` at the repository root, keyed by a digest of each
+source and the headers it includes.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``LAUNCHES`` counts kernel
-launches per wrapper, so a run can show that it went through the kernels.
+launches per source, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -26,13 +31,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+
+from .channel import OmaTerms, oma_residual
 
 # shared Weiszfeld constants (the kernels' sources hold the same values)
 DIST_CLAMP = 1e-4  # divide-by-zero guard, MNIST_Air_weight.py:151,:178
@@ -40,10 +48,11 @@ GM_THRESHOLD_FACTOR = 500.0  # gm power-control threshold = 500*scaler^2, :152
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_COMMON = "weiszfeld_common.cuh"
 _SOURCES = {
     "weiszfeld_step": "weiszfeld_step.cu",
     "aircomp_weiszfeld_step": "aircomp_weiszfeld_step.cu",
+    "select_columns": "select_columns.cu",
+    "packed_vote_counts": "packed_vote_counts.cu",
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +73,21 @@ _ARGTYPES = {
         _P, ctypes.c_int, _P, _P, _P, ctypes.c_float, ctypes.c_longlong,
         ctypes.c_longlong, _P, _P, _P, _P,
     ],
+    "select_columns": [
+        _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+    ],
+    "packed_vote_counts": [
+        _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+    ],
+}
+# further C functions of a library: name -> (argtypes, restype)
+_QUERIES = {
+    "select_columns": {
+        "select_columns_scratch_bytes": (
+            [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong,
+        ),
+    },
 }
 
 
@@ -88,9 +112,24 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(name: str):
+    """The kernel's source and the repo headers it includes (transitively),
+    in a fixed order."""
+    files, todo = [], [_SOURCES[name]]
+    while todo:
+        f = todo.pop(0)
+        if f not in files:
+            files.append(f)
+            todo += [m.decode() for m in _INCLUDE.findall((CSRC / f).read_bytes())]
+    return files
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (_COMMON, _SOURCES[name]):
+    for src in _source_files(name):
         h.update((CSRC / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
@@ -129,6 +168,9 @@ def build(names: Iterable[str] = tuple(_SOURCES)) -> Dict[str, float]:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+        for qname, (argtypes, restype) in _QUERIES.get(name, {}).items():
+            q = getattr(lib, qname)
+            q.argtypes, q.restype = argtypes, restype
         _LIBS[name] = lib
     return seconds
 
@@ -175,6 +217,117 @@ def aircomp_weiszfeld_step_ref(
     gain = torch.sqrt(p_max / torch.maximum(p_message, GM_THRESHOLD_FACTOR * s * s))
     coeff = torch.where(finite, gain * inv, 0.0)
     return torch.sum(wz * coeff[:, None], dim=0), torch.sum(coeff) * s
+
+
+KEY_MIN = -(2**31)
+KEY_MAX = 2**31 - 1
+SIGN_WORD_BITS = 32  # coordinates per sign word, LSB-first
+
+
+def total_order_keys(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 keys whose integer order is the IEEE-754 total order
+    (``pallas_kernels.total_order_keys``, :262).
+
+    A positive float keeps its bit pattern; a negative one is
+    bit-complemented into [0, 2^31 - 1] and shifted down by 2^31, which
+    reverses its order without overflow.  ``-0.0 < +0.0``, and a positive
+    NaN ranks above +Inf as a sort puts it.  A NEGATIVE NaN ranks below
+    -Inf where a sort puts it last; no fault or attack of this codebase
+    makes one."""
+    i = v.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(i < 0, torch.bitwise_not(i) + KEY_MIN, i)
+
+
+def total_order_vals(keys: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`total_order_keys` (NaN payloads too)."""
+    i = torch.where(keys < 0, torch.bitwise_not(keys - KEY_MIN), keys)
+    return i.contiguous().view(torch.float32)
+
+
+def nth_smallest_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-column n-th smallest (0-indexed) key of [K, d] int32 keys, by a
+    32-step bisection on the key value: each step counts ``keys <= mid``
+    (JAX ``_nth_smallest_keys``, ``ops/aggregators.py:112``)."""
+    cols = keys.shape[1]
+    lo = torch.full((cols,), KEY_MIN, dtype=torch.int32, device=keys.device)
+    hi = torch.full((cols,), KEY_MAX, dtype=torch.int32, device=keys.device)
+    for _ in range(32):
+        # floor((lo + hi) / 2) without overflow; >> on int32 is arithmetic
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        cnt = torch.sum(keys <= mid[None, :], dim=0)
+        above = cnt <= n  # fewer than n + 1 keys at or below mid
+        lo, hi = torch.where(above, mid + 1, lo), torch.where(above, hi, mid)
+    return lo
+
+
+def select_median(w: torch.Tensor) -> torch.Tensor:
+    """Coordinatewise lower-middle median ``sorted[(K - 1) // 2]`` of a
+    [K, d] stack, without a sort (JAX ``_select_median``, :137)."""
+    k = w.shape[0]
+    return total_order_vals(nth_smallest_keys(total_order_keys(w), (k - 1) // 2))
+
+
+def select_trimmed_mean(w: torch.Tensor, b: int) -> torch.Tensor:
+    """b-trimmed column mean without a sort (JAX ``_select_trimmed_mean``,
+    :145): find the kept band's boundary keys by bisection, sum the strict
+    interior, and add each boundary value times its kept copies (exact
+    under ties at the trim boundary)."""
+    k = w.shape[0]
+    w32 = w.to(torch.float32)
+    keys = total_order_keys(w32)
+    lo_k = nth_smallest_keys(keys, b)  # rank b, the lowest kept
+    hi_k = nth_smallest_keys(keys, k - b - 1)  # rank K-b-1, the highest kept
+    interior = (keys > lo_k[None, :]) & (keys < hi_k[None, :])
+    total = torch.sum(torch.where(interior, w32, 0.0), dim=0)
+    last = k - b - 1
+
+    def kept_copies(boundary):
+        # entries equal to a boundary key occupy the rank run
+        # [#(< key), #(<= key) - 1]; clip it to the kept band [b, last]
+        n_lt = torch.sum(keys < boundary[None, :], dim=0)
+        n_le = torch.sum(keys <= boundary[None, :], dim=0)
+        run = torch.clamp(n_le - 1, max=last) - torch.clamp(n_lt, min=b) + 1
+        return torch.clamp(run, min=0).to(torch.float32)
+
+    def boundary_sum(boundary, copies):
+        # only where copies exist: keeps 0 * Inf and 0 * NaN out
+        return torch.where(copies > 0, copies * total_order_vals(boundary), 0.0)
+
+    total = total + boundary_sum(lo_k, kept_copies(lo_k))
+    total = total + torch.where(
+        lo_k == hi_k, 0.0, boundary_sum(hi_k, kept_copies(hi_k))
+    )
+    return total / float(k - 2 * b)
+
+
+def _received(w: torch.Tensor, channel: Optional[OmaTerms]) -> torch.Tensor:
+    return w if channel is None else w + oma_residual(channel)
+
+
+def fused_median_ref(w: torch.Tensor, channel: Optional[OmaTerms] = None) -> torch.Tensor:
+    """Plain torch version of :func:`fused_median`.  Not ``torch.median``:
+    that returns NaN for a column holding a NaN and does not order -0.0
+    below +0.0."""
+    return select_median(_received(w, channel))
+
+
+def fused_trimmed_mean_ref(
+    w: torch.Tensor, b: int, channel: Optional[OmaTerms] = None
+) -> torch.Tensor:
+    """Plain torch version of :func:`fused_trimmed_mean`."""
+    return select_trimmed_mean(_received(w, channel), b)
+
+
+def packed_vote_counts_ref(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Plain torch version of :func:`packed_vote_counts`: bit planes
+    ``(words >> j) & 1`` summed over K, flattened in ``c = w*32 + j``
+    order (JAX ``_packed_vote_counts_xla``, ``ops/aggregators.py:660``).
+    ``>>`` on int32 is arithmetic, so a word with bit 31 set shifts in
+    ones from the top, but ``& 1`` still reads bit j."""
+    shifts = torch.arange(SIGN_WORD_BITS, dtype=torch.int32, device=words.device)
+    planes = (words[:, :, None] >> shifts[None, None, :]) & 1
+    counts = torch.sum(planes, dim=0, dtype=torch.int32)  # [W, 32]
+    return counts.reshape(-1)[:d]
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +419,97 @@ def aircomp_weiszfeld_step(
         raise RuntimeError(f"aircomp_weiszfeld_step launch failed: CUDA error {err}")
     LAUNCHES["aircomp_weiszfeld_step"] += 1
     return num, den
+
+
+def _check_select(w: torch.Tensor, channel: Optional[OmaTerms]):
+    if w.dim() != 2 or w.shape[0] < 1 or w.shape[1] < 1:
+        raise ValueError(f"stack must be [K, d] with K, d >= 1, got {tuple(w.shape)}")
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"stack must be a contiguous float32 tensor, got {w.dtype}")
+    if channel is None:
+        return
+    k, d = w.shape
+    for what, t in zip(channel._fields, channel):
+        shape = (k, d) if what in ("n_r", "n_i") else (k,)
+        _check_vec(t, w, t.numel(), f"channel.{what}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"channel.{what} must be {list(shape)}, got {list(t.shape)}")
+
+
+def _select(w: torch.Tensor, b: int, want_mean: bool,
+            channel: Optional[OmaTerms]) -> torch.Tensor:
+    _check_select(w, channel)
+    k, d = w.shape
+    fn = _launch_fn("select_columns")
+    lib = _LIBS["select_columns"]
+    with torch.cuda.device(w.device):
+        scratch_bytes = lib.select_columns_scratch_bytes(k, d)
+        if scratch_bytes < 0:
+            raise RuntimeError(f"select_columns: CUDA error {-scratch_bytes}")
+        scratch = (
+            torch.empty(k * d, dtype=torch.int32, device=w.device)
+            if scratch_bytes else None
+        )
+        out = torch.empty(d, dtype=torch.float32, device=w.device)
+        if channel is None:
+            ch = (None,) * 5
+        else:
+            ch = (channel.n_r.data_ptr(), channel.n_i.data_ptr(),
+                  channel.h_r.data_ptr(), channel.h_i.data_ptr(),
+                  channel.h_sq.data_ptr())
+        err = fn(
+            w.data_ptr(), *ch, k, d, b, int(want_mean),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(w.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"select_columns launch failed: CUDA error {err}")
+    LAUNCHES["select_columns"] += 1
+    return out
+
+
+def fused_median(w: torch.Tensor, channel: Optional[OmaTerms] = None) -> torch.Tensor:
+    """Coordinatewise lower-middle median ``sorted[(K - 1) // 2]`` of a
+    [K, d] f32 stack, with ``channel`` (:class:`..channel.OmaTerms`) folded
+    into the read as ``w + oma_residual(channel)``."""
+    if not _cuda_or_cpu(w):
+        return fused_median_ref(w, channel)
+    return _select(w, 0, False, channel)
+
+
+def fused_trimmed_mean(
+    w: torch.Tensor, b: int, channel: Optional[OmaTerms] = None
+) -> torch.Tensor:
+    """Coordinatewise mean of ``sorted[b .. K - b - 1]`` (``K - 2b >= 1``),
+    with the optional channel fold of :func:`fused_median`."""
+    k = w.shape[0]
+    if b < 0 or k - 2 * b < 1:
+        raise ValueError(f"trimmed mean needs 0 <= b and K - 2b >= 1, got K={k}, b={b}")
+    if not _cuda_or_cpu(w):
+        return fused_trimmed_mean_ref(w, b, channel)
+    return _select(w, b, True, channel)
+
+
+def packed_vote_counts(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Per-coordinate set-bit counts [d] int32 of a [K, W = ceil(d/32)]
+    stack of sign words (int32 carrying the uint32 bits, LSB-first):
+    ``counts[c] = #{k : bit (c % 32) of words[k, c // 32]}``."""
+    if not _cuda_or_cpu(words):
+        return packed_vote_counts_ref(words, d)
+    if words.dim() != 2 or words.dtype != torch.int32 or not words.is_contiguous():
+        raise ValueError(
+            f"words must be a contiguous [K, W] int32 tensor, got {words.dtype} "
+            f"{tuple(words.shape)}"
+        )
+    k, w_cnt = words.shape
+    if w_cnt != -(-d // SIGN_WORD_BITS):
+        raise ValueError(f"{w_cnt} words per row do not hold d={d} coordinates")
+    fn = _launch_fn("packed_vote_counts")
+    with torch.cuda.device(words.device):
+        counts = torch.empty(d, dtype=torch.int32, device=words.device)
+        err = fn(words.data_ptr(), k, w_cnt, d, counts.data_ptr(),
+                 torch.cuda.current_stream(words.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packed_vote_counts launch failed: CUDA error {err}")
+    LAUNCHES["packed_vote_counts"] += 1
+    return counts

@@ -3,20 +3,31 @@
 
     python3 chip_smoke.py
 
-1. prints the card (``nvidia-smi``), builds the Weiszfeld kernels from
+1. prints the card (``nvidia-smi``), builds every kernel from
    ``byzantine_aircomp_tpu_torch/ops/csrc`` with nvcc (one process per
    source, in parallel) and prints the build time;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a ragged one, in f32 and bf16, with one
-   non-finite row, and times both;
-3. checks one main-path iteration on the card against the same iteration
-   on the CPU (plain versions), from the same params and draws;
-4. drives the main path through ``harness.run`` (the CLI's entry) on
-   synthetic MNIST with the full MLP:
-   (a) gm, var 1e-2, classflip, K=50 (B=10), 2 rounds x interval 10;
-   (b) gm2, classflip, K=1000 (B=100), 1 round x interval 10;
+2. holds each kernel against its plain PyTorch version on the card and
+   times both: the Weiszfeld steps at the main path's shapes and a ragged
+   one, in f32 and bf16, with one non-finite row; the selection kernel
+   (median, trimmed mean, each with and without the channel fold) and the
+   popcount kernel at (13, 300), (50, 7850) and (1000, 7850), with +-Inf,
+   NaN, tied and signed-zero rows (median and counts bitwise, trimmed mean
+   within 1e-5, every kernel rerun for identical bits);
+3. checks one iteration on the card against the same iteration on the CPU
+   (plain versions), from the same params and draws: gm2, gm, median + var
+   and trimmed_mean + var within 1e-4; krum and signmv (discontinuous
+   rules) bitwise on one shared stack, with the share of coordinates that
+   differ after a whole iteration reported;
+4. drives each path through ``harness.run_with_trainer`` (the CLI's
+   entry) on synthetic MNIST with the full MLP, classflip:
+   (a) gm, var 1e-2, K=50 (B=10), 2 rounds x interval 10;
+   (b) gm2, K=1000 (B=100), 1 round x interval 10;
+   (c) median, var 1e-2, K=50 (B=10), 2 rounds x interval 10;
+   (d) trimmed_mean, var 1e-2, K=1000 (B=100), 1 round x interval 10;
+   (e) signmv --sign-bits 1 --sign-eta 0.01, var 1e-2, K=1000 (B=100),
+       1 round x interval 10;
    with the kernels' launch counters set to 0 before each run and read
-   after it.
+   after it; each run must launch its kernel in every iteration.
 
 Any failed check raises, so the exit code is not 0 and the result line is
 not printed.  The last two lines of standard output are the ``kernels``
@@ -40,6 +51,9 @@ KERNEL_RTOL = 1e-4
 KERNEL_ATOL = 1e-6
 # one iteration on the card vs on the CPU, same params and draws
 ITER_ATOL = 1e-4
+# trimmed mean kernel vs its plain version: the sums run in other orders
+SELECT_RTOL = 1e-5
+SELECT_ATOL = 1e-5
 
 
 def _fail(msg):
@@ -167,6 +181,125 @@ def check_kernels(torch, kernels):
     return rows
 
 
+def _select_inputs(torch, k, d, seed, adversarial):
+    """A realistic [K, d] stack and OMA terms on the card; with
+    ``adversarial``, +-Inf rows, a positive-NaN row, signed zeros and ties."""
+    from byzantine_aircomp_tpu_torch.ops import channel
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = 0.01 * torch.randn(1, d, device="cuda", generator=g) + 1e-3 * torch.randn(
+        k, d, device="cuda", generator=g)
+    if adversarial:
+        w[1] = float("inf")
+        w[2] = float("-inf")
+        w[4] = float("nan")
+        w[5, : d // 2] = 0.0
+        w[6, : d // 2] = -0.0
+        w[7] = w[8]
+        w[9, ::3] = w[10, ::3]
+    terms = channel.oma_terms(k, d, 1e-2, generator=g, device="cuda")
+    return w.contiguous(), channel.OmaTerms(*(t.contiguous() for t in terms))
+
+
+def _bytes_bound(nbytes):
+    """Least time for work bound by bytes: the comparisons and bit counts
+    are integer work far below the compute roof."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _same_bits(torch, a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def check_select_and_popcount(torch, kernels):
+    """Both kernels of the second slice against their plain versions on the
+    card; times at the main path's shapes (K=50 and K=1000, d=7850)."""
+    rows = []
+    for k, d in ((13, 300), (50, 7850), (1000, 7850)):
+        timed = d == 7850
+        for adversarial in (True, False):
+            w, terms = _select_inputs(torch, k, d, seed=k + d + adversarial, adversarial=adversarial)
+            b = int(0.1 * k)
+            for mode, ch in (("median", None), ("median", terms),
+                             ("trimmed_mean", None), ("trimmed_mean", terms)):
+                if mode == "median":
+                    kern = lambda: kernels.fused_median(w, ch)  # noqa: E731
+                    ref = lambda: kernels.fused_median_ref(w, ch)  # noqa: E731
+                else:
+                    kern = lambda: kernels.fused_trimmed_mean(w, b, ch)  # noqa: E731
+                    ref = lambda: kernels.fused_trimmed_mean_ref(w, b, ch)  # noqa: E731
+                got, want = kern(), ref()
+                torch.cuda.synchronize()
+                fin = torch.isfinite(want)
+                if mode == "median":
+                    ok = _same_bits(torch, got, want)
+                    err = 0.0 if ok else float("inf")
+                else:
+                    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+                    ok = (torch.equal(torch.isfinite(got), fin)
+                          and _same_bits(torch, got[~fin], want[~fin])
+                          and bool(torch.allclose(got[fin], want[fin], rtol=SELECT_RTOL,
+                                                  atol=SELECT_ATOL)))
+                deterministic = _same_bits(torch, kern(), got)
+                row = dict(name="select_columns", mode=mode, channel=ch is not None,
+                           k=k, d=d, b=b if mode == "trimmed_mean" else None,
+                           adversarial=adversarial, max_abs_err=err, ok=ok,
+                           deterministic=deterministic)
+                if timed and not adversarial:
+                    row["ms"], row["host_ms"] = _time_ms(torch, kern)
+                    row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
+                    nbytes = k * d * 4 * (3 if ch is not None else 1) + d * 4 + (
+                        3 * k * 4 if ch is not None else 0)
+                    row["bound_ms"], row["bound_by"] = _bytes_bound(nbytes)
+                    row["library_ms"] = None
+                    if mode == "median":
+                        # torch.median's own time on the same (received) stack;
+                        # the port never calls it (its NaN and signed-zero
+                        # rules differ)
+                        recv = w if ch is None else w + kernels.oma_residual(ch)
+                        row["library_ms"] = _time_ms(
+                            torch, lambda: torch.median(recv, dim=0).values)[0]
+                rows.append(row)
+                print(f"kernel select_columns {mode}{'+channel' if ch is not None else ''} "
+                      f"K={k} d={d} adversarial={adversarial}: max_abs_err={err:.3e} "
+                      + " ".join(f"{key}={row[key]:.5f}" for key in
+                                 ("ms", "plain_ms", "bound_ms", "library_ms")
+                                 if row.get(key) is not None)
+                      + f" ok={ok} deterministic={deterministic}")
+                if not ok:
+                    _fail(f"select_columns {mode} disagrees with its plain version "
+                          f"at K={k} d={d} channel={ch is not None} adversarial={adversarial}")
+                if not deterministic:
+                    _fail(f"select_columns {mode} gave different bits on a rerun at K={k} d={d}")
+
+    for k, d in ((13, 300), (50, 7850), (1000, 7850)):
+        g = torch.Generator(device="cuda").manual_seed(k * d)
+        w_cnt = -(-d // 32)
+        words = torch.randint(-(2**31), 2**31 - 1, (k, w_cnt), dtype=torch.int32,
+                              device="cuda", generator=g)
+        words[0] = -1  # bit 31 set in every word
+        words[1] = 0  # a non-finite client packs all-zero
+        kern = lambda: kernels.packed_vote_counts(words, d)  # noqa: E731
+        ref = lambda: kernels.packed_vote_counts_ref(words, d)  # noqa: E731
+        got = kern()
+        ok = torch.equal(got, ref())
+        deterministic = torch.equal(kern(), got)
+        row = dict(name="packed_vote_counts", k=k, d=d, words=w_cnt, max_abs_err=0.0 if ok else float("inf"),
+                   ok=ok, deterministic=deterministic, library_ms=None)
+        if d == 7850:
+            row["ms"], row["host_ms"] = _time_ms(torch, kern)
+            row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
+            row["bound_ms"], row["bound_by"] = _bytes_bound(k * w_cnt * 4 + d * 4)
+        rows.append(row)
+        print(f"kernel packed_vote_counts K={k} d={d} W={w_cnt}: ok={ok} "
+              f"deterministic={deterministic} "
+              + " ".join(f"{key}={row[key]:.5f}" for key in ("ms", "plain_ms", "bound_ms")
+                         if key in row))
+        if not ok or not deterministic:
+            _fail(f"packed_vote_counts wrong or not repeatable at K={k} d={d}")
+    return rows
+
+
 def check_solver_and_iteration(torch):
     """The chunked Weiszfeld loop on the card equals its per-step loop bit
     for bit, and one main-path iteration on the card agrees with the same
@@ -191,9 +324,14 @@ def check_solver_and_iteration(torch):
             _fail(f"{solve.__name__}: chunked loop differs from per-step loop")
         print(f"{solve.__name__}: chunk 16 == chunk 1 bitwise, {outs[0][1]} steps")
 
+    from byzantine_aircomp_tpu_torch.ops import channel
+
     ds = datasets.load("mnist", synthetic_train=3000, synthetic_val=500)
     errs = {}
-    for kw in (dict(agg="gm2"), dict(agg="gm", noise_var=1e-2, agg_maxiter=5)):
+    for kw in (dict(agg="gm2"), dict(agg="gm", noise_var=1e-2, agg_maxiter=5),
+               dict(agg="median", noise_var=1e-2), dict(agg="trimmed_mean", noise_var=1e-2),
+               dict(agg="krum"),
+               dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01)):
         cfg = FedConfig(honest_size=8, byz_size=2, attack="classflip", **kw)
         cpu = Trainer(cfg, dataset=ds, device="cpu")
         gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
@@ -204,22 +342,58 @@ def check_solver_and_iteration(torch):
             "fades": (torch.randn(cfg.agg_maxiter, k, generator=g) / 2**0.5,
                       torch.randn(cfg.agg_maxiter, k, generator=g) / 2**0.5),
             "noise": torch.randn(cfg.agg_maxiter, d + 1, generator=g),
+            "oma": channel.oma_terms(k, d, 1e-2, generator=g),
+            "vote_noise": torch.randn(d, generator=g),
         }
         new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
         on_gpu = {
             "u": draws["u"].cuda(),
             "fades": tuple(f.cuda() for f in draws["fades"]),
             "noise": draws["noise"].cuda(),
+            "oma": channel.OmaTerms(*(t.cuda() for t in draws["oma"])),
+            "vote_noise": draws["vote_noise"].cuda(),
         }
         new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=on_gpu, want_variance=True)
-        err = float((new_gpu.cpu() - new_cpu).abs().max())
-        errs[kw["agg"]] = err
+        diff = (new_gpu.cpu() - new_cpu).abs()
+        err = float(diff.max())
+        differ = float((diff > 0).float().mean())
+        errs[kw["agg"]] = dict(max_abs_err=err, share_of_coords_differing=differ,
+                               variance_card=float(var_gpu), variance_cpu=float(var_cpu))
         print(f"one {kw['agg']} iteration, card vs CPU: max_abs_err={err:.3e} "
+              f"share of coordinates differing={differ:.3e} "
               f"variance {float(var_gpu):.6e} vs {float(var_cpu):.6e}")
         if new_gpu.shape != (d,) or not bool(torch.isfinite(new_gpu).all()):
             _fail(f"{kw['agg']} iteration on the card gave non-finite params")
-        if err > ITER_ATOL:
+        # krum and signmv are discontinuous: a 1e-7 difference in the
+        # client stack can flip a ballot or the argmin, so those two are
+        # held bitwise on one shared stack below instead
+        if kw["agg"] not in ("krum", "signmv") and err > ITER_ATOL:
             _fail(f"{kw['agg']} iteration on the card disagrees with the CPU: {err}")
+        if abs(float(var_gpu) - float(var_cpu)) > 1e-4 * abs(float(var_cpu)):
+            _fail(f"{kw['agg']} honest variance on the card disagrees with the CPU")
+
+    # krum and signmv on the same stack, card vs CPU, bitwise
+    from byzantine_aircomp_tpu_torch.ops import aggregators
+
+    for k in (50, 1000):
+        w, guess, _, _ = _inputs(torch, k, 7850, torch.float32, seed=k)
+        z = torch.randn(7850, device="cuda", generator=torch.Generator(device="cuda").manual_seed(k))
+        cases = {
+            "krum": lambda t, **_: aggregators.krum(t, honest_size=int(0.8 * k)),
+            "signmv1": lambda t, dev: aggregators.sign_majority_vote(
+                t, guess=guess.to(dev), noise_var=1e-2, sign_bits=1, sign_eta=0.01,
+                vote_noise=z.to(dev)),
+            "signmv32": lambda t, dev: aggregators.sign_majority_vote(
+                t, guess=guess.to(dev), noise_var=1e-2, vote_noise=z.to(dev)),
+        }
+        for name, fn in cases.items():
+            on_card = fn(w, dev="cuda")
+            on_cpu = fn(w.cpu(), dev="cpu")
+            same = _same_bits(torch, on_card.cpu(), on_cpu)
+            errs[f"{name}_same_stack_K{k}"] = dict(bitwise=same)
+            print(f"{name} on one K={k} stack, card vs CPU: bitwise equal={same}")
+            if not same:
+                _fail(f"{name} differs between card and CPU on the same K={k} stack")
     return errs
 
 
@@ -258,6 +432,12 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         ("a_gm_var", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10), 2,
          "aircomp_weiszfeld_step"),
         ("b_gm2", dict(agg="gm2", honest_size=900, byz_size=100), 1, "weiszfeld_step"),
+        ("c_median_var", dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10), 2,
+         "select_columns"),
+        ("d_trimmed_mean_var", dict(agg="trimmed_mean", noise_var=1e-2, honest_size=900,
+                                    byz_size=100), 1, "select_columns"),
+        ("e_signmv1_var", dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01,
+                               honest_size=900, byz_size=100), 1, "packed_vote_counts"),
     ):
         cfg = FedConfig(attack="classflip", rounds=rounds, display_interval=10,
                         cache_dir=cache_dir, **kw)
@@ -267,8 +447,8 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        if launches[kernel] < 1:
-            _fail(f"run {label} never launched {kernel}: {launches}")
+        if launches[kernel] < rounds * cfg.display_interval:
+            _fail(f"run {label} did not launch {kernel} in every iteration: {launches}")
         if not bool(torch.isfinite(trainer.flat_params).all()):
             _fail(f"run {label} ended with non-finite params")
         val_acc = record["valAccPath"][-1]
@@ -289,7 +469,7 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         )
         print(f"run {label}: launches={launches} val_acc={val_acc:.4f} "
               f"rounds/sec per round={['%.4f' % r for r in rps]} wall={wall:.1f}s "
-              f"[{card}]")
+              f"variance={record['variencePath']} [{card}]")
     return runs
 
 
@@ -315,29 +495,38 @@ def main():
     print(f"built kernels in {time.perf_counter() - t0:.1f}s: {build_s}")
 
     rows = check_kernels(torch, kernels)
+    rows += check_select_and_popcount(torch, kernels)
     iter_errs = check_solver_and_iteration(torch)
     root = os.path.dirname(os.path.abspath(__file__))
     runs = run_main_path(torch, kernels, harness, FedConfig, card,
                          os.path.join(root, "build", "chip_smoke"))
 
-    main_shape = {"weiszfeld_step": ("b_gm2", 1000), "aircomp_weiszfeld_step": ("a_gm_var", 50)}
+    # each kernel's row: the shape its main-path run gives it
+    picks = {
+        "weiszfeld_step": ("b_gm2", dict(k=1000, d=7850, dtype="float32")),
+        "aircomp_weiszfeld_step": ("a_gm_var", dict(k=50, d=7850, dtype="float32")),
+        "select_columns": ("c_median_var", dict(k=50, d=7850, mode="median", channel=True,
+                                                adversarial=False)),
+        "packed_vote_counts": ("e_signmv1_var", dict(k=1000, d=7850)),
+    }
+    csrc = "byzantine_aircomp_tpu_torch/ops/csrc/"
+    tpu = "byzantine_aircomp_tpu/ops/pallas_kernels.py:"
     sources = {
-        "weiszfeld_step": ("byzantine_aircomp_tpu_torch/ops/csrc/weiszfeld_step.cu",
-                           "byzantine_aircomp_tpu/ops/pallas_kernels.py:126"),
-        "aircomp_weiszfeld_step": (
-            "byzantine_aircomp_tpu_torch/ops/csrc/aircomp_weiszfeld_step.cu",
-            "byzantine_aircomp_tpu/ops/pallas_kernels.py:200"),
+        "weiszfeld_step": (csrc + "weiszfeld_step.cu", tpu + "126"),
+        "aircomp_weiszfeld_step": (csrc + "aircomp_weiszfeld_step.cu", tpu + "200"),
+        "select_columns": (csrc + "select_columns.cu", tpu + "361"),
+        "packed_vote_counts": (csrc + "packed_vote_counts.cu", tpu + "478"),
     }
     line = []
-    for name, (run_label, k) in main_shape.items():
-        row = next(r for r in rows if r["name"] == name and r["k"] == k
-                   and r["d"] == 7850 and r["dtype"] == "float32")
+    for name, (run_label, want) in picks.items():
+        row = next(r for r in rows if r["name"] == name
+                   and all(r.get(key) == v for key, v in want.items()))
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=runs[run_label]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows if r["name"] == name),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None,
+            bound_by=row["bound_by"], library_ms=row.get("library_ms"),
         ))
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

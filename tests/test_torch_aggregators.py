@@ -1,4 +1,4 @@
-"""The port's gm2/gm/mean aggregators vs the JAX package's (impl="xla").
+"""The port's aggregators vs the JAX package's (impl="xla").
 
 Stacks are realistic (rows one local SGD step apart, spread 1e-3): the
 AirComp geometric median's noisy denominator is only noise-robust there.
@@ -149,7 +149,142 @@ def test_mean_matches_jax():
 
 def test_unported_aggregator_raises_clear_keyerror():
     with pytest.raises(KeyError, match="not ported"):
-        tagg.resolve("median")
+        tagg.resolve("bulyan")
     with pytest.raises(KeyError, match="unknown aggregator"):
         tagg.resolve("no_such_rule")
     assert tagg.needs_oma_prepass("gm2") and not tagg.needs_oma_prepass("gm")
+
+
+# ---------------------------------------------------------------------------
+# median, trimmed_mean, krum, signmv
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("k,d", [(13, 300), (10, 7850), (24, 100)])
+def test_median_matches_jax_bitwise(k, d):
+    w, _ = _stack(k, d, seed=k + d)
+    w[-1] = np.nan  # a poisoned row ranks last, as in the sort
+    got = tagg.median(torch.from_numpy(w)).numpy()
+    assert np.array_equal(_bits(got), _bits(jagg.median(jnp.asarray(w))))
+
+
+@pytest.mark.parametrize("beta", [None, 0, 2, 5])
+def test_trimmed_mean_matches_jax_with_boundary_ties(beta):
+    k, d = 12, 200
+    w, _ = _stack(k, d, seed=7)
+    # ties that straddle the trim boundaries
+    w[:4, ::2] = w[4, ::2]
+    w[-3:, 1::3] = w[0, 1::3]
+    got = tagg.trimmed_mean(torch.from_numpy(w), beta=beta).numpy()
+    want = np.asarray(jagg.trimmed_mean(jnp.asarray(w), beta=beta))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_trimmed_mean_channel_fold_equals_oma_first():
+    from byzantine_aircomp_tpu_torch.ops import channel as tchannel
+
+    k, d = 10, 300
+    w, _ = _stack(k, d, seed=1)
+    key = jax.random.PRNGKey(9)
+    terms = tchannel.OmaTerms(
+        *(torch.from_numpy(np.array(t)) for t in jchannel.oma_terms(key, k, d, 1e-2))
+    )
+    wt = torch.from_numpy(w)
+    folded = tagg.trimmed_mean(wt, channel=terms)
+    two_pass = tagg.trimmed_mean(tchannel.oma(wt, 1e-2, terms=terms))
+    assert torch.equal(folded, two_pass)
+    want = np.asarray(jagg.trimmed_mean(jchannel.oma(key, jnp.asarray(w), 1e-2)))
+    np.testing.assert_allclose(folded.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _krum_stack(kind):
+    k, d, honest = 12, 300, 8
+    w, _ = _stack(k, d, seed=11)
+    if kind == "outlier":
+        w[honest:] += 1e3  # distances of ~1e9 dwarf the honest ~1e-4
+    elif kind == "nan_row":
+        w[honest] = np.nan
+        w[honest + 1, 3] = np.inf
+    return w, honest
+
+
+@pytest.mark.parametrize("kind", ["plain", "outlier", "nan_row"])
+def test_krum_selects_the_jax_row(kind):
+    w, honest = _krum_stack(kind)
+    scores = tagg.krum_scores(torch.from_numpy(w), honest).numpy()
+    want_scores = np.asarray(jagg.krum_scores(jnp.asarray(w), honest))
+    assert int(np.argmin(scores)) == int(np.argmin(want_scores))
+    fin = np.isfinite(want_scores)
+    assert np.array_equal(np.isfinite(scores), fin)
+    np.testing.assert_allclose(scores[fin], want_scores[fin], rtol=1e-3)
+    got = tagg.krum(torch.from_numpy(w), honest_size=honest).numpy()
+    want = np.asarray(jagg.krum(jnp.asarray(w), honest_size=honest))
+    assert np.array_equal(_bits(got), _bits(want))
+    assert tagg.resolve("Krum") is tagg.krum
+
+
+def test_krum_poisoned_row_never_wins_at_honest_size_two():
+    w, _ = _krum_stack("nan_row")
+    w = w[6:10]  # rows 2 and 3 poisoned
+    dist = tagg.pairwise_sq_dists(torch.from_numpy(w))
+    assert torch.isinf(dist[2, 2]) and dist[0, 0] == 0
+    got = tagg.krum(torch.from_numpy(w), honest_size=2).numpy()
+    assert np.array_equal(_bits(got), _bits(jagg.krum(jnp.asarray(w), honest_size=2)))
+
+
+def _sign_case(k, d, seed):
+    w, g = _stack(k, d, seed=seed)
+    w[2] = g  # zero deltas vote +1 on the packed wire
+    w[-1, 5] = np.nan  # a non-finite client
+    return w, g
+
+
+@pytest.mark.parametrize("sign_bits,sign_eta,noise_var", [
+    (1, 0.01, 1e-2), (1, 0.5, None), (32, 0.01, 1e-2), (32, None, 1e-2),
+    (32, None, None),
+])
+def test_signmv_matches_jax_bitwise(sign_bits, sign_eta, noise_var):
+    k, d = 11, 7850
+    w, g = _sign_case(k, d, seed=sign_bits)
+    key = jax.random.PRNGKey(17)
+    want = np.asarray(jagg.sign_majority_vote(
+        jnp.asarray(w), guess=jnp.asarray(g), key=key, noise_var=noise_var,
+        sign_eta=sign_eta, sign_bits=sign_bits,
+    ))
+    z = torch.from_numpy(np.array(jax.random.normal(key, (d,), dtype=jnp.float32)))
+    got = tagg.sign_majority_vote(
+        torch.from_numpy(w), guess=torch.from_numpy(g), noise_var=noise_var,
+        sign_eta=sign_eta, sign_bits=sign_bits, vote_noise=z,
+    ).numpy()
+    assert not np.array_equal(got, g)  # it moved
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_pack_signs_matches_jax_words():
+    from byzantine_aircomp_tpu_torch.interop import sign_words_to_jax
+
+    k, d = 9, 300
+    w, g = _sign_case(k, d, seed=4)
+    w[0] = g + 1.0  # every ballot +1: bit 31 set in every word
+    words, k_valid = tagg.pack_signs(torch.from_numpy(w), torch.from_numpy(g))
+    want_words, want_valid = jagg.pack_signs(jnp.asarray(w), jnp.asarray(g))
+    assert words.dtype == torch.int32 and words.shape == (k, tagg.packed_words(d))
+    assert np.array_equal(sign_words_to_jax(words), np.asarray(want_words))
+    assert int(k_valid) == int(want_valid) == k - 1
+    assert np.all(sign_words_to_jax(words)[-1] == 0)
+    counts = tagg.packed_sign_votes(words, d)
+    assert np.array_equal(counts.numpy(), np.asarray(jagg._packed_vote_counts_xla(want_words, d)))
+
+
+def test_signmv_unported_widths_and_missing_eta_raise():
+    w, g = _sign_case(5, 40, seed=1)
+    wt, gt = torch.from_numpy(w), torch.from_numpy(g)
+    with pytest.raises(ValueError, match="not ported"):
+        tagg.sign_majority_vote(wt, guess=gt, sign_bits=8, sign_eta=0.1)
+    with pytest.raises(ValueError, match="sign_eta"):
+        tagg.sign_majority_vote(wt, guess=gt, sign_bits=1)
+    assert not tagg.needs_oma_prepass("signmv")
+    assert tagg.supports_fused_epilogue("median") and not tagg.supports_fused_epilogue("krum")

@@ -105,3 +105,168 @@ def test_kernel_sources_and_constants_agree():
     assert set(tk._SOURCES) == set(tk.LAUNCHES)
     for name, path in tk._SOURCES.items():
         assert f"{name}_launch" in (tk.CSRC / path).read_text()
+
+
+# ---------------------------------------------------------------------------
+# selection (median / trimmed mean) and popcount: plain versions vs the JAX
+# package's Pallas kernels in interpret mode and its XLA realizations
+
+
+def _select_stack(k, d, seed, adversarial=False):
+    w, _, _ = _stack(k, d, seed)
+    if adversarial:
+        w[1] = np.inf
+        w[2] = -np.inf
+        w[4] = np.nan  # a positive NaN row
+        w[5, : d // 2] = 0.0
+        w[6, : d // 2] = -0.0
+        w[7] = w[8]  # ties
+        w[9, ::3] = w[10, ::3]
+    return w
+
+
+SELECT_CASES = [
+    pytest.param(13, 300, False, id="13x300"),
+    pytest.param(25, 300, False, id="25x300"),
+    pytest.param(25, 300, True, id="adversarial"),
+]
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def _jax_terms(k, d, seed, noise_var=1e-2):
+    import jax
+
+    from byzantine_aircomp_tpu.ops import channel as jchannel
+    from byzantine_aircomp_tpu_torch.ops import channel as tchannel
+
+    key = jax.random.PRNGKey(seed)
+    terms = jchannel.oma_terms(key, k, d, noise_var)
+    return key, terms, tchannel.OmaTerms(*(torch.from_numpy(np.array(t)) for t in terms))
+
+
+@pytest.mark.parametrize("k,d,adversarial", SELECT_CASES)
+def test_fused_median_ref_matches_jax_bitwise(k, d, adversarial):
+    from byzantine_aircomp_tpu.ops import aggregators as jagg
+
+    w = _select_stack(k, d, seed=k + d, adversarial=adversarial)
+    got = tk.fused_median_ref(torch.from_numpy(w)).numpy()
+    pallas = pk.fused_median(jnp.asarray(w), interpret=True)
+    sort = np.asarray(jagg.median(jnp.asarray(w)))
+    assert np.array_equal(_bits(got), _bits(pallas))
+    # jnp.sort holds -0.0 == +0.0, so where the median is a zero the sort
+    # path may return the other sign; everywhere else the bits agree
+    zero = (got == 0.0) & (sort == 0.0)
+    assert np.array_equal(_bits(got)[~zero], _bits(sort)[~zero])
+    assert zero.any() == adversarial
+
+
+@pytest.mark.parametrize("k,d,adversarial", SELECT_CASES)
+def test_fused_trimmed_mean_ref_matches_pallas(k, d, adversarial):
+    w = _select_stack(k, d, seed=3 * k + d, adversarial=adversarial)
+    b = int(0.1 * k)
+    got = tk.fused_trimmed_mean_ref(torch.from_numpy(w), b).numpy()
+    want = np.asarray(pk.fused_trimmed_mean(jnp.asarray(w), b, interpret=True))
+    # the adversarial stack's +-Inf/NaN columns come out the same non-finite
+    # value; the finite ones within the stated tolerance
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    assert np.array_equal(_bits(got)[~np.isfinite(got)], _bits(want)[~np.isfinite(want)])
+    fin = np.isfinite(got)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                               atol=1e-5 if adversarial else 1e-6)
+
+
+@pytest.mark.parametrize("k,d", [(13, 300), (25, 300)])
+def test_fused_median_ref_channel_fold_matches_jax(k, d):
+    """The fold is bitwise JAX's ``oma`` followed by either median (the sort
+    path and the XLA key bisection).  JAX's interpret-mode Pallas fold lets
+    XLA contract ``h_r*n_r + h_i*n_i`` into an FMA, a few ULP off its own
+    ``oma`` (its test_channel_fused_pallas_close_to_two_pass says so), so
+    that one is held within the JAX package's own atol."""
+    from byzantine_aircomp_tpu.ops import aggregators as jagg
+    from byzantine_aircomp_tpu.ops import channel as jchannel
+
+    w = _select_stack(k, d, seed=k * d)
+    key, jterms, tterms = _jax_terms(k, d, seed=k)
+    got = tk.fused_median_ref(torch.from_numpy(w), tterms).numpy()
+    sort = jagg.median(jchannel.oma(key, jnp.asarray(w), 1e-2))
+    bisect = jagg.median(jnp.asarray(w), fused_epilogue=True, oma_key=key, noise_var=1e-2)
+    pallas = np.asarray(pk.fused_median(jnp.asarray(w), channel=jterms, interpret=True))
+    assert np.array_equal(_bits(got), _bits(sort))
+    assert np.array_equal(_bits(got), _bits(bisect))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,d", [(13, 300), (25, 300)])
+def test_fused_trimmed_mean_ref_channel_fold_matches_pallas(k, d):
+    w = _select_stack(k, d, seed=k * d + 1)
+    _, jterms, tterms = _jax_terms(k, d, seed=k + 1)
+    b = int(0.1 * k)
+    got = tk.fused_trimmed_mean_ref(torch.from_numpy(w), b, tterms).numpy()
+    want = np.asarray(pk.fused_trimmed_mean(jnp.asarray(w), b, channel=jterms, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_total_order_keys_match_jax_and_round_trip():
+    v = np.array([-np.inf, -1.5, -0.0, 0.0, 1e-38, 2.5, np.inf, np.nan,
+                  np.finfo(np.float32).max, -np.finfo(np.float32).tiny],
+                 np.float32)
+    keys = tk.total_order_keys(torch.from_numpy(v))
+    assert np.array_equal(keys.numpy(), np.asarray(pk.total_order_keys(jnp.asarray(v))))
+    assert np.array_equal(_bits(tk.total_order_vals(keys).numpy()), _bits(v))
+    assert keys[2] < keys[3] < keys[4]  # -0.0 < +0.0 < denormal
+    assert keys[6] < keys[7]  # +Inf < NaN
+
+
+def _words(k, w_cnt, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, size=(k, w_cnt), dtype=np.uint64).astype(np.uint32)
+    words[0] = 0xFFFFFFFF  # bit 31 set in every word
+    words[1] = 0  # a non-finite client's all-zero row
+    words[2] = 0x80000000
+    return words
+
+
+@pytest.mark.parametrize("k,d", [(9, 300), (13, 7850), (4, 32), (3, 1)])
+def test_packed_vote_counts_ref_matches_jax_bitwise(k, d):
+    from byzantine_aircomp_tpu.ops import aggregators as jagg
+    from byzantine_aircomp_tpu_torch.interop import sign_words_from_jax, sign_words_to_jax
+
+    words = _words(k, -(-d // 32), seed=d)
+    wt = sign_words_from_jax(words)
+    assert wt.dtype == torch.int32 and np.array_equal(sign_words_to_jax(wt), words)
+    got = tk.packed_vote_counts_ref(wt, d).numpy()
+    assert got.dtype == np.int32 and got.shape == (d,)
+    assert np.array_equal(got, np.asarray(pk.packed_vote_counts(jnp.asarray(words), d, interpret=True)))
+    assert np.array_equal(got, np.asarray(jagg._packed_vote_counts_xla(jnp.asarray(words), d)))
+
+
+def test_new_cpu_wrappers_take_the_plain_version_and_launch_nothing():
+    w = torch.from_numpy(_select_stack(11, 70, seed=2, adversarial=True))
+    _, _, terms = _jax_terms(11, 70, seed=4)
+    words = torch.from_numpy(_words(5, 3, seed=1).view(np.int32))
+    before = dict(tk.LAUNCHES)
+    for got, want in (
+        (tk.fused_median(w), tk.fused_median_ref(w)),
+        (tk.fused_median(w, terms), tk.fused_median_ref(w, terms)),
+        (tk.fused_trimmed_mean(w, 1), tk.fused_trimmed_mean_ref(w, 1)),
+        (tk.fused_trimmed_mean(w, 2, terms), tk.fused_trimmed_mean_ref(w, 2, terms)),
+        (tk.packed_vote_counts(words, 70), tk.packed_vote_counts_ref(words, 70)),
+    ):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert tk.LAUNCHES == before
+    with pytest.raises(ValueError, match="K - 2b"):
+        tk.fused_trimmed_mean(w, 6)
+
+
+def test_every_kernel_source_is_registered():
+    for name in ("select_columns", "packed_vote_counts"):
+        src = (tk.CSRC / tk._SOURCES[name]).read_text()
+        assert f"{name}_launch" in src
+        assert tk._source_files(name) == [tk._SOURCES[name]]
+    assert tk._source_files("weiszfeld_step") == ["weiszfeld_step.cu", "weiszfeld_common.cuh"]
+    # the channel fold must not be contracted into an FMA
+    src = (tk.CSRC / "select_columns.cu").read_text()
+    assert "__fmul_rn" in src and "__fdiv_rn" in src

@@ -118,9 +118,14 @@ def test_config_fields_mirror_jax_fedconfig():
 @pytest.mark.parametrize("kw,match", [
     (dict(byz_size=2), "requires an attack"),
     (dict(honest_size=0), "honest_size"),
-    (dict(agg="median"), "not ported"),
+    (dict(agg="bulyan"), "not ported"),
     (dict(attack="signflip", byz_size=1), "unknown attack"),
     (dict(display_interval=0), "display_interval"),
+    (dict(agg="median", sign_bits=1, sign_eta=0.1), "only signmv"),
+    (dict(agg="signmv", sign_bits=1), "sign-eta"),
+    (dict(agg="signmv", sign_bits=8), "not ported"),
+    (dict(agg="signmv", sign_bits=3), "one of 1, 8, 16, 32"),
+    (dict(agg="signmv", sign_eta=0.0), "sign_eta must be positive"),
 ])
 def test_config_validate_rejects(kw, match):
     with pytest.raises((ValueError, KeyError), match=match):
