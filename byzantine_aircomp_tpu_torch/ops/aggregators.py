@@ -10,11 +10,12 @@ the JAX package leaves it to XLA.
 
 The JAX package keeps the Weiszfeld loop on the device
 (``lax.while_loop``).  Here the loop runs in chunks of ``chunk`` steps with
-no host sync inside a chunk: once ``movement <= tol`` the guess is frozen
-on the device (``torch.where``), and the host reads the done flag once per
-chunk.  The result is exactly that of stopping at the step where the JAX
-``cond`` stops; steps run after convergence change nothing, and their
-draws are discarded.
+no host sync inside a chunk: each step is one fused kernel launch on the
+card (the Weiszfeld sums, the guess update and the stopping rule), and
+once ``movement <= tol`` the guess stays as it is on the device; the host
+reads the done flag once per chunk.  The result is exactly that of
+stopping at the step where the JAX ``cond`` stops; steps run after
+convergence change nothing, and their draws are discarded.
 """
 
 from __future__ import annotations
@@ -56,34 +57,35 @@ def mean(wmatrix: torch.Tensor, **_) -> torch.Tensor:
 
 
 def weiszfeld_solve(
-    step: Callable[[torch.Tensor, int], torch.Tensor],
+    step: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     init_guess: torch.Tensor,
     maxiter: int,
-    tol: float,
     chunk: int = WEISZFELD_CHUNK,
 ) -> Tuple[torch.Tensor, int]:
-    """Run ``g <- step(g, i)`` until ``||g - g_next|| <= tol`` or
-    ``maxiter`` steps; returns ``(guess, steps run)``.
+    """Run ``(g, active, steps) <- step(g, g_spare, active, steps, i)`` until
+    the step clears ``active`` (``||g - g_next|| <= tol``) or ``maxiter``
+    steps; returns ``(guess, steps run)``.
 
-    Same stopping rule as the JAX ``lax.while_loop`` (``i < maxiter and
-    movement > tol``, movement starting at +Inf).  Steps run in chunks of
+    ``step`` is a Weiszfeld step with the loop's update and stopping rule
+    (:func:`.kernels.weiszfeld_advance`): on the card one fused launch that
+    writes the guess into ``g_spare``, on the CPU its plain version.  The
+    two guess buffers swap after each step.  Steps run in chunks of
     ``chunk`` with the done flag kept on the device; a step taken after
-    convergence is computed and then discarded by ``torch.where``, so the
-    result equals the per-step loop's bit for bit (``chunk=1``).
+    convergence leaves the guess as it is, so the result equals the
+    per-step loop's bit for bit (``chunk=1``).
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    g = init_guess
-    active = torch.ones((), dtype=torch.bool, device=g.device)
+    # a private copy: on the card the buffers are written in place
+    g = init_guess.clone()
+    spare = torch.empty_like(g)
+    active = torch.ones((), dtype=torch.int32, device=g.device)
     steps = torch.zeros((), dtype=torch.int64, device=g.device)
     i = 0
     while i < maxiter:
         for _ in range(min(chunk, maxiter - i)):
-            g_next = step(g, i)
-            movement = torch.linalg.vector_norm(g - g_next)
-            g = torch.where(active, g_next, g)
-            steps = steps + active.to(torch.int64)
-            active = active & (movement > tol)
+            g_next, active, steps = step(g, spare, active, steps, i)
+            g, spare = g_next, g
             i += 1
         if not bool(active):  # the one host sync per chunk
             break
@@ -106,11 +108,10 @@ def gm2_solve(
 ) -> Tuple[torch.Tensor, int]:
     """:func:`gm2` returning ``(aggregate, Weiszfeld steps run)``."""
 
-    def step(g, _i):
-        num, den = kernels.weiszfeld_step(wmatrix, g.contiguous())
-        return num / den
+    def step(g, g_out, active, steps, _i):
+        return kernels.weiszfeld_step_fused(wmatrix, g, g_out, active, steps, tol)
 
-    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, tol, chunk)
+    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk)
 
 
 @AGGREGATORS.register("gm2")
@@ -138,40 +139,42 @@ def gm_solve(
 ) -> Tuple[torch.Tensor, int]:
     """:func:`gm` returning ``(aggregate, Weiszfeld steps run)``.
 
-    Step t draws the fades ``h_r, h_i ~ N(0, 1/2)`` [K] and, with
+    Step t draws the fades' standard normals [K] twice and, with
     ``noise_var`` set, the receiver's standard normals [d+1] from
-    ``generator`` in that order; or reads them from ``fades`` = (h_r [T, K],
-    h_i [T, K]) and ``noise`` [T, d+1], T >= the steps run (the tests pass
-    the JAX package's draws this way)."""
+    ``generator`` in that order (the fades are ``channel.FADE_STD`` times
+    the first two, as ``channel.rayleigh_fade`` makes them); or reads the
+    fades from ``fades`` = (h_r [T, K], h_i [T, K]) and the normals from
+    ``noise`` [T, d+1], T >= the steps run (the tests pass the JAX
+    package's draws this way).  The scaler (RMS of the guess) is carried
+    from step to step on the device."""
     k, d = wmatrix.shape
     dev = wmatrix.device
     noise_scale = None
     if noise_var is not None:
-        noise_scale = torch.sqrt(
-            torch.tensor(noise_var, dtype=torch.float32, device=dev) / 2.0
-        )
+        # on the host: the kernel takes it as a float, the plain version as
+        # this tensor, and both get the same bits
+        noise_scale = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32) / 2.0)
+    init = _init_guess(wmatrix, guess)
+    scaler = kernels.guess_rms(init)
 
-    def step(g, i):
+    def step(g, g_out, active, steps, i):
+        nonlocal scaler
         if fades is None:
-            h_r, h_i = channel.rayleigh_fade(k, generator=generator, device=dev)
+            h_r = torch.randn(k, generator=generator, device=dev)
+            h_i = torch.randn(k, generator=generator, device=dev)
+            fade_scale = channel.FADE_STD
         else:
-            h_r, h_i = fades[0][i], fades[1][i]
-        scaler = torch.sqrt(torch.mean(g**2)).reshape(1)
-        num, den = kernels.aircomp_weiszfeld_step(
-            wmatrix, g.contiguous(), channel.floored_hsq(h_r, h_i).contiguous(),
-            scaler, p_max,
-        )
+            h_r, h_i, fade_scale = fades[0][i], fades[1][i], None
+        z = None
         if noise_scale is not None:
-            z = (
-                torch.randn(d + 1, generator=generator, device=dev)
-                if noise is None else noise[i]
-            )
-            n = noise_scale * z
-            num = num + n[:-1]
-            den = den + n[-1]
-        return num / den * scaler
+            z = torch.randn(d + 1, generator=generator, device=dev) if noise is None else noise[i]
+        g, active, steps, scaler = kernels.aircomp_weiszfeld_step_fused(
+            wmatrix, g, g_out, active, steps, tol, h_r, h_i, scaler,
+            fade_scale=fade_scale, z=z, noise_scale=noise_scale, p_max=p_max,
+        )
+        return g, active, steps
 
-    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, tol, chunk)
+    return weiszfeld_solve(step, init, maxiter, chunk)
 
 
 @AGGREGATORS.register("gm", owns_channel=True)

@@ -24,6 +24,8 @@ import torch
 # |h|^2 floor for channel-inversion divisions: a deep fade (|h|^2 ~ 0)
 # would otherwise explode the equalization residual to +-Inf
 HSQ_FLOOR = 1e-6
+# std of each fade component: h_r, h_i ~ N(0, 1/2)
+FADE_STD = 1.0 / math.sqrt(2.0)
 
 
 class OmaTerms(NamedTuple):
@@ -44,9 +46,8 @@ def rayleigh_fade(
     device=None,
 ):
     """Per-client complex fade components h_r, h_i ~ N(0, 1/2), shape [K]."""
-    std = 1.0 / math.sqrt(2.0)
-    h_r = std * torch.randn(k, generator=generator, device=device)
-    h_i = std * torch.randn(k, generator=generator, device=device)
+    h_r = FADE_STD * torch.randn(k, generator=generator, device=device)
+    h_i = FADE_STD * torch.randn(k, generator=generator, device=device)
     return h_r, h_i
 
 

@@ -7,6 +7,10 @@ for each TPU kernel there:
   ``num = sum_i w_i/d_i``, ``den = sum_i 1/d_i`` (the ``gm2`` aggregator);
 * :func:`aircomp_weiszfeld_step` (``csrc/aircomp_weiszfeld_step.cu``) — one
   over-the-air step with OMA2 power control (the ``gm`` aggregator);
+* :func:`weiszfeld_step_fused` / :func:`aircomp_weiszfeld_step_fused` — the
+  same kernels in their fused mode: a whole step of the Weiszfeld loop
+  (the guess update, the stopping rule and, for ``gm``, the fades' squared
+  magnitudes, the receiver noise and the next scaler) in one launch;
 * :func:`fused_median` / :func:`fused_trimmed_mean`
   (``csrc/select_columns.cu``) — coordinatewise order statistics over
   IEEE total-order keys, with the OMA channel optionally folded into the
@@ -23,7 +27,8 @@ source and the headers it includes.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``LAUNCHES`` counts kernel
-launches per source, so a run can show that it went through the kernels.
+launches per source (both modes of a Weiszfeld kernel count under its
+source), so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from .channel import OmaTerms, oma_residual
+from .channel import OmaTerms, floored_hsq, oma_residual
 
 # shared Weiszfeld constants (the kernels' sources hold the same values)
 DIST_CLAMP = 1e-4  # divide-by-zero guard, MNIST_Air_weight.py:151,:178
@@ -64,31 +69,40 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in _SOURCES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
+_LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "weiszfeld_step": [
-        _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_longlong,
-        _P, _P, _P, _P,
-    ],
+    "weiszfeld_step": [_P, _I, _P, _LL, _LL, _P, _I, _P, _P, _P],
     "aircomp_weiszfeld_step": [
-        _P, ctypes.c_int, _P, _P, _P, ctypes.c_float, ctypes.c_longlong,
-        ctypes.c_longlong, _P, _P, _P, _P,
+        _P, _I, _P, _P, _P, _F, _LL, _LL, _P, _I, _P, _P, _P,
     ],
     "select_columns": [
-        _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P, _P, _P,
     ],
-    "packed_vote_counts": [
-        _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
-    ],
+    "packed_vote_counts": [_P, _LL, _LL, _LL, _P, _P],
 }
 # further C functions of a library: name -> (argtypes, restype)
+_WORKSPACE_QUERY = {"weiszfeld_workspace_bytes": ([_LL, _LL, _I], _LL)}
 _QUERIES = {
-    "select_columns": {
-        "select_columns_scratch_bytes": (
-            [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong,
+    "weiszfeld_step": {
+        **_WORKSPACE_QUERY,
+        "weiszfeld_step_fused": (
+            [_P, _I, _P, _P, _LL, _LL, _F, _P, _P, _P, _I, _P], _I,
         ),
     },
+    "aircomp_weiszfeld_step": {
+        **_WORKSPACE_QUERY,
+        "aircomp_weiszfeld_step_fused": (
+            [_P, _I, _P, _P, _P, _P, _F, _P, _F, _P, _F, _LL, _LL, _F, _P, _P,
+             _P, _I, _P], _I,
+        ),
+    },
+    "select_columns": {
+        "select_columns_scratch_bytes": ([_LL, _LL], _LL),
+    },
 }
+# Weiszfeld workspaces (slice partials and the ticket), one per
+# (device, K, d, col_tiles), allocated at first use and kept
+_WORKSPACES: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
 
 
 def reset_launches():
@@ -217,6 +231,56 @@ def aircomp_weiszfeld_step_ref(
     gain = torch.sqrt(p_max / torch.maximum(p_message, GM_THRESHOLD_FACTOR * s * s))
     coeff = torch.where(finite, gain * inv, 0.0)
     return torch.sum(wz * coeff[:, None], dim=0), torch.sum(coeff) * s
+
+
+def weiszfeld_advance(
+    g: torch.Tensor,
+    g_next: torch.Tensor,
+    active: torch.Tensor,
+    steps: torch.Tensor,
+    tol: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Weiszfeld loop's update and stopping rule (the JAX
+    ``lax.while_loop`` cond ``movement > tol``, movement starting at +Inf):
+    ``(g_next if active else g, active & movement > tol, steps + active)``.
+    ``active`` is int32, ``steps`` int64."""
+    on = active != 0
+    movement = torch.linalg.vector_norm(g - g_next)
+    return (
+        torch.where(on, g_next, g),
+        (on & (movement > tol)).to(torch.int32),
+        steps + on.to(torch.int64),
+    )
+
+
+def weiszfeld_step_fused_ref(w, g, active, steps, tol):
+    """Plain torch version of :func:`weiszfeld_step_fused`."""
+    num, den = weiszfeld_step_ref(w, g)
+    return weiszfeld_advance(g, num / den, active, steps, tol)
+
+
+def guess_rms(g: torch.Tensor) -> torch.Tensor:
+    """The gm scaler: the RMS of the guess, a one-element tensor."""
+    return torch.sqrt(torch.mean(g**2)).reshape(1)
+
+
+def aircomp_weiszfeld_step_fused_ref(
+    w, g, active, steps, tol, h_r, h_i, scaler, *, fade_scale=None, z=None,
+    noise_scale=None, p_max=1.0,
+):
+    """Plain torch version of :func:`aircomp_weiszfeld_step_fused`: the
+    fades (``fade_scale * draw``, as ``channel.rayleigh_fade``), OMA2 on the
+    gm message, the receiver noise, ``g_next = num / den * scaler``, the
+    stopping rule and the next scaler (reference ``:145-155``)."""
+    if fade_scale is not None:
+        h_r, h_i = fade_scale * h_r, fade_scale * h_i
+    num, den = aircomp_weiszfeld_step_ref(w, g, floored_hsq(h_r, h_i), scaler, p_max)
+    if z is not None:
+        n = noise_scale * z
+        num = num + n[:-1]
+        den = den + n[-1]
+    g_out, active, steps = weiszfeld_advance(g, num / den * scaler, active, steps, tol)
+    return g_out, active, steps, guess_rms(g_out)
 
 
 KEY_MIN = -(2**31)
@@ -363,20 +427,49 @@ def _cuda_or_cpu(w: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {w.device}")
 
 
-def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ideal Weiszfeld step over [K, d]: ``(num [d], den [])``."""
+def _workspace(name: str, w: torch.Tensor, col_tiles: int) -> torch.Tensor:
+    """The Weiszfeld workspace for ``w``'s device and shape, allocated (and
+    its ticket zeroed) at first use; never inside a CUDA-graph capture."""
+    k, d = w.shape
+    key = (w.device.index, k, d, col_tiles)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the Weiszfeld workspace must be allocated before a CUDA-graph "
+                "capture: run one step outside the capture first"
+            )
+        nbytes = _LIBS[name].weiszfeld_workspace_bytes(k, d, col_tiles)
+        if nbytes < 0:
+            raise RuntimeError(f"{name}: no tiling for K={k}, d={d} (CUDA error {-nbytes})")
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=w.device)
+        _WORKSPACES[key] = ws
+    return ws
+
+
+def _check_col_tiles(col_tiles: int):
+    if col_tiles < 0:
+        raise ValueError(f"col_tiles must be >= 0, got {col_tiles}")
+
+
+def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor, *,
+                   col_tiles: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ideal Weiszfeld step over [K, d]: ``(num [d], den [])``.
+    ``col_tiles`` > 0 splits each row over that many blocks (0: by the
+    shape)."""
     if not _cuda_or_cpu(w):
         return weiszfeld_step_ref(w, guess)
     _check_stack(w, guess)
+    _check_col_tiles(col_tiles)
     k, d = w.shape
     fn = _launch_fn("weiszfeld_step")
     with torch.cuda.device(w.device):
-        coeff = torch.empty(k, dtype=torch.float32, device=w.device)
+        ws = _workspace("weiszfeld_step", w, col_tiles)
         num = torch.empty(d, dtype=torch.float32, device=w.device)
         den = torch.empty((), dtype=torch.float32, device=w.device)
         err = fn(
             w.data_ptr(), int(w.dtype == torch.bfloat16), guess.data_ptr(),
-            k, d, coeff.data_ptr(), num.data_ptr(), den.data_ptr(),
+            k, d, ws.data_ptr(), col_tiles, num.data_ptr(), den.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
@@ -391,6 +484,8 @@ def aircomp_weiszfeld_step(
     h_sq: torch.Tensor,
     scaler: torch.Tensor,
     p_max: float = 1.0,
+    *,
+    col_tiles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One over-the-air Weiszfeld step: ``(num [d], den [])`` with
     ``num = sum_i gain_i * w_i / d_i`` and ``den = sum_i gain_i * s / d_i``,
@@ -401,24 +496,134 @@ def aircomp_weiszfeld_step(
     if not _cuda_or_cpu(w):
         return aircomp_weiszfeld_step_ref(w, guess, h_sq, scaler, p_max)
     _check_stack(w, guess)
+    _check_col_tiles(col_tiles)
     k, d = w.shape
     _check_vec(h_sq, w, k, "h_sq")
     _check_vec(scaler, w, 1, "scaler")
     fn = _launch_fn("aircomp_weiszfeld_step")
     with torch.cuda.device(w.device):
-        coeff = torch.empty(k, dtype=torch.float32, device=w.device)
+        ws = _workspace("aircomp_weiszfeld_step", w, col_tiles)
         num = torch.empty(d, dtype=torch.float32, device=w.device)
         den = torch.empty((), dtype=torch.float32, device=w.device)
         err = fn(
             w.data_ptr(), int(w.dtype == torch.bfloat16), guess.data_ptr(),
             h_sq.data_ptr(), scaler.data_ptr(), float(p_max), k, d,
-            coeff.data_ptr(), num.data_ptr(), den.data_ptr(),
+            ws.data_ptr(), col_tiles, num.data_ptr(), den.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"aircomp_weiszfeld_step launch failed: CUDA error {err}")
     LAUNCHES["aircomp_weiszfeld_step"] += 1
     return num, den
+
+
+def _check_state(w, g_in, g_out, active, steps):
+    _check_stack(w, g_in)
+    _check_vec(g_out, w, w.shape[1], "g_out")
+    if g_out.data_ptr() == g_in.data_ptr():
+        raise ValueError("g_out must be another buffer than g_in")
+    for t, dtype, what in ((active, torch.int32, "active"), (steps, torch.int64, "steps")):
+        if t.dtype != dtype or t.numel() != 1 or t.device != w.device:
+            raise ValueError(
+                f"{what} must be one {dtype} on {w.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+
+
+def weiszfeld_step_fused(
+    w: torch.Tensor,
+    g_in: torch.Tensor,
+    g_out: torch.Tensor,
+    active: torch.Tensor,
+    steps: torch.Tensor,
+    tol: float,
+    *,
+    col_tiles: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of the gm2 Weiszfeld loop in one launch:
+    ``(g_next, active, steps)`` as :func:`weiszfeld_step_fused_ref` gives
+    them.  On the card the kernel writes the guess into ``g_out`` and
+    updates ``active`` (int32) and ``steps`` (int64) in place, and returns
+    those tensors; on the CPU ``g_out`` is unused."""
+    if not _cuda_or_cpu(w):
+        return weiszfeld_step_fused_ref(w, g_in, active, steps, tol)
+    _check_state(w, g_in, g_out, active, steps)
+    _check_col_tiles(col_tiles)
+    k, d = w.shape
+    _launch_fn("weiszfeld_step")
+    lib = _LIBS["weiszfeld_step"]
+    with torch.cuda.device(w.device):
+        ws = _workspace("weiszfeld_step", w, col_tiles)
+        err = lib.weiszfeld_step_fused(
+            w.data_ptr(), int(w.dtype == torch.bfloat16), g_in.data_ptr(),
+            g_out.data_ptr(), k, d, float(tol), active.data_ptr(),
+            steps.data_ptr(), ws.data_ptr(), col_tiles,
+            torch.cuda.current_stream(w.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"weiszfeld_step_fused launch failed: CUDA error {err}")
+    LAUNCHES["weiszfeld_step"] += 1
+    return g_out, active, steps
+
+
+def aircomp_weiszfeld_step_fused(
+    w: torch.Tensor,
+    g_in: torch.Tensor,
+    g_out: torch.Tensor,
+    active: torch.Tensor,
+    steps: torch.Tensor,
+    tol: float,
+    h_r: torch.Tensor,
+    h_i: torch.Tensor,
+    scaler: torch.Tensor,
+    *,
+    fade_scale: Optional[float] = None,
+    z: Optional[torch.Tensor] = None,
+    noise_scale: Optional[torch.Tensor] = None,
+    p_max: float = 1.0,
+    col_tiles: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of the gm Weiszfeld loop in one launch:
+    ``(g_next, active, steps, next scaler)`` as
+    :func:`aircomp_weiszfeld_step_fused_ref` gives them.  ``h_r``, ``h_i``
+    [K] are the fades, or with ``fade_scale`` the draws the fades are
+    ``fade_scale`` times; ``z`` [d+1] the receiver's standard normals and
+    ``noise_scale`` their std (a float32 0-d tensor), or both None for a
+    noiseless receiver.  On the card ``g_out``, ``active``, ``steps`` and
+    ``scaler`` are written in place and returned."""
+    if not _cuda_or_cpu(w):
+        return aircomp_weiszfeld_step_fused_ref(
+            w, g_in, active, steps, tol, h_r, h_i, scaler,
+            fade_scale=fade_scale, z=z, noise_scale=noise_scale, p_max=p_max,
+        )
+    _check_state(w, g_in, g_out, active, steps)
+    _check_col_tiles(col_tiles)
+    k, d = w.shape
+    _check_vec(h_r, w, k, "h_r")
+    _check_vec(h_i, w, k, "h_i")
+    _check_vec(scaler, w, 1, "scaler")
+    if (z is None) != (noise_scale is None):
+        raise ValueError("z and noise_scale come together")
+    if z is not None:
+        _check_vec(z, w, d + 1, "z")
+    _launch_fn("aircomp_weiszfeld_step")
+    lib = _LIBS["aircomp_weiszfeld_step"]
+    with torch.cuda.device(w.device):
+        ws = _workspace("aircomp_weiszfeld_step", w, col_tiles)
+        err = lib.aircomp_weiszfeld_step_fused(
+            w.data_ptr(), int(w.dtype == torch.bfloat16), g_in.data_ptr(),
+            g_out.data_ptr(), h_r.data_ptr(), h_i.data_ptr(),
+            1.0 if fade_scale is None else float(fade_scale),
+            None if z is None else z.data_ptr(),
+            0.0 if noise_scale is None else float(noise_scale),
+            scaler.data_ptr(), float(p_max), k, d, float(tol),
+            active.data_ptr(), steps.data_ptr(), ws.data_ptr(), col_tiles,
+            torch.cuda.current_stream(w.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"aircomp_weiszfeld_step_fused launch failed: CUDA error {err}")
+    LAUNCHES["aircomp_weiszfeld_step"] += 1
+    return g_out, active, steps, scaler
 
 
 def _check_select(w: torch.Tensor, channel: Optional[OmaTerms]):

@@ -13,6 +13,13 @@
    popcount kernel at (13, 300), (50, 7850) and (1000, 7850), with +-Inf,
    NaN, tied and signed-zero rows (median and counts bitwise, trimmed mean
    within 1e-5, every kernel rerun for identical bits);
+   The Weiszfeld kernels' fused mode (a whole step of the loop in one
+   launch) is held against its plain version (the plain num/den plus the
+   torch update and stopping rule) at (1, 1), (13, 300), (50, 7850),
+   (60, 7850), (1000, 7850) and (2000, 7850), f32 and bf16, with one
+   non-finite row: active, stopping, and inactive (the guess left bit for
+   bit); every case rerun for identical bits; timed at K=50 and K=1000,
+   also with the rows split over 2 and 3 blocks;
 3. checks one iteration on the card against the same iteration on the CPU
    (plain versions), from the same params and draws: gm2, gm, median + var
    and trimmed_mean + var within 1e-4; krum and signmv (discontinuous
@@ -27,7 +34,10 @@
    (e) signmv --sign-bits 1 --sign-eta 0.01, var 1e-2, K=1000 (B=100),
        1 round x interval 10;
    with the kernels' launch counters set to 0 before each run and read
-   after it; each run must launch its kernel in every iteration.
+   after it; each run must launch its kernel in every iteration.  Runs (a)
+   and (b) also re-run one aggregation of their profiled iteration on its
+   own stack: CUDA kernels per Weiszfeld step (at most 4 for gm, 1 for
+   gm2) and wall ms per step.
 
 Any failed check raises, so the exit code is not 0 and the result line is
 not printed.  The last two lines of standard output are the ``kernels``
@@ -110,7 +120,8 @@ def _inputs(torch, k, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     base = 0.01 * torch.randn(1, d, device="cuda", generator=g)
     w = base + 1e-3 * torch.randn(k, d, device="cuda", generator=g)
-    w[min(3, k - 1), 7] = float("nan")  # one non-finite row
+    if k > 1:
+        w[min(3, k - 1), min(7, d - 1)] = float("nan")  # one non-finite row
     finite = torch.isfinite(w).all(dim=1)
     guess = (w[finite].mean(dim=0) + 1e-4 * torch.randn(d, device="cuda", generator=g)).contiguous()
     h_r = torch.randn(k, device="cuda", generator=g) / 2**0.5
@@ -161,7 +172,7 @@ def check_kernels(torch, kernels):
                 plain_ms, plain_host_ms = _time_ms(torch, lambda: ref(*args))
                 bound_ms, bound_by = _bound(k, d, w.element_size(), air)
                 row = dict(
-                    name=name, k=k, d=d, dtype=str(dtype).replace("torch.", ""),
+                    name=name, mode="num_den", k=k, d=d, dtype=str(dtype).replace("torch.", ""),
                     max_abs_err=err, scale=scale, ok=ok, deterministic=deterministic,
                     ms=ms, plain_ms=plain_ms, host_ms=host_ms,
                     plain_host_ms=plain_host_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -178,6 +189,128 @@ def check_kernels(torch, kernels):
                     _fail(f"{name} disagrees with its plain version at K={k} d={d} {dtype}")
                 if not deterministic:
                     _fail(f"{name} gave different bits on a rerun at K={k} d={d} {dtype}")
+    return rows
+
+
+def _fused_bound(k, d, elem_bytes, aircomp):
+    """Least time for one fused step: read the stack, g_in (and the fades,
+    z and the scaler) once, write g_out and the state; flops as
+    :func:`_bound` plus the update's few per column."""
+    nbytes = k * d * elem_bytes + 2 * d * 4 + 12 + (
+        2 * k * 4 + (d + 1) * 4 + 8 if aircomp else 0)
+    flops = k * d * (6 if aircomp else 4) + d * (8 if aircomp else 5)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fused_call(torch, kernels, air, w, g_in, g_out, state, tol, draws, col_tiles=0):
+    """The fused step on copies of the loop state: (g, active, steps, scaler)."""
+    active, steps, scaler = (t.clone() for t in state)
+    if not air:
+        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol,
+                                              col_tiles=col_tiles), None)
+    return kernels.aircomp_weiszfeld_step_fused(
+        w, g_in, g_out, active, steps, tol, draws["h_r"], draws["h_i"], scaler,
+        fade_scale=draws["fade_scale"], z=draws["z"], noise_scale=draws["noise_scale"],
+        col_tiles=col_tiles)
+
+
+def _fused_ref_call(kernels, air, w, g_in, state, tol, draws):
+    active, steps, scaler = state
+    if not air:
+        return (*kernels.weiszfeld_step_fused_ref(w, g_in, active, steps, tol), None)
+    return kernels.aircomp_weiszfeld_step_fused_ref(
+        w, g_in, active, steps, tol, draws["h_r"], draws["h_i"], scaler,
+        fade_scale=draws["fade_scale"], z=draws["z"], noise_scale=draws["noise_scale"])
+
+
+def check_fused(torch, kernels):
+    """The fused mode of both Weiszfeld kernels against its plain version."""
+    from byzantine_aircomp_tpu_torch.ops import channel
+
+    rows = []
+    noise_scale = torch.sqrt(torch.tensor(1e-2, dtype=torch.float32) / 2.0)
+    shapes = [(1, 1), (13, 300), (50, 7850), (60, 7850), (1000, 7850), (2000, 7850)]
+    for name, air in (("weiszfeld_step", False), ("aircomp_weiszfeld_step", True)):
+        for k, d in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                w, guess, _, _ = _inputs(torch, k, d, dtype, seed=k + d)
+                g = torch.Generator(device="cuda").manual_seed(k * d)
+                draws = dict(
+                    h_r=torch.randn(k, device="cuda", generator=g),
+                    h_i=torch.randn(k, device="cuda", generator=g),
+                    fade_scale=channel.FADE_STD,
+                    z=torch.randn(d + 1, device="cuda", generator=g),
+                    noise_scale=noise_scale,
+                )
+                state = (torch.ones((), dtype=torch.int32, device="cuda"),
+                         torch.zeros((), dtype=torch.int64, device="cuda"),
+                         kernels.guess_rms(guess))
+                errs, ok, deterministic = [], True, True
+                for tol in (0.0, 1e9):  # stays active / stops at this step
+                    got = _fused_call(torch, kernels, air, w, guess, torch.empty_like(guess),
+                                      state, tol, draws)
+                    want = _fused_ref_call(kernels, air, w, guess, state, tol, draws)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got[::3], want[::3]):  # the guess and the scaler
+                        if a is None:
+                            continue
+                        err = float((a - b).abs().max())
+                        errs.append(err)
+                        ok &= bool(torch.isfinite(a).all()) and (
+                            err <= KERNEL_RTOL * float(b.abs().max()) + KERNEL_ATOL)
+                    ok &= int(got[1]) == int(want[1]) and int(got[2]) == int(want[2]) == 1
+                    ok &= tol == 0.0 or int(got[1]) == 0
+                    again = _fused_call(torch, kernels, air, w, guess, torch.empty_like(guess),
+                                        state, tol, draws)
+                    deterministic &= all(torch.equal(a, b) for a, b in zip(again, got)
+                                         if a is not None)
+                # inactive: the guess, the step count and the scaler stay as they are
+                idle = (torch.zeros_like(state[0]), state[1] + 7, state[2])
+                got = _fused_call(torch, kernels, air, w, guess,
+                                  torch.full_like(guess, float("nan")), idle, 0.0, draws)
+                torch.cuda.synchronize()
+                inactive_ok = (_same_bits(torch, got[0], guess) and int(got[1]) == 0
+                               and int(got[2]) == 7
+                               and (got[3] is None or _same_bits(torch, got[3], state[2])))
+                row = dict(name=name, mode="fused", k=k, d=d,
+                           dtype=str(dtype).replace("torch.", ""), max_abs_err=max(errs),
+                           ok=ok, inactive_ok=inactive_ok, deterministic=deterministic)
+                if d == 7850 and k in (50, 1000) and dtype == torch.float32:
+                    # tol = -1 keeps every timed call active; the state is
+                    # updated in place, with no copy inside the timed calls
+                    active, steps, scaler = (t.clone() for t in state)
+                    g_out = torch.empty_like(guess)
+
+                    def step(col_tiles):
+                        if not air:
+                            return kernels.weiszfeld_step_fused(
+                                w, guess, g_out, active, steps, -1.0, col_tiles=col_tiles)
+                        return kernels.aircomp_weiszfeld_step_fused(
+                            w, guess, g_out, active, steps, -1.0, draws["h_r"], draws["h_i"],
+                            scaler, fade_scale=draws["fade_scale"], z=draws["z"],
+                            noise_scale=draws["noise_scale"], col_tiles=col_tiles)
+
+                    for col_tiles in (0, 2, 3):
+                        ms, host_ms = _time_ms(torch, lambda: step(col_tiles))
+                        row[f"ms_col_tiles_{col_tiles}"] = ms
+                        if col_tiles == 0:
+                            row["ms"], row["host_ms"] = ms, host_ms
+                    row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, lambda: _fused_ref_call(
+                        kernels, air, w, guess, state, -1.0, draws))
+                    row["bound_ms"], row["bound_by"] = _fused_bound(k, d, w.element_size(), air)
+                rows.append(row)
+                print(f"kernel {name} fused K={k} d={d} {row['dtype']}: "
+                      f"max_abs_err={row['max_abs_err']:.3e} "
+                      + " ".join(f"{key}={row[key]:.5f}" for key in row
+                                 if key.endswith("ms") or key.startswith("ms_"))
+                      + f" ok={ok} inactive_ok={inactive_ok} deterministic={deterministic}")
+                if not (ok and inactive_ok):
+                    _fail(f"{name} fused step disagrees with its plain version at K={k} "
+                          f"d={d} {dtype}")
+                if not deterministic:
+                    _fail(f"{name} fused step gave different bits on a rerun at K={k} d={d}")
     return rows
 
 
@@ -397,19 +530,82 @@ def check_solver_and_iteration(torch):
     return errs
 
 
+def _device_kernels(torch, prof):
+    """The device kernels of a profile (copies and memsets left out)."""
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith(("Memcpy", "Memset"))]
+
+
+def profile_weiszfeld(torch, kernels, trainer, captured, kernel):
+    """The profiled iteration's aggregation, re-run on its own stack with
+    its generator's state: CUDA kernels per Weiszfeld step and wall ms per
+    step (host clock, synchronised).  One profile holds the solve cut to
+    one step, a marker kernel, then the whole solve: kernels per step are
+    the difference of the two solves' kernels over that of their steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def solve(maxiter):
+        kw = dict(captured["kw"], maxiter=maxiter)
+        if captured["gen_state"] is not None:
+            gen = torch.Generator(device="cuda")
+            gen.set_state(captured["gen_state"])
+            kw["generator"] = gen
+        before = kernels.LAUNCHES[kernel]
+        captured["agg"](captured["w"], **kw)
+        return kernels.LAUNCHES[kernel] - before
+
+    maxiter = captured["kw"]["maxiter"]
+    solve(maxiter)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = solve(maxiter)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one = solve(1)
+        torch.cuda._sleep(1000)  # the marker
+        solve(maxiter)
+        torch.cuda.synchronize()
+    evs = sorted(_device_kernels(torch, prof), key=lambda ev: ev.time_range.start)
+    marks = [i for i, ev in enumerate(evs) if "spin" in ev.name.lower()]
+    if one != 1 or steps < 2 or len(marks) != 1:
+        _fail(f"cannot count the kernels of a Weiszfeld step: steps {one}, {steps}; "
+              f"marker kernels {len(marks)}")
+    n_one, n_all = marks[0], len(evs) - marks[0] - 1
+    per_step = (n_all - n_one) / (steps - 1)
+    return dict(steps=steps, kernels_in_solve=n_all, kernels_in_one_step_solve=n_one,
+                kernels_per_step=per_step, setup_kernels=n_one - per_step,
+                wall_ms_per_step=wall_ms / steps, solve_wall_ms=wall_ms)
+
+
 def profile_iteration(torch, trainer):
     """One more global iteration of a finished run under torch.profiler:
     wall time, summed device kernel time and the idle share, and the
-    kernels that take the most device time."""
+    kernels that take the most device time.  Also returns the inputs of its
+    aggregation call."""
     from torch.profiler import ProfilerActivity, profile
 
     gens = trainer.iteration_generators(10**6, 0)
+    captured = {}
+    agg = trainer.agg_fn
+
+    def spy(w, **kw):
+        gen = kw.get("generator")
+        captured.update(agg=agg, w=w, kw=dict(kw),
+                        gen_state=None if gen is None else gen.get_state())
+        return agg(w, **kw)
+
+    trainer.agg_fn = spy
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.iteration(trainer.flat_params, gens)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.iteration(trainer.flat_params, gens)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trainer.agg_fn = agg
     per_kernel = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -422,8 +618,9 @@ def profile_iteration(torch, trainer):
         wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms > 0 else None,
         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
+        device_kernels=len(_device_kernels(torch, prof)),
         top_kernels_ms=top,
-    )
+    ), captured
 
 
 def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
@@ -455,12 +652,26 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         if label == "a_gm_var" and not val_acc > 0.3:
             _fail(f"run {label}: val accuracy {val_acc} not above 0.3")
         rps = record["roundsPerSec"]
-        prof = profile_iteration(torch, trainer)
+        prof, captured = profile_iteration(torch, trainer)
         print(f"run {label} profiled iteration: wall {prof['wall_ms']:.1f} ms, "
               f"device busy {prof['device_busy_ms']} ms, idle share "
-              f"{prof['idle_share']}; top kernels {prof['top_kernels_ms'][:4]}")
+              f"{prof['idle_share']}, {prof['device_kernels']} device kernels; "
+              f"top kernels {prof['top_kernels_ms'][:4]}")
+        per_step = None
+        if kw["agg"] in ("gm", "gm2"):
+            per_step = profile_weiszfeld(torch, kernels, trainer, captured, kernel)
+            print(f"run {label} Weiszfeld solve of the profiled iteration: "
+                  f"{per_step['steps']} steps launched, "
+                  f"{per_step['kernels_per_step']:.3f} CUDA kernels per step "
+                  f"({per_step['kernels_in_solve']} in the solve, "
+                  f"{per_step['setup_kernels']} before the loop), "
+                  f"wall {per_step['wall_ms_per_step']:.4f} ms per step [{card}]")
+            most = 4 if kw["agg"] == "gm" else 1
+            if per_step["kernels_per_step"] > most + 1e-9:
+                _fail(f"run {label}: {per_step['kernels_per_step']} CUDA kernels per "
+                      f"Weiszfeld step, more than {most}")
         runs[label] = dict(
-            profiled_iteration=prof,
+            profiled_iteration=prof, weiszfeld_per_step=per_step,
             config=dict(kw, attack="classflip", rounds=rounds, display_interval=10,
                         batch_size=cfg.batch_size),
             launches=launches, launches_per_round={n: c / rounds for n, c in launches.items()},
@@ -495,6 +706,7 @@ def main():
     print(f"built kernels in {time.perf_counter() - t0:.1f}s: {build_s}")
 
     rows = check_kernels(torch, kernels)
+    rows += check_fused(torch, kernels)
     rows += check_select_and_popcount(torch, kernels)
     iter_errs = check_solver_and_iteration(torch)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -502,9 +714,11 @@ def main():
                          os.path.join(root, "build", "chip_smoke"))
 
     # each kernel's row: the shape its main-path run gives it
+    # (the Weiszfeld kernels in their fused mode, which the main path runs)
     picks = {
-        "weiszfeld_step": ("b_gm2", dict(k=1000, d=7850, dtype="float32")),
-        "aircomp_weiszfeld_step": ("a_gm_var", dict(k=50, d=7850, dtype="float32")),
+        "weiszfeld_step": ("b_gm2", dict(k=1000, d=7850, dtype="float32", mode="fused")),
+        "aircomp_weiszfeld_step": ("a_gm_var", dict(k=50, d=7850, dtype="float32",
+                                                    mode="fused")),
         "select_columns": ("c_median_var", dict(k=50, d=7850, mode="median", channel=True,
                                                 adversarial=False)),
         "packed_vote_counts": ("e_signmv1_var", dict(k=1000, d=7850)),

@@ -129,6 +129,72 @@ def test_chunked_loop_equals_per_step_loop_bitwise(agg):
     assert 1 < n_1 < maxiter
 
 
+def _per_step_torch_solve(agg, wt, gt, maxiter, tol, chunk, noise_var=None,
+                          generator=None, fades=None, noise=None):
+    """The CPU Weiszfeld loop written out step by step in plain torch: the
+    num/den plain versions, then the update, the stopping rule and the
+    done flag read once per chunk.  The solve, which now runs each step
+    through the fused step's plain version on the CPU, must equal it bit
+    for bit."""
+    from byzantine_aircomp_tpu_torch.ops import channel as tchannel
+    from byzantine_aircomp_tpu_torch.ops import kernels as tk
+
+    k, d = wt.shape
+    g = gt
+    active = torch.ones((), dtype=torch.bool)
+    steps = torch.zeros((), dtype=torch.int64)
+    scale = None if noise_var is None else torch.sqrt(
+        torch.tensor(noise_var, dtype=torch.float32) / 2.0)
+    i = 0
+    while i < maxiter:
+        for _ in range(min(chunk, maxiter - i)):
+            if agg == "gm2":
+                num, den = tk.weiszfeld_step_ref(wt, g)
+                g_next = num / den
+            else:
+                h_r, h_i = (tchannel.rayleigh_fade(k, generator=generator)
+                            if fades is None else (fades[0][i], fades[1][i]))
+                scaler = torch.sqrt(torch.mean(g**2)).reshape(1)
+                num, den = tk.aircomp_weiszfeld_step_ref(
+                    wt, g, tchannel.floored_hsq(h_r, h_i), scaler)
+                if scale is not None:
+                    z = torch.randn(d + 1, generator=generator) if noise is None else noise[i]
+                    n = scale * z
+                    num, den = num + n[:-1], den + n[-1]
+                g_next = num / den * scaler
+            movement = torch.linalg.vector_norm(g - g_next)
+            g = torch.where(active, g_next, g)
+            steps = steps + active.to(torch.int64)
+            active = active & (movement > tol)
+            i += 1
+        if not bool(active):
+            break
+    return g, int(steps)
+
+
+@pytest.mark.parametrize("agg", ["gm2", "gm_draws", "gm_generator", "gm_noiseless"])
+@pytest.mark.parametrize("chunk", [1, 16])
+def test_cpu_solve_is_bitwise_the_per_step_torch_loop(agg, chunk):
+    k, d, maxiter = 11, 200, 120
+    w, g = _stack(k, d, seed=3)
+    wt, gt = torch.from_numpy(w), torch.from_numpy(g)
+    if agg == "gm2":
+        kw = dict(tol=1e-7)
+        got = tagg.gm2_solve(wt, guess=gt, maxiter=maxiter, chunk=chunk, **kw)
+    else:
+        kw = dict(tol=2.5e-3, noise_var=None if agg == "gm_noiseless" else 1e-2)
+        if agg == "gm_draws":
+            kw["fades"], kw["noise"] = _jax_gm_draws(jax.random.PRNGKey(1), k, d, maxiter)
+        got = tagg.gm_solve(
+            wt, guess=gt, maxiter=maxiter, chunk=chunk,
+            generator=torch.Generator().manual_seed(7), **kw)
+        kw["generator"] = torch.Generator().manual_seed(7)
+    want = _per_step_torch_solve("gm2" if agg == "gm2" else "gm", wt, gt, maxiter,
+                                 chunk=chunk, **kw)
+    assert got[1] == want[1] and 1 < got[1] <= maxiter
+    assert torch.equal(got[0], want[0])
+
+
 def test_gm2_excludes_non_finite_rows_like_jax():
     w, g = _stack(10, 120, seed=9)
     w[2, 5] = np.nan

@@ -68,9 +68,126 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 def test_chunked_solve_equals_per_step_on_the_card(cuda):
     w, guess, _, _ = _stack(60, 7850, torch.float32, cuda)
+    before = kernels.LAUNCHES["weiszfeld_step"]
     out_1, n_1 = aggregators.gm2_solve(w, guess=guess, maxiter=300, tol=1e-6, chunk=1)
+    assert kernels.LAUNCHES["weiszfeld_step"] - before == n_1  # one launch per step
     out_16, n_16 = aggregators.gm2_solve(w, guess=guess, maxiter=300, tol=1e-6)
     assert n_1 == n_16 and torch.equal(out_1, out_16)
+
+
+NOISE_SCALE = torch.sqrt(torch.tensor(1e-2, dtype=torch.float32) / 2.0)
+
+
+def _fused_args(k, d, dtype, cuda, air):
+    """A stack, a fresh loop state and (for gm) the step's draws."""
+    w, guess, _, _ = _stack(k, d, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(k + d)
+    state = (torch.ones((), dtype=torch.int32, device=cuda),
+             torch.zeros((), dtype=torch.int64, device=cuda))
+    if not air:
+        return w, guess, state, {}
+    draws = dict(
+        h_r=torch.randn(k, device=cuda, generator=g),
+        h_i=torch.randn(k, device=cuda, generator=g),
+        scaler=kernels.guess_rms(guess),
+        fade_scale=1 / 2**0.5,
+        z=torch.randn(d + 1, device=cuda, generator=g),
+        noise_scale=NOISE_SCALE,
+    )
+    return w, guess, state, draws
+
+
+def _fused(air, w, g_in, g_out, active, steps, tol, draws, col_tiles=0):
+    """The fused step on fresh copies of the state; (g, active, steps, scaler)."""
+    active, steps = active.clone(), steps.clone()
+    if not air:
+        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol,
+                                              col_tiles=col_tiles), None)
+    draws = dict(draws, scaler=draws["scaler"].clone())
+    h_r, h_i, scaler = draws.pop("h_r"), draws.pop("h_i"), draws.pop("scaler")
+    return kernels.aircomp_weiszfeld_step_fused(
+        w, g_in, g_out, active, steps, tol, h_r, h_i, scaler, col_tiles=col_tiles, **draws)
+
+
+def _fused_ref(air, w, g_in, active, steps, tol, draws):
+    if not air:
+        return (*kernels.weiszfeld_step_fused_ref(w, g_in, active, steps, tol), None)
+    draws = dict(draws)
+    h_r, h_i, scaler = draws.pop("h_r"), draws.pop("h_i"), draws.pop("scaler")
+    return kernels.aircomp_weiszfeld_step_fused_ref(
+        w, g_in, active, steps, tol, h_r, h_i, scaler, **draws)
+
+
+# d = 7850 and 301: every other row starts off a 16-byte boundary (f32 and
+# bf16); K = 2000: 15-16 rows per block; col_tiles > 0 splits rows across
+# blocks (a grid barrier between the distances and the weighted sums)
+@pytest.mark.parametrize("air", [False, True], ids=["gm2", "gm"])
+@pytest.mark.parametrize("k,d,dtype,col_tiles", [
+    (50, 7850, torch.float32, 0), (50, 7850, torch.bfloat16, 0),
+    (13, 301, torch.bfloat16, 0), (2000, 7850, torch.float32, 0), (1, 1, torch.float32, 0),
+    (50, 7850, torch.float32, 2), (13, 301, torch.bfloat16, 5),
+    (1000, 7850, torch.bfloat16, 3),
+])
+def test_fused_step_matches_plain_version(cuda, k, d, dtype, col_tiles, air):
+    w, guess, (active, steps), draws = _fused_args(k, d, dtype, cuda, air)
+    name = "aircomp_weiszfeld_step" if air else "weiszfeld_step"
+    for tol in (0.0, 1e9):  # the step stays active / stops
+        before = kernels.LAUNCHES[name]
+        g_out = torch.empty_like(guess)
+        got = _fused(air, w, guess, g_out, active, steps, tol, draws, col_tiles)
+        want = _fused_ref(air, w, guess, active, steps, tol, draws)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got[0].data_ptr() == g_out.data_ptr()
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+        assert int(got[1]) == int(want[1])
+        if tol > 0:
+            assert int(got[1]) == 0
+        assert int(got[2]) == int(want[2]) == 1
+        if air:
+            torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-6)
+        again = _fused(air, w, guess, torch.empty_like(guess), active, steps, tol, draws, col_tiles)
+        assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+@pytest.mark.parametrize("air", [False, True], ids=["gm2", "gm"])
+def test_inactive_fused_step_leaves_the_state_bitwise(cuda, air):
+    w, guess, (active, steps), draws = _fused_args(50, 7850, torch.float32, cuda, air)
+    active.zero_()
+    steps.fill_(7)
+    g_out = torch.full_like(guess, float("nan"))
+    got = _fused(air, w, guess, g_out, active, steps, 0.0, draws)
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], guess)
+    assert int(got[1]) == 0 and int(got[2]) == 7
+    if air:
+        assert _same_bits(got[3], draws["scaler"])
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    w, guess, (active, steps), draws = _fused_args(8, 64, torch.float32, cuda, True)
+    with pytest.raises(ValueError):
+        kernels.weiszfeld_step_fused(w, guess, guess, active, steps, 0.0)  # in place
+    with pytest.raises(ValueError):
+        kernels.weiszfeld_step_fused(w, guess, torch.empty_like(guess), active.bool(), steps, 0.0)
+    with pytest.raises(ValueError):
+        _fused(True, w, guess, torch.empty_like(guess), active, steps, 0.0,
+               dict(draws, z=draws["z"][:-1]))
+
+
+@pytest.mark.parametrize("noise_var", [None, 1e-2])
+def test_gm_chunked_solve_equals_per_step_on_the_card(cuda, noise_var):
+    w, guess, _, _ = _stack(60, 7850, torch.float32, cuda)
+    outs = []
+    for chunk in (1, 16):
+        before = kernels.LAUNCHES["aircomp_weiszfeld_step"]
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        outs.append(aggregators.gm_solve(w, guess=guess, noise_var=noise_var, maxiter=200,
+                                         tol=2e-3, generator=gen, chunk=chunk))
+        if chunk == 1:  # one launch per Weiszfeld step, nothing else
+            assert kernels.LAUNCHES["aircomp_weiszfeld_step"] - before == outs[0][1]
+    assert outs[0][1] == outs[1][1] and torch.equal(outs[0][0], outs[1][0])
+    assert torch.isfinite(outs[0][0]).all()
 
 
 def _select_inputs(k, d, cuda, adversarial=True, seed=0):

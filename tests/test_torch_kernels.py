@@ -85,14 +85,56 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
     w, g, h_sq = _stack(7, 50, seed=1)
     wt, gt, ht = torch.from_numpy(w), torch.from_numpy(g), torch.from_numpy(h_sq)
     s = torch.sqrt(torch.mean(gt**2)).reshape(1)
+    active = torch.ones((), dtype=torch.int32)
+    steps = torch.zeros((), dtype=torch.int64)
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal(51).astype(np.float32))
+    ns = torch.tensor(0.07, dtype=torch.float32)
     before = dict(tk.LAUNCHES)
     for got, want in (
         (tk.weiszfeld_step(wt, gt), tk.weiszfeld_step_ref(wt, gt)),
         (tk.aircomp_weiszfeld_step(wt, gt, ht, s, 1.0),
          tk.aircomp_weiszfeld_step_ref(wt, gt, ht, s, 1.0)),
+        (tk.weiszfeld_step_fused(wt, gt, None, active, steps, 0.0),
+         tk.weiszfeld_step_fused_ref(wt, gt, active, steps, 0.0)),
+        (tk.aircomp_weiszfeld_step_fused(wt, gt, None, active, steps, 0.0, ht, ht, s,
+                                         fade_scale=0.5, z=z, noise_scale=ns),
+         tk.aircomp_weiszfeld_step_fused_ref(wt, gt, active, steps, 0.0, ht, ht, s,
+                                             fade_scale=0.5, z=z, noise_scale=ns)),
     ):
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert tk.LAUNCHES == before
+
+
+def test_fused_step_forms_the_fades_as_float32_products():
+    """The fused kernel forms h_sq as f32(draw * f32(FADE_STD)), squares,
+    adds and floors, each op rounded once; torch's rayleigh_fade and
+    floored_hsq round the same ops the same way."""
+    from byzantine_aircomp_tpu_torch.ops import channel as tchannel
+
+    gen = torch.Generator().manual_seed(0)
+    draws = torch.randn(2, 4096, generator=gen)
+    draws[0, :4] = torch.tensor([0.0, 1e-4, -3e-4, 7.0])  # under and over the floor
+    h_r, h_i = tchannel.FADE_STD * draws[0], tchannel.FADE_STD * draws[1]
+    got = tchannel.floored_hsq(h_r, h_i).numpy()
+    f = draws.numpy() * np.float32(tchannel.FADE_STD)
+    want = np.maximum(f[0] * f[0] + f[1] * f[1], np.float32(tchannel.HSQ_FLOOR))
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert "kHsqFloor = 1e-6f" in (tk.CSRC / "weiszfeld_common.cuh").read_text()
+
+
+def test_weiszfeld_advance_stops_like_the_jax_cond():
+    g = torch.tensor([1.0, 2.0])
+    nxt = torch.tensor([1.0, 2.5])
+    one, zero = torch.ones((), dtype=torch.int32), torch.zeros((), dtype=torch.int32)
+    steps = torch.tensor(3)
+    out, active, n = tk.weiszfeld_advance(g, nxt, one, steps, 0.4)
+    assert torch.equal(out, nxt) and int(active) == 1 and int(n) == 4
+    out, active, n = tk.weiszfeld_advance(g, nxt, one, steps, 0.5)  # movement <= tol
+    assert torch.equal(out, nxt) and int(active) == 0 and int(n) == 4
+    out, active, n = tk.weiszfeld_advance(g, nxt, zero, steps, 0.0)  # already stopped
+    assert torch.equal(out, g) and int(active) == 0 and int(n) == 3
+    nan = torch.tensor([float("nan"), 0.0])
+    assert int(tk.weiszfeld_advance(g, nan, one, steps, 0.0)[1]) == 0
 
 
 def test_kernel_sources_and_constants_agree():
@@ -105,6 +147,13 @@ def test_kernel_sources_and_constants_agree():
     assert set(tk._SOURCES) == set(tk.LAUNCHES)
     for name, path in tk._SOURCES.items():
         assert f"{name}_launch" in (tk.CSRC / path).read_text()
+    # every further C entry point has its ctypes signature, so that no
+    # pointer goes through ctypes as a 32-bit int
+    for name, queries in tk._QUERIES.items():
+        text = "".join((tk.CSRC / f).read_text() for f in tk._source_files(name))
+        for qname, (argtypes, _) in queries.items():
+            assert f"{qname}(" in text
+            assert len(argtypes) == text.split(f"{qname}(")[1].split(")")[0].count(",") + 1
 
 
 # ---------------------------------------------------------------------------
