@@ -32,6 +32,8 @@ from . import kernels
 
 # Weiszfeld steps between host checks of the stopping rule
 WEISZFELD_CHUNK = 16
+# torch.profiler range around the Weiszfeld loop (its steps, not its set-up)
+WEISZFELD_LOOP_RANGE = "weiszfeld_loop"
 
 # aggregators of the JAX package that later slices of the port bring over
 NOT_PORTED = ("multi_krum", "bulyan", "cclip", "bev", "dnc")
@@ -72,7 +74,9 @@ def weiszfeld_solve(
     two guess buffers swap after each step.  Steps run in chunks of
     ``chunk`` with the done flag kept on the device; a step taken after
     convergence leaves the guess as it is, so the result equals the
-    per-step loop's bit for bit (``chunk=1``).
+    per-step loop's bit for bit (``chunk=1``).  The loop runs inside the
+    profiler range ``WEISZFELD_LOOP_RANGE``, so a profile can count the
+    kernels of its steps apart from the set-up's.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -82,13 +86,14 @@ def weiszfeld_solve(
     active = torch.ones((), dtype=torch.int32, device=g.device)
     steps = torch.zeros((), dtype=torch.int64, device=g.device)
     i = 0
-    while i < maxiter:
-        for _ in range(min(chunk, maxiter - i)):
-            g_next, active, steps = step(g, spare, active, steps, i)
-            g, spare = g_next, g
-            i += 1
-        if not bool(active):  # the one host sync per chunk
-            break
+    with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
+        while i < maxiter:
+            for _ in range(min(chunk, maxiter - i)):
+                g_next, active, steps = step(g, spare, active, steps, i)
+                g, spare = g_next, g
+                i += 1
+            if not bool(active):  # the one host sync per chunk
+                break
     return g, int(steps)
 
 

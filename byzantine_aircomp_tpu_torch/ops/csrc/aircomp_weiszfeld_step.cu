@@ -28,7 +28,7 @@
 extern "C" int aircomp_weiszfeld_step_launch(
     const void* w, int w_is_bf16, const float* g, const float* h_sq,
     float* scaler, float p_max, long long k, long long d, void* workspace,
-    int col_tiles, float* num, float* den, void* stream) {
+    float* num, float* den, void* stream) {
   weiszfeld::Params p = {};
   p.w = w;
   p.k = k;
@@ -40,7 +40,7 @@ extern "C" int aircomp_weiszfeld_step_launch(
   p.num = num;
   p.den = den;
   return static_cast<int>(weiszfeld::launch<true, false>(
-      p, w_is_bf16, workspace, col_tiles, static_cast<cudaStream_t>(stream)));
+      p, w_is_bf16, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // fused mode.  h_r, h_i [K]: the fades divided by fade_scale (the raw
@@ -50,8 +50,7 @@ extern "C" int aircomp_weiszfeld_step_fused(
     const void* w, int w_is_bf16, const float* g_in, float* g_out,
     const float* h_r, const float* h_i, float fade_scale, const float* z,
     float noise_scale, float* scaler, float p_max, long long k, long long d,
-    float tol, int* active, long long* steps, void* workspace, int col_tiles,
-    void* stream) {
+    float tol, int* active, long long* steps, void* workspace, void* stream) {
   weiszfeld::Params p = {};
   p.w = w;
   p.k = k;
@@ -69,5 +68,5 @@ extern "C" int aircomp_weiszfeld_step_fused(
   p.active = active;
   p.steps = steps;
   return static_cast<int>(weiszfeld::launch<true, true>(
-      p, w_is_bf16, workspace, col_tiles, static_cast<cudaStream_t>(stream)));
+      p, w_is_bf16, workspace, static_cast<cudaStream_t>(stream)));
 }

@@ -41,9 +41,9 @@
 //           by a second read, which hits L2).
 // Splitting rows halves a block's row at K=50 but adds a grid barrier: on
 // an H100 a fused step took 13.3-13.9 us there with 2 or 3 tiles against
-// 11.7-12.1 us with 1 (and about 2x as long at K=1000), so the kernel
-// splits rows only where a row is wider than 8192 columns; the caller can
-// ask for more tiles (col_tiles, which the card tests use).
+// 11.7-12.1 us with 1 (and about 2x as long at K=1000; PERF.md), so the
+// tiling follows from d alone: rows split only where they are wider than
+// 8192 columns.
 // Each slice writes its accumulator [tile] and its sum of weights to the
 // workspace; a grid barrier; then every block takes d / grid columns, sums
 // the S partials of each column in slice order (interleaved lanes per
@@ -61,6 +61,13 @@
 // last-block ticket alone would hand the whole column pass to one block.
 // A cooperative launch guarantees every block is resident, so a grid
 // barrier is legal, and it keeps the step at one launch.
+//
+// One stream per workspace.  The caller keeps one workspace (ticket and
+// partials) per device and shape and passes it to every step of that
+// shape, of both kernels.  Steps that share a workspace must run one after
+// another, as the steps issued on one stream (or replayed from one CUDA
+// graph) do: two steps running at the same time on two streams would mix
+// their partials and their ticket, with no error.
 //
 // Bound on an H100: a step must read the stack once (K*d*bytes(dtype)),
 // plus g_in, z and the fades, and write g_out (or num): bound by bytes at
@@ -525,17 +532,15 @@ struct Plan {
 
 inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
-// col_tiles > 0 asks for at least that many column tiles (rows split
-// across blocks); 0 splits only rows wider than kTileMax.
-inline cudaError_t make_plan(long long k, long long d, int col_tiles, Plan* pl) {
+// Rows split into column tiles only where they are wider than kTileMax.
+inline cudaError_t make_plan(long long k, long long d, Plan* pl) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (k < 1 || d < 1 || col_tiles < 0) return cudaErrorInvalidValue;
-  long long c = std::max(static_cast<long long>(col_tiles), (d + kTileMax - 1) / kTileMax);
-  c = std::min(c, d);
+  if (k < 1 || d < 1) return cudaErrorInvalidValue;
+  const long long c = (d + kTileMax - 1) / kTileMax;
   if (c > sms) return cudaErrorInvalidValue;  // d too large for one pass
   pl->grid = sms;
   pl->C = static_cast<int>(c);
@@ -568,9 +573,9 @@ inline void bind_workspace(const Plan& pl, void* workspace, Params* p) {
 }
 
 template <typename T, bool kAir, bool kFused>
-cudaError_t launch_one(Params p, void* workspace, int col_tiles, cudaStream_t stream) {
+cudaError_t launch_one(Params p, void* workspace, cudaStream_t stream) {
   Plan pl;
-  cudaError_t err = make_plan(p.k, p.d, col_tiles, &pl);
+  cudaError_t err = make_plan(p.k, p.d, &pl);
   if (err != cudaSuccess) return err;
   bind_workspace(pl, workspace, &p);
   void* args[] = {&p};
@@ -581,11 +586,9 @@ cudaError_t launch_one(Params p, void* workspace, int col_tiles, cudaStream_t st
 }
 
 template <bool kAir, bool kFused>
-cudaError_t launch(const Params& p, int w_is_bf16, void* workspace, int col_tiles,
-                   cudaStream_t stream) {
-  return w_is_bf16
-             ? launch_one<__nv_bfloat16, kAir, kFused>(p, workspace, col_tiles, stream)
-             : launch_one<float, kAir, kFused>(p, workspace, col_tiles, stream);
+cudaError_t launch(const Params& p, int w_is_bf16, void* workspace, cudaStream_t stream) {
+  return w_is_bf16 ? launch_one<__nv_bfloat16, kAir, kFused>(p, workspace, stream)
+                   : launch_one<float, kAir, kFused>(p, workspace, stream);
 }
 
 }  // namespace weiszfeld
@@ -593,10 +596,11 @@ cudaError_t launch(const Params& p, int w_is_bf16, void* workspace, int col_tile
 // Bytes of workspace a step over a [k, d] stack needs on the current
 // device (the same for an f32 and a bf16 stack); the first 16 bytes hold
 // the ticket, which must be 0 before the first launch (the kernel leaves
-// it 0).  Negative on a CUDA error (its code, negated).
-extern "C" long long weiszfeld_workspace_bytes(long long k, long long d, int col_tiles) {
+// it 0).  Steps that share a workspace run in stream order (see the note
+// at the top).  Negative on a CUDA error (its code, negated).
+extern "C" long long weiszfeld_workspace_bytes(long long k, long long d) {
   weiszfeld::Plan pl;
-  const cudaError_t err = weiszfeld::make_plan(k, d, col_tiles, &pl);
+  const cudaError_t err = weiszfeld::make_plan(k, d, &pl);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return static_cast<long long>(pl.bytes);
 }

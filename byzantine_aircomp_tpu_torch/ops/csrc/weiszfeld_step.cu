@@ -16,12 +16,12 @@
 // the stack once and summing in fixed orders (weiszfeld_common.cuh).
 #include "weiszfeld_common.cuh"
 
-// num/den mode.  workspace: weiszfeld_workspace_bytes(k, d, col_tiles)
-// bytes, ticket zeroed.
+// num/den mode.  workspace: weiszfeld_workspace_bytes(k, d) bytes, ticket
+// zeroed.
 extern "C" int weiszfeld_step_launch(const void* w, int w_is_bf16,
                                      const float* g, long long k, long long d,
-                                     void* workspace, int col_tiles,
-                                     float* num, float* den, void* stream) {
+                                     void* workspace, float* num, float* den,
+                                     void* stream) {
   weiszfeld::Params p = {};
   p.w = w;
   p.k = k;
@@ -30,7 +30,7 @@ extern "C" int weiszfeld_step_launch(const void* w, int w_is_bf16,
   p.num = num;
   p.den = den;
   return static_cast<int>(weiszfeld::launch<false, false>(
-      p, w_is_bf16, workspace, col_tiles, static_cast<cudaStream_t>(stream)));
+      p, w_is_bf16, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // fused mode: g_out <- the step's guess (g_in when *active == 0), then
@@ -39,8 +39,7 @@ extern "C" int weiszfeld_step_fused(const void* w, int w_is_bf16,
                                     const float* g_in, float* g_out,
                                     long long k, long long d, float tol,
                                     int* active, long long* steps,
-                                    void* workspace, int col_tiles,
-                                    void* stream) {
+                                    void* workspace, void* stream) {
   weiszfeld::Params p = {};
   p.w = w;
   p.k = k;
@@ -51,5 +50,5 @@ extern "C" int weiszfeld_step_fused(const void* w, int w_is_bf16,
   p.active = active;
   p.steps = steps;
   return static_cast<int>(weiszfeld::launch<false, true>(
-      p, w_is_bf16, workspace, col_tiles, static_cast<cudaStream_t>(stream)));
+      p, w_is_bf16, workspace, static_cast<cudaStream_t>(stream)));
 }

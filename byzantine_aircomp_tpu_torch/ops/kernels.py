@@ -71,9 +71,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "weiszfeld_step": [_P, _I, _P, _LL, _LL, _P, _I, _P, _P, _P],
+    "weiszfeld_step": [_P, _I, _P, _LL, _LL, _P, _P, _P, _P],
     "aircomp_weiszfeld_step": [
-        _P, _I, _P, _P, _P, _F, _LL, _LL, _P, _I, _P, _P, _P,
+        _P, _I, _P, _P, _P, _F, _LL, _LL, _P, _P, _P, _P,
     ],
     "select_columns": [
         _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P, _P, _P,
@@ -81,19 +81,19 @@ _ARGTYPES = {
     "packed_vote_counts": [_P, _LL, _LL, _LL, _P, _P],
 }
 # further C functions of a library: name -> (argtypes, restype)
-_WORKSPACE_QUERY = {"weiszfeld_workspace_bytes": ([_LL, _LL, _I], _LL)}
+_WORKSPACE_QUERY = {"weiszfeld_workspace_bytes": ([_LL, _LL], _LL)}
 _QUERIES = {
     "weiszfeld_step": {
         **_WORKSPACE_QUERY,
         "weiszfeld_step_fused": (
-            [_P, _I, _P, _P, _LL, _LL, _F, _P, _P, _P, _I, _P], _I,
+            [_P, _I, _P, _P, _LL, _LL, _F, _P, _P, _P, _P], _I,
         ),
     },
     "aircomp_weiszfeld_step": {
         **_WORKSPACE_QUERY,
         "aircomp_weiszfeld_step_fused": (
             [_P, _I, _P, _P, _P, _P, _F, _P, _F, _P, _F, _LL, _LL, _F, _P, _P,
-             _P, _I, _P], _I,
+             _P, _P], _I,
         ),
     },
     "select_columns": {
@@ -101,8 +101,8 @@ _QUERIES = {
     },
 }
 # Weiszfeld workspaces (slice partials and the ticket), one per
-# (device, K, d, col_tiles), allocated at first use and kept
-_WORKSPACES: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+# (device, K, d), allocated at first use and kept
+_WORKSPACES: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def reset_launches():
@@ -427,11 +427,17 @@ def _cuda_or_cpu(w: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {w.device}")
 
 
-def _workspace(name: str, w: torch.Tensor, col_tiles: int) -> torch.Tensor:
+def _workspace(name: str, w: torch.Tensor) -> torch.Tensor:
     """The Weiszfeld workspace for ``w``'s device and shape, allocated (and
-    its ticket zeroed) at first use; never inside a CUDA-graph capture."""
+    its ticket zeroed) at first use; never inside a CUDA-graph capture.
+
+    Every step of that shape, of both Weiszfeld kernels, shares it, so those
+    steps must run one after another: on one stream, or replayed from one
+    CUDA graph.  Two steps of one shape running at the same time on two
+    streams would corrupt each other's partial sums and ticket, with no
+    error.  The port issues every step on the current stream."""
     k, d = w.shape
-    key = (w.device.index, k, d, col_tiles)
+    key = (w.device.index, k, d)
     ws = _WORKSPACES.get(key)
     if ws is None:
         if torch.cuda.is_current_stream_capturing():
@@ -439,7 +445,7 @@ def _workspace(name: str, w: torch.Tensor, col_tiles: int) -> torch.Tensor:
                 "the Weiszfeld workspace must be allocated before a CUDA-graph "
                 "capture: run one step outside the capture first"
             )
-        nbytes = _LIBS[name].weiszfeld_workspace_bytes(k, d, col_tiles)
+        nbytes = _LIBS[name].weiszfeld_workspace_bytes(k, d)
         if nbytes < 0:
             raise RuntimeError(f"{name}: no tiling for K={k}, d={d} (CUDA error {-nbytes})")
         ws = torch.zeros(nbytes, dtype=torch.uint8, device=w.device)
@@ -447,29 +453,20 @@ def _workspace(name: str, w: torch.Tensor, col_tiles: int) -> torch.Tensor:
     return ws
 
 
-def _check_col_tiles(col_tiles: int):
-    if col_tiles < 0:
-        raise ValueError(f"col_tiles must be >= 0, got {col_tiles}")
-
-
-def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor, *,
-                   col_tiles: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ideal Weiszfeld step over [K, d]: ``(num [d], den [])``.
-    ``col_tiles`` > 0 splits each row over that many blocks (0: by the
-    shape)."""
+def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ideal Weiszfeld step over [K, d]: ``(num [d], den [])``."""
     if not _cuda_or_cpu(w):
         return weiszfeld_step_ref(w, guess)
     _check_stack(w, guess)
-    _check_col_tiles(col_tiles)
     k, d = w.shape
     fn = _launch_fn("weiszfeld_step")
     with torch.cuda.device(w.device):
-        ws = _workspace("weiszfeld_step", w, col_tiles)
+        ws = _workspace("weiszfeld_step", w)
         num = torch.empty(d, dtype=torch.float32, device=w.device)
         den = torch.empty((), dtype=torch.float32, device=w.device)
         err = fn(
             w.data_ptr(), int(w.dtype == torch.bfloat16), guess.data_ptr(),
-            k, d, ws.data_ptr(), col_tiles, num.data_ptr(), den.data_ptr(),
+            k, d, ws.data_ptr(), num.data_ptr(), den.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
@@ -484,8 +481,6 @@ def aircomp_weiszfeld_step(
     h_sq: torch.Tensor,
     scaler: torch.Tensor,
     p_max: float = 1.0,
-    *,
-    col_tiles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One over-the-air Weiszfeld step: ``(num [d], den [])`` with
     ``num = sum_i gain_i * w_i / d_i`` and ``den = sum_i gain_i * s / d_i``,
@@ -496,19 +491,18 @@ def aircomp_weiszfeld_step(
     if not _cuda_or_cpu(w):
         return aircomp_weiszfeld_step_ref(w, guess, h_sq, scaler, p_max)
     _check_stack(w, guess)
-    _check_col_tiles(col_tiles)
     k, d = w.shape
     _check_vec(h_sq, w, k, "h_sq")
     _check_vec(scaler, w, 1, "scaler")
     fn = _launch_fn("aircomp_weiszfeld_step")
     with torch.cuda.device(w.device):
-        ws = _workspace("aircomp_weiszfeld_step", w, col_tiles)
+        ws = _workspace("aircomp_weiszfeld_step", w)
         num = torch.empty(d, dtype=torch.float32, device=w.device)
         den = torch.empty((), dtype=torch.float32, device=w.device)
         err = fn(
             w.data_ptr(), int(w.dtype == torch.bfloat16), guess.data_ptr(),
             h_sq.data_ptr(), scaler.data_ptr(), float(p_max), k, d,
-            ws.data_ptr(), col_tiles, num.data_ptr(), den.data_ptr(),
+            ws.data_ptr(), num.data_ptr(), den.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
@@ -537,8 +531,6 @@ def weiszfeld_step_fused(
     active: torch.Tensor,
     steps: torch.Tensor,
     tol: float,
-    *,
-    col_tiles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step of the gm2 Weiszfeld loop in one launch:
     ``(g_next, active, steps)`` as :func:`weiszfeld_step_fused_ref` gives
@@ -548,16 +540,15 @@ def weiszfeld_step_fused(
     if not _cuda_or_cpu(w):
         return weiszfeld_step_fused_ref(w, g_in, active, steps, tol)
     _check_state(w, g_in, g_out, active, steps)
-    _check_col_tiles(col_tiles)
     k, d = w.shape
     _launch_fn("weiszfeld_step")
     lib = _LIBS["weiszfeld_step"]
     with torch.cuda.device(w.device):
-        ws = _workspace("weiszfeld_step", w, col_tiles)
+        ws = _workspace("weiszfeld_step", w)
         err = lib.weiszfeld_step_fused(
             w.data_ptr(), int(w.dtype == torch.bfloat16), g_in.data_ptr(),
             g_out.data_ptr(), k, d, float(tol), active.data_ptr(),
-            steps.data_ptr(), ws.data_ptr(), col_tiles,
+            steps.data_ptr(), ws.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:
@@ -581,7 +572,6 @@ def aircomp_weiszfeld_step_fused(
     z: Optional[torch.Tensor] = None,
     noise_scale: Optional[torch.Tensor] = None,
     p_max: float = 1.0,
-    col_tiles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step of the gm Weiszfeld loop in one launch:
     ``(g_next, active, steps, next scaler)`` as
@@ -597,7 +587,6 @@ def aircomp_weiszfeld_step_fused(
             fade_scale=fade_scale, z=z, noise_scale=noise_scale, p_max=p_max,
         )
     _check_state(w, g_in, g_out, active, steps)
-    _check_col_tiles(col_tiles)
     k, d = w.shape
     _check_vec(h_r, w, k, "h_r")
     _check_vec(h_i, w, k, "h_i")
@@ -609,7 +598,7 @@ def aircomp_weiszfeld_step_fused(
     _launch_fn("aircomp_weiszfeld_step")
     lib = _LIBS["aircomp_weiszfeld_step"]
     with torch.cuda.device(w.device):
-        ws = _workspace("aircomp_weiszfeld_step", w, col_tiles)
+        ws = _workspace("aircomp_weiszfeld_step", w)
         err = lib.aircomp_weiszfeld_step_fused(
             w.data_ptr(), int(w.dtype == torch.bfloat16), g_in.data_ptr(),
             g_out.data_ptr(), h_r.data_ptr(), h_i.data_ptr(),
@@ -617,7 +606,7 @@ def aircomp_weiszfeld_step_fused(
             None if z is None else z.data_ptr(),
             0.0 if noise_scale is None else float(noise_scale),
             scaler.data_ptr(), float(p_max), k, d, float(tol),
-            active.data_ptr(), steps.data_ptr(), ws.data_ptr(), col_tiles,
+            active.data_ptr(), steps.data_ptr(), ws.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )
     if err != 0:

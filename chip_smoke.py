@@ -16,10 +16,11 @@
    The Weiszfeld kernels' fused mode (a whole step of the loop in one
    launch) is held against its plain version (the plain num/den plus the
    torch update and stopping rule) at (1, 1), (13, 300), (50, 7850),
-   (60, 7850), (1000, 7850) and (2000, 7850), f32 and bf16, with one
-   non-finite row: active, stopping, and inactive (the guess left bit for
-   bit); every case rerun for identical bits; timed at K=50 and K=1000,
-   also with the rows split over 2 and 3 blocks;
+   (60, 7850), (1000, 7850), (2000, 7850), and (13, 9001) and (50, 16500)
+   (rows wider than 8192 columns, split across blocks), f32 and bf16,
+   with one non-finite row: active, stopping, and inactive (the guess left
+   bit for bit); every case rerun for identical bits; timed at K=50 and
+   K=1000;
 3. checks one iteration on the card against the same iteration on the CPU
    (plain versions), from the same params and draws: gm2, gm, median + var
    and trimmed_mean + var within 1e-4; krum and signmv (discontinuous
@@ -34,10 +35,12 @@
    (e) signmv --sign-bits 1 --sign-eta 0.01, var 1e-2, K=1000 (B=100),
        1 round x interval 10;
    with the kernels' launch counters set to 0 before each run and read
-   after it; each run must launch its kernel in every iteration.  Runs (a)
-   and (b) also re-run one aggregation of their profiled iteration on its
-   own stack: CUDA kernels per Weiszfeld step (at most 4 for gm, 1 for
-   gm2) and wall ms per step.
+   after it; each run must launch its kernel in every iteration.  One more
+   iteration of each run is profiled; for (a) and (b) the CUDA kernels
+   launched inside its Weiszfeld loop (the ``aggregators.WEISZFELD_LOOP_RANGE``
+   profiler range), over that iteration's launches of the step kernel, give
+   the CUDA kernels per Weiszfeld step (at most 4 for gm, 1 for gm2), and
+   the range's host time over the same launches the host ms per step.
 
 Any failed check raises, so the exit code is not 0 and the result line is
 not printed.  The last two lines of standard output are the ``kernels``
@@ -204,16 +207,14 @@ def _fused_bound(k, d, elem_bytes, aircomp):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _fused_call(torch, kernels, air, w, g_in, g_out, state, tol, draws, col_tiles=0):
+def _fused_call(torch, kernels, air, w, g_in, g_out, state, tol, draws):
     """The fused step on copies of the loop state: (g, active, steps, scaler)."""
     active, steps, scaler = (t.clone() for t in state)
     if not air:
-        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol,
-                                              col_tiles=col_tiles), None)
+        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol), None)
     return kernels.aircomp_weiszfeld_step_fused(
         w, g_in, g_out, active, steps, tol, draws["h_r"], draws["h_i"], scaler,
-        fade_scale=draws["fade_scale"], z=draws["z"], noise_scale=draws["noise_scale"],
-        col_tiles=col_tiles)
+        fade_scale=draws["fade_scale"], z=draws["z"], noise_scale=draws["noise_scale"])
 
 
 def _fused_ref_call(kernels, air, w, g_in, state, tol, draws):
@@ -231,7 +232,10 @@ def check_fused(torch, kernels):
 
     rows = []
     noise_scale = torch.sqrt(torch.tensor(1e-2, dtype=torch.float32) / 2.0)
-    shapes = [(1, 1), (13, 300), (50, 7850), (60, 7850), (1000, 7850), (2000, 7850)]
+    # rows wider than 8192 columns split across blocks: 2 tiles at d = 9001,
+    # 3 at d = 16500
+    shapes = [(1, 1), (13, 300), (50, 7850), (60, 7850), (1000, 7850), (2000, 7850),
+              (13, 9001), (50, 16500)]
     for name, air in (("weiszfeld_step", False), ("aircomp_weiszfeld_step", True)):
         for k, d in shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -283,28 +287,23 @@ def check_fused(torch, kernels):
                     active, steps, scaler = (t.clone() for t in state)
                     g_out = torch.empty_like(guess)
 
-                    def step(col_tiles):
+                    def step():
                         if not air:
                             return kernels.weiszfeld_step_fused(
-                                w, guess, g_out, active, steps, -1.0, col_tiles=col_tiles)
+                                w, guess, g_out, active, steps, -1.0)
                         return kernels.aircomp_weiszfeld_step_fused(
                             w, guess, g_out, active, steps, -1.0, draws["h_r"], draws["h_i"],
                             scaler, fade_scale=draws["fade_scale"], z=draws["z"],
-                            noise_scale=draws["noise_scale"], col_tiles=col_tiles)
+                            noise_scale=draws["noise_scale"])
 
-                    for col_tiles in (0, 2, 3):
-                        ms, host_ms = _time_ms(torch, lambda: step(col_tiles))
-                        row[f"ms_col_tiles_{col_tiles}"] = ms
-                        if col_tiles == 0:
-                            row["ms"], row["host_ms"] = ms, host_ms
+                    row["ms"], row["host_ms"] = _time_ms(torch, step)
                     row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, lambda: _fused_ref_call(
                         kernels, air, w, guess, state, -1.0, draws))
                     row["bound_ms"], row["bound_by"] = _fused_bound(k, d, w.element_size(), air)
                 rows.append(row)
                 print(f"kernel {name} fused K={k} d={d} {row['dtype']}: "
                       f"max_abs_err={row['max_abs_err']:.3e} "
-                      + " ".join(f"{key}={row[key]:.5f}" for key in row
-                                 if key.endswith("ms") or key.startswith("ms_"))
+                      + " ".join(f"{key}={row[key]:.5f}" for key in row if key.endswith("ms"))
                       + f" ok={ok} inactive_ok={inactive_ok} deterministic={deterministic}")
                 if not (ok and inactive_ok):
                     _fail(f"{name} fused step disagrees with its plain version at K={k} "
@@ -530,97 +529,92 @@ def check_solver_and_iteration(torch):
     return errs
 
 
-def _device_kernels(torch, prof):
-    """The device kernels of a profile (copies and memsets left out)."""
+def _short(kernel_name):
+    """The head of a kernel's name: templated names run to pages."""
+    return kernel_name.replace("(anonymous namespace)::", "").split("(")[0][:80]
+
+
+def _device_events(torch, prof):
+    """The device work of a profile: kernels, copies and memsets, without
+    the device-side spans of profiler ranges."""
+    from byzantine_aircomp_tpu_torch.ops.aggregators import WEISZFELD_LOOP_RANGE
+
     return [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not ev.name.startswith(("Memcpy", "Memset"))]
+            and ev.name != WEISZFELD_LOOP_RANGE]
 
 
-def profile_weiszfeld(torch, kernels, trainer, captured, kernel):
-    """The profiled iteration's aggregation, re-run on its own stack with
-    its generator's state: CUDA kernels per Weiszfeld step and wall ms per
-    step (host clock, synchronised).  One profile holds the solve cut to
-    one step, a marker kernel, then the whole solve: kernels per step are
-    the difference of the two solves' kernels over that of their steps."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def solve(maxiter):
-        kw = dict(captured["kw"], maxiter=maxiter)
-        if captured["gen_state"] is not None:
-            gen = torch.Generator(device="cuda")
-            gen.set_state(captured["gen_state"])
-            kw["generator"] = gen
-        before = kernels.LAUNCHES[kernel]
-        captured["agg"](captured["w"], **kw)
-        return kernels.LAUNCHES[kernel] - before
-
-    maxiter = captured["kw"]["maxiter"]
-    solve(maxiter)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = solve(maxiter)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one = solve(1)
-        torch.cuda._sleep(1000)  # the marker
-        solve(maxiter)
-        torch.cuda.synchronize()
-    evs = sorted(_device_kernels(torch, prof), key=lambda ev: ev.time_range.start)
-    marks = [i for i, ev in enumerate(evs) if "spin" in ev.name.lower()]
-    if one != 1 or steps < 2 or len(marks) != 1:
-        _fail(f"cannot count the kernels of a Weiszfeld step: steps {one}, {steps}; "
-              f"marker kernels {len(marks)}")
-    n_one, n_all = marks[0], len(evs) - marks[0] - 1
-    per_step = (n_all - n_one) / (steps - 1)
-    return dict(steps=steps, kernels_in_solve=n_all, kernels_in_one_step_solve=n_one,
-                kernels_per_step=per_step, setup_kernels=n_one - per_step,
-                wall_ms_per_step=wall_ms / steps, solve_wall_ms=wall_ms)
+def _device_kernels(torch, prof):
+    """The device kernels of a profile (copies and memsets left out)."""
+    return [ev for ev in _device_events(torch, prof)
+            if not ev.name.startswith(("Memcpy", "Memset"))]
 
 
-def profile_iteration(torch, trainer):
+def _weiszfeld_loop_kernels(torch, prof):
+    """The Weiszfeld loops of a profile (``aggregators.WEISZFELD_LOOP_RANGE``
+    ranges): their number, their host ms, and the device kernels launched
+    inside them (copies and memsets left out).  A kernel belongs to a loop
+    when the runtime call that launched it (``cudaLaunchKernel``,
+    ``cudaLaunchCooperativeKernel``, ...; the same correlation id) started
+    on the host inside the loop's range."""
+    from byzantine_aircomp_tpu_torch.ops.aggregators import WEISZFELD_LOOP_RANGE
+
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(prof.events())
+    loops = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.device_type == cpu and ev.name == WEISZFELD_LOOP_RANGE]
+    launched = {ev.id for ev in events
+                if ev.device_type == cpu and ev.name.startswith("cu")
+                and any(s <= ev.time_range.start <= e for s, e in loops)}
+    inside = [ev.name for ev in _device_kernels(torch, prof) if ev.id in launched]
+    host_ms = sum(e - s for s, e in loops) / 1e3
+    return len(loops), host_ms, inside
+
+
+def profile_iteration(torch, kernels, trainer, kernel):
     """One more global iteration of a finished run under torch.profiler:
     wall time, summed device kernel time and the idle share, and the
-    kernels that take the most device time.  Also returns the inputs of its
-    aggregation call."""
+    kernels that take the most device time.  Where the iteration runs a
+    Weiszfeld loop, also the CUDA kernels per Weiszfeld step (kernels
+    launched inside the loop over the iteration's launches of ``kernel``,
+    one per step) and the loop's host ms per step (profiler on)."""
     from torch.profiler import ProfilerActivity, profile
 
     gens = trainer.iteration_generators(10**6, 0)
-    captured = {}
-    agg = trainer.agg_fn
-
-    def spy(w, **kw):
-        gen = kw.get("generator")
-        captured.update(agg=agg, w=w, kw=dict(kw),
-                        gen_state=None if gen is None else gen.get_state())
-        return agg(w, **kw)
-
-    trainer.agg_fn = spy
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.iteration(trainer.flat_params, gens)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        trainer.agg_fn = agg
+    before = kernels.LAUNCHES[kernel]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.iteration(trainer.flat_params, gens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = kernels.LAUNCHES[kernel] - before
     per_kernel = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            # templated names run to pages: keep the head
-            name = ev.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
-            per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time_total / 1e3
+    for ev in _device_events(torch, prof):
+        name = _short(ev.name)
+        per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time_total / 1e3
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return dict(
+    out = dict(
         wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms > 0 else None,
         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
         device_kernels=len(_device_kernels(torch, prof)),
         top_kernels_ms=top,
-    ), captured
+    )
+    loops, host_ms, inside = _weiszfeld_loop_kernels(torch, prof)
+    if loops:
+        # the step kernel's own launches, found in the profile, must be the
+        # ones the counter saw: else the profile missed launches
+        found = sum("step_kernel" in name for name in inside)
+        if steps < 1 or found != steps:
+            _fail(f"the profile holds {found} Weiszfeld step kernels in {loops} loops, "
+                  f"the counter {steps}: cannot count the kernels of a step")
+        out["weiszfeld_per_step"] = dict(
+            loops=loops, steps_launched=steps, kernels_in_loops=len(inside),
+            kernels_per_step=len(inside) / steps, host_ms_per_step=host_ms / steps,
+            loop_host_ms=host_ms, kernel_names=sorted(set(_short(n) for n in inside)))
+    return out
 
 
 def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
@@ -652,20 +646,21 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         if label == "a_gm_var" and not val_acc > 0.3:
             _fail(f"run {label}: val accuracy {val_acc} not above 0.3")
         rps = record["roundsPerSec"]
-        prof, captured = profile_iteration(torch, trainer)
+        prof = profile_iteration(torch, kernels, trainer, kernel)
         print(f"run {label} profiled iteration: wall {prof['wall_ms']:.1f} ms, "
               f"device busy {prof['device_busy_ms']} ms, idle share "
               f"{prof['idle_share']}, {prof['device_kernels']} device kernels; "
               f"top kernels {prof['top_kernels_ms'][:4]}")
-        per_step = None
+        per_step = prof.pop("weiszfeld_per_step", None)
         if kw["agg"] in ("gm", "gm2"):
-            per_step = profile_weiszfeld(torch, kernels, trainer, captured, kernel)
-            print(f"run {label} Weiszfeld solve of the profiled iteration: "
-                  f"{per_step['steps']} steps launched, "
+            if per_step is None:
+                _fail(f"run {label}: no Weiszfeld loop in the profiled iteration")
+            print(f"run {label} Weiszfeld loop of the profiled iteration: "
+                  f"{per_step['steps_launched']} steps launched, "
                   f"{per_step['kernels_per_step']:.3f} CUDA kernels per step "
-                  f"({per_step['kernels_in_solve']} in the solve, "
-                  f"{per_step['setup_kernels']} before the loop), "
-                  f"wall {per_step['wall_ms_per_step']:.4f} ms per step [{card}]")
+                  f"({per_step['kernels_in_loops']} in {per_step['loops']} loop(s): "
+                  f"{per_step['kernel_names']}), host {per_step['host_ms_per_step']:.4f} "
+                  f"ms per step (profiler on) [{card}]")
             most = 4 if kw["agg"] == "gm" else 1
             if per_step["kernels_per_step"] > most + 1e-9:
                 _fail(f"run {label}: {per_step['kernels_per_step']} CUDA kernels per "

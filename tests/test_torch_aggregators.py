@@ -195,6 +195,28 @@ def test_cpu_solve_is_bitwise_the_per_step_torch_loop(agg, chunk):
     assert torch.equal(got[0], want[0])
 
 
+def test_weiszfeld_loop_runs_inside_one_profiler_range():
+    """A profile can tell the loop's steps from the solve's set-up: one
+    ``WEISZFELD_LOOP_RANGE`` range per solve, holding the steps' ops and
+    not the state's allocation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w, g = _stack(11, 200, seed=3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, n = tagg.gm2_solve(torch.from_numpy(w), guess=torch.from_numpy(g),
+                              maxiter=120, tol=1e-7)
+    events = list(prof.events())
+    loops = [ev for ev in events if ev.name == tagg.WEISZFELD_LOOP_RANGE]
+    assert len(loops) == 1 and n > 1
+    start, end = loops[0].time_range.start, loops[0].time_range.end
+
+    def inside(name):
+        return [start <= ev.time_range.start <= end for ev in events if ev.name == name]
+
+    assert inside("aten::linalg_vector_norm").count(True) >= 2 * n  # distances, movement
+    assert inside("aten::ones") and not any(inside("aten::ones"))  # the active flag
+
+
 def test_gm2_excludes_non_finite_rows_like_jax():
     w, g = _stack(10, 120, seed=9)
     w[2, 5] = np.nan

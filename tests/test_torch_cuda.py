@@ -34,7 +34,7 @@ def _stack(k, d, dtype, cuda, bad=float("nan")):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,d", [(13, 300), (1000, 7850), (1, 1)])
+@pytest.mark.parametrize("k,d", [(13, 300), (1000, 7850), (1, 1), (50, 16500)])
 def test_kernels_match_plain_versions(cuda, k, d, dtype):
     w, guess, h_sq, s = _stack(k, d, dtype, cuda, bad=float("inf"))
     before = dict(kernels.LAUNCHES)
@@ -97,16 +97,15 @@ def _fused_args(k, d, dtype, cuda, air):
     return w, guess, state, draws
 
 
-def _fused(air, w, g_in, g_out, active, steps, tol, draws, col_tiles=0):
+def _fused(air, w, g_in, g_out, active, steps, tol, draws):
     """The fused step on fresh copies of the state; (g, active, steps, scaler)."""
     active, steps = active.clone(), steps.clone()
     if not air:
-        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol,
-                                              col_tiles=col_tiles), None)
+        return (*kernels.weiszfeld_step_fused(w, g_in, g_out, active, steps, tol), None)
     draws = dict(draws, scaler=draws["scaler"].clone())
     h_r, h_i, scaler = draws.pop("h_r"), draws.pop("h_i"), draws.pop("scaler")
     return kernels.aircomp_weiszfeld_step_fused(
-        w, g_in, g_out, active, steps, tol, h_r, h_i, scaler, col_tiles=col_tiles, **draws)
+        w, g_in, g_out, active, steps, tol, h_r, h_i, scaler, **draws)
 
 
 def _fused_ref(air, w, g_in, active, steps, tol, draws):
@@ -118,23 +117,25 @@ def _fused_ref(air, w, g_in, active, steps, tol, draws):
         w, g_in, active, steps, tol, h_r, h_i, scaler, **draws)
 
 
-# d = 7850 and 301: every other row starts off a 16-byte boundary (f32 and
-# bf16); K = 2000: 15-16 rows per block; col_tiles > 0 splits rows across
-# blocks (a grid barrier between the distances and the weighted sums)
+# d = 7850, 301 and 9001: every other row starts off a 16-byte boundary
+# (f32 and bf16); K = 2000: 15-16 rows per block.  Rows wider than 8192
+# columns split across blocks, with a grid barrier between the distances
+# and the weighted sums: d = 9001 in 2 tiles, 16500 in 3; at (300, 9001)
+# a block's rows do not fit its registers at once and are read again.
 @pytest.mark.parametrize("air", [False, True], ids=["gm2", "gm"])
-@pytest.mark.parametrize("k,d,dtype,col_tiles", [
-    (50, 7850, torch.float32, 0), (50, 7850, torch.bfloat16, 0),
-    (13, 301, torch.bfloat16, 0), (2000, 7850, torch.float32, 0), (1, 1, torch.float32, 0),
-    (50, 7850, torch.float32, 2), (13, 301, torch.bfloat16, 5),
-    (1000, 7850, torch.bfloat16, 3),
+@pytest.mark.parametrize("k,d,dtype", [
+    (50, 7850, torch.float32), (50, 7850, torch.bfloat16),
+    (13, 301, torch.bfloat16), (2000, 7850, torch.float32), (1, 1, torch.float32),
+    (1000, 7850, torch.bfloat16), (13, 9001, torch.bfloat16),
+    (50, 16500, torch.float32), (300, 9001, torch.float32),
 ])
-def test_fused_step_matches_plain_version(cuda, k, d, dtype, col_tiles, air):
+def test_fused_step_matches_plain_version(cuda, k, d, dtype, air):
     w, guess, (active, steps), draws = _fused_args(k, d, dtype, cuda, air)
     name = "aircomp_weiszfeld_step" if air else "weiszfeld_step"
     for tol in (0.0, 1e9):  # the step stays active / stops
         before = kernels.LAUNCHES[name]
         g_out = torch.empty_like(guess)
-        got = _fused(air, w, guess, g_out, active, steps, tol, draws, col_tiles)
+        got = _fused(air, w, guess, g_out, active, steps, tol, draws)
         want = _fused_ref(air, w, guess, active, steps, tol, draws)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES[name] == before + 1
@@ -146,7 +147,7 @@ def test_fused_step_matches_plain_version(cuda, k, d, dtype, col_tiles, air):
         assert int(got[2]) == int(want[2]) == 1
         if air:
             torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-6)
-        again = _fused(air, w, guess, torch.empty_like(guess), active, steps, tol, draws, col_tiles)
+        again = _fused(air, w, guess, torch.empty_like(guess), active, steps, tol, draws)
         assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
 
 

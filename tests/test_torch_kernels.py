@@ -147,11 +147,13 @@ def test_kernel_sources_and_constants_agree():
     assert set(tk._SOURCES) == set(tk.LAUNCHES)
     for name, path in tk._SOURCES.items():
         assert f"{name}_launch" in (tk.CSRC / path).read_text()
-    # every further C entry point has its ctypes signature, so that no
-    # pointer goes through ctypes as a 32-bit int
-    for name, queries in tk._QUERIES.items():
+    # every C entry point has its ctypes signature, so that no pointer goes
+    # through ctypes as a 32-bit int
+    for name in tk._SOURCES:
         text = "".join((tk.CSRC / f).read_text() for f in tk._source_files(name))
-        for qname, (argtypes, _) in queries.items():
+        entries = {f"{name}_launch": tk._ARGTYPES[name]}
+        entries.update({q: a for q, (a, _) in tk._QUERIES.get(name, {}).items()})
+        for qname, argtypes in entries.items():
             assert f"{qname}(" in text
             assert len(argtypes) == text.split(f"{qname}(")[1].split(")")[0].count(",") + 1
 
