@@ -49,6 +49,33 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+// Built with -DSELECT_COLUMNS_CLOCK (byzantine_aircomp_tpu_torch/tools/
+// select_clock.py), each block of the shared-memory path records clock64()
+// at its start, after staging and at its end, and %globaltimer at its start
+// and end, into g_clock[5 * block].
+#ifdef SELECT_COLUMNS_CLOCK
+constexpr int kClockBlocks = 65536;
+__device__ long long g_clock[5 * kClockBlocks];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define CLOCK_MARK(slot)                                                   \
+  do {                                                                     \
+    if (threadIdx.x == 0 && blockIdx.x < kClockBlocks) {                   \
+      g_clock[5 * blockIdx.x + (slot)] = clock64();                        \
+      if ((slot) != 1) g_clock[5 * blockIdx.x + 3 + ((slot) == 2)] = global_ns(); \
+    }                                                                      \
+  } while (0)
+extern "C" int select_columns_clock_read(long long* host, long long blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_clock, static_cast<size_t>(5 * blocks) * sizeof(long long)));
+}
+#else
+#define CLOCK_MARK(slot)
+#endif
+
 namespace select_columns {
 
 constexpr int kStrip = 32;          // columns per block
@@ -211,6 +238,7 @@ select_kernel(const float* __restrict__ w, const float* __restrict__ n_r,
   const long long col0 = static_cast<long long>(blockIdx.x) * kStrip;
   const int ncols = static_cast<int>(min(static_cast<long long>(kStrip), d - col0));
   if constexpr (kShared) {
+    CLOCK_MARK(0);
     if (lane < ncols) {
       for (long long r = warp; r < k; r += kWarps) {
         skeys[r * kPitch + lane] = to_key(
@@ -218,10 +246,15 @@ select_kernel(const float* __restrict__ w, const float* __restrict__ n_r,
       }
     }
     __syncthreads();
+    CLOCK_MARK(1);
     const SharedKeys keys{skeys};
     for (int c = warp; c < ncols; c += kWarps) {
       select_column(keys, k, b, want_mean, c, lane, out + col0 + c);
     }
+#ifdef SELECT_COLUMNS_CLOCK
+    __syncthreads();
+    CLOCK_MARK(2);
+#endif
   } else {
     const GlobalKeys keys{gkeys, d, col0};
     for (int c = warp; c < ncols; c += kWarps) {
