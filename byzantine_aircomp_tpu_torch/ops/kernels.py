@@ -76,7 +76,7 @@ _ARGTYPES = {
         _P, _I, _P, _P, _P, _F, _LL, _LL, _P, _P, _P, _P,
     ],
     "select_columns": [
-        _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _P,
     ],
     "packed_vote_counts": [_P, _LL, _LL, _LL, _P, _P],
 }
@@ -97,12 +97,19 @@ _QUERIES = {
         ),
     },
     "select_columns": {
-        "select_columns_scratch_bytes": ([_LL, _LL], _LL),
+        "select_columns_plan": ([_LL, _LL, _P], _I),
     },
 }
 # Weiszfeld workspaces (slice partials and the ticket), one per
 # (device, K, d), allocated at first use and kept
 _WORKSPACES: Dict[Tuple[int, int, int], torch.Tensor] = {}
+# select_columns launch plans, one per (device, K, d), found at first use so
+# that a call makes no CUDA attribute query
+_SELECT_PLANS: Dict[Tuple[int, int, int], Dict[str, int]] = {}
+_SELECT_PLAN_FIELDS = (
+    "path", "strip", "threads", "smem_bytes", "scratch_bytes", "blocks_per_sm",
+    "blocks_per_sm_channel", "grid",
+)
 
 
 def reset_launches():
@@ -322,6 +329,59 @@ def nth_smallest_keys(keys: torch.Tensor, n: int) -> torch.Tensor:
         above = cnt <= n  # fewer than n + 1 keys at or below mid
         lo, hi = torch.where(above, mid + 1, lo), torch.where(above, hi, mid)
     return lo
+
+
+RADIX_SHIFTS = (24, 16, 8, 0)  # 8-bit digits of the unsigned key, high first
+
+
+def nth_smallest_keys_radix(keys: torch.Tensor, ranks: Tuple[int, ...]):
+    """Plain mirror of ``select_columns``' radix select (the CUDA kernel's
+    path for K > 64), for one rank or two (``ranks = (b, K - b - 1)``).
+
+    For each rank n, per column of [K, d] int32 keys: on the unsigned form
+    ``key ^ 0x80000000`` (here ``key + 2^31`` in int64), four passes over
+    8-bit digits, most significant first; each pass counts the digit of
+    every key that matches the prefix found so far into 256 bins, takes the
+    bin where the running count first exceeds n, subtracts the keys below
+    that bin from n and appends the bin to the prefix.  Returns
+    ``(selected, n_lt, n_le, passes)``: the n-th smallest keys [R, d]
+    int32, their #(<) and #(<=) as the passes leave them (the keys below the
+    bins taken, plus the last bin's size), and the column passes [d] the
+    kernel makes: two ranks share a pass while their prefixes agree and
+    take one each after they part, so 4 to 7."""
+    if len(ranks) not in (1, 2):
+        raise ValueError(f"one or two ranks, got {ranks}")
+    u = keys.to(torch.int64) + 2**31
+    cols = keys.shape[1]
+    zeros = torch.zeros(cols, dtype=torch.int64, device=keys.device)
+    selected, n_lt, n_le, prefixes = [], [], [], []
+    for n in ranks:
+        prefix, below, left = zeros, zeros, zeros + n
+        per_pass = []
+        for shift in RADIX_SHIFTS:
+            cand = (u >> (shift + 8)) == (prefix >> (shift + 8))[None, :]
+            digit = torch.where(cand, (u >> shift) & 255, 256)
+            hist = torch.zeros(257, cols, dtype=torch.int64, device=keys.device)
+            hist = hist.scatter_add_(0, digit, torch.ones_like(digit))[:256]
+            run = torch.cumsum(hist, dim=0)
+            bin_ = torch.sum(run <= left[None, :], dim=0)  # first bin past the rank
+            under = run.gather(0, (bin_ - 1).clamp(min=0)[None, :])[0]
+            under = torch.where(bin_ > 0, under, 0)
+            eq = hist.gather(0, bin_[None, :])[0]
+            left, below = left - under, below + under
+            prefix = prefix | (bin_ << shift)
+            per_pass.append(prefix)
+        selected.append((prefix - 2**31).to(torch.int32))
+        n_lt.append(below)
+        n_le.append(below + eq)
+        prefixes.append(per_pass)
+    passes = torch.full((cols,), len(RADIX_SHIFTS), dtype=torch.int64, device=keys.device)
+    if len(ranks) == 2:
+        # the pass at which the two prefixes part (4: never)
+        parted = torch.stack([a != b for a, b in zip(*prefixes)])  # [4, d]
+        first = torch.where(parted.any(dim=0), parted.to(torch.int64).argmax(dim=0), 3)
+        passes = first + 1 + 2 * (3 - first)
+    return torch.stack(selected), torch.stack(n_lt), torch.stack(n_le), passes
 
 
 def select_median(w: torch.Tensor) -> torch.Tensor:
@@ -630,19 +690,41 @@ def _check_select(w: torch.Tensor, channel: Optional[OmaTerms]):
             raise ValueError(f"channel.{what} must be {list(shape)}, got {list(t.shape)}")
 
 
+def select_plan(device, k: int, d: int) -> Dict[str, int]:
+    """The launch configuration of ``select_columns`` for a [K, d] stack on
+    the CUDA ``device``: ``path`` (0: K <= 64, keys in registers; 1: keys
+    in shared memory; 2: keys in a global scratch), columns and threads per
+    block, dynamic shared bytes, ``scratch_bytes``, resident blocks per SM
+    (without and with the channel) and the grid.  Found once per (device,
+    K, d), which also raises the kernels' shared-memory cap: never inside a
+    CUDA-graph capture."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, k, d)
+    plan = _SELECT_PLANS.get(key)
+    if plan is None:
+        _launch_fn("select_columns")
+        buf = (ctypes.c_longlong * len(_SELECT_PLAN_FIELDS))()
+        with torch.cuda.device(index):
+            err = _LIBS["select_columns"].select_columns_plan(k, d, ctypes.addressof(buf))
+        if err != 0:
+            raise RuntimeError(f"select_columns_plan failed for K={k}, d={d}: CUDA error {err}")
+        plan = dict(zip(_SELECT_PLAN_FIELDS, buf))
+        _SELECT_PLANS[key] = plan
+    return plan
+
+
 def _select(w: torch.Tensor, b: int, want_mean: bool,
             channel: Optional[OmaTerms]) -> torch.Tensor:
     _check_select(w, channel)
     k, d = w.shape
+    plan = select_plan(w.device, k, d)
     fn = _launch_fn("select_columns")
-    lib = _LIBS["select_columns"]
     with torch.cuda.device(w.device):
-        scratch_bytes = lib.select_columns_scratch_bytes(k, d)
-        if scratch_bytes < 0:
-            raise RuntimeError(f"select_columns: CUDA error {-scratch_bytes}")
         scratch = (
             torch.empty(k * d, dtype=torch.int32, device=w.device)
-            if scratch_bytes else None
+            if plan["scratch_bytes"] else None
         )
         out = torch.empty(d, dtype=torch.float32, device=w.device)
         if channel is None:
@@ -652,7 +734,7 @@ def _select(w: torch.Tensor, b: int, want_mean: bool,
                   channel.h_r.data_ptr(), channel.h_i.data_ptr(),
                   channel.h_sq.data_ptr())
         err = fn(
-            w.data_ptr(), *ch, k, d, b, int(want_mean),
+            w.data_ptr(), *ch, k, d, b, int(want_mean), plan["path"],
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(w.device).cuda_stream,
         )

@@ -3,14 +3,17 @@
     python -m byzantine_aircomp_tpu_torch.tools.select_clock
 
 Builds ``ops/csrc/select_columns.cu`` a second time with
-``-DSELECT_COLUMNS_CLOCK -Xptxas -v`` (each block of the shared-memory
-path then records clock64 at its start, after staging its keys and at its
-end, and the global timer at its start and end), runs the four modes
+``-DSELECT_COLUMNS_CLOCK -Xptxas -v`` (each block then records clock64 at
+its start, after staging its keys and at its end, the global timer at its
+start and end, and clock64 around the digit passes of one radix column),
+runs the four modes
 (median, trimmed mean, each with and without the channel fold) at K=50 and
 K=1000, d=7850, and prints per case: the median and largest staging and
 selection cycles over the blocks, the same in microseconds (cycles times
 the blocks' own ns per cycle), and the span from the first block's start to
-the last block's end.  Beside them, the production build's device ms per
+the last block's end; at K > 64, the median over blocks of each digit
+pass of one column (its first pass only where the two ranks of a trimmed
+mean part later) and of the whole column.  Beside them, the production build's device ms per
 call (CUDA-graph replay, ``chip_smoke._time_ms``).  Needs one NVIDIA GPU;
 writes ``chiprun_out/select_clock.json``.
 """
@@ -27,6 +30,7 @@ import torch
 from ..ops import channel, kernels
 
 ROOT = kernels.BUILD_DIR.parents[1]
+SLOTS = 11  # clock words per block, kClockSlots in the source
 
 
 def _build_clock_lib():
@@ -62,11 +66,14 @@ def _call(mode, w, b, ch):
     return kernels.fused_trimmed_mean(w, b, ch)
 
 
-def _grid_blocks(k, d):
-    plan = getattr(kernels, "_select_plan", None)
-    if plan is not None:  # the kernel reports its own launch configuration
-        return plan(torch.empty(1, device="cuda"), k, d)["grid"]
-    return -(-d // 32)
+def _grid_blocks(lib, k, d):
+    """Run the library's own plan (it raises that build's shared-memory
+    cap) and return its grid."""
+    plan = (ctypes.c_longlong * len(kernels._SELECT_PLAN_FIELDS))()
+    err = lib.select_columns_plan(k, d, ctypes.addressof(plan))
+    if err != 0:
+        raise RuntimeError(f"select_columns_plan failed: CUDA error {err}")
+    return dict(zip(kernels._SELECT_PLAN_FIELDS, plan))["grid"]
 
 
 def main():
@@ -92,16 +99,16 @@ def main():
                          ("trimmed_mean", None), ("trimmed_mean", terms)):
             kernels._LIBS["select_columns"] = prod
             ms, host_ms = chip_smoke._time_ms(torch, lambda: _call(mode, w, b, ch))
+            blocks = _grid_blocks(clock_lib, k, d)
             kernels._LIBS["select_columns"] = clock_lib
             _call(mode, w, b, ch)
             torch.cuda.synchronize()
-            blocks = _grid_blocks(k, d)
-            buf = (ctypes.c_longlong * (5 * blocks))()
+            buf = (ctypes.c_longlong * (SLOTS * blocks))()
             err = clock_lib.select_columns_clock_read(ctypes.addressof(buf), blocks)
             if err != 0:
                 raise RuntimeError(f"clock read failed: CUDA error {err}")
             kernels._LIBS["select_columns"] = prod
-            marks = [buf[5 * i: 5 * i + 5] for i in range(blocks)]
+            marks = [buf[SLOTS * i: SLOTS * (i + 1)] for i in range(blocks)]
             stage = [m[1] - m[0] for m in marks]
             select = [m[2] - m[1] for m in marks]
             ns_per_cycle = statistics.median(
@@ -117,13 +124,24 @@ def main():
                 block_us_median=statistics.median(m[4] - m[3] for m in marks) / 1e3,
                 span_us=span_ns / 1e3, ms=ms, host_ms=host_ms, card=card,
             )
+            row["plan"] = kernels.select_plan(w.device, k, d)
+            if k > 64:
+                passes = [statistics.median(m[6 + i] - m[5 + i] for m in marks) * ns_per_cycle / 1e3
+                          for i in range(4 if mode == "median" else 1)]
+                row["column_pass_us_median"] = passes
+                row["column_us_median"] = statistics.median(
+                    m[10 if mode == "trimmed_mean" else 9] - m[5] for m in marks) * ns_per_cycle / 1e3
             rows.append(row)
             print(f"select_columns {mode}{'+channel' if ch is not None else ''} K={k} "
                   f"d={d}: {blocks} blocks; per block stage {row['stage_us_median']:.2f} us "
                   f"(max {max(stage) * ns_per_cycle / 1e3:.2f}), select "
                   f"{row['select_us_median']:.2f} us (max {max(select) * ns_per_cycle / 1e3:.2f}), "
                   f"block {row['block_us_median']:.2f} us; span {row['span_us']:.2f} us; "
-                  f"device {ms:.4f} ms/call, host {host_ms:.4f} ms/call [{card}]")
+                  f"plan {row['plan']}; "
+                  + (f"one column {row['column_us_median']:.2f} us, passes "
+                     f"{['%.2f' % x for x in row['column_pass_us_median']]} us; "
+                     if k > 64 else "")
+                  + f"device {ms:.4f} ms/call, host {host_ms:.4f} ms/call [{card}]")
     out_dir = ROOT / "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     with open(out_dir / "select_clock.json", "w") as f:

@@ -9,10 +9,16 @@
 2. holds each kernel against its plain PyTorch version on the card and
    times both: the Weiszfeld steps at the main path's shapes and a ragged
    one, in f32 and bf16, with one non-finite row; the selection kernel
-   (median, trimmed mean, each with and without the channel fold) and the
-   popcount kernel at (13, 300), (50, 7850) and (1000, 7850), with +-Inf,
-   NaN, tied and signed-zero rows (median and counts bitwise, trimmed mean
-   within 1e-5, every kernel rerun for identical bits);
+   (median, trimmed mean, each with and without the channel fold; its
+   launch plan printed) at (13, 300), (50, 7850), (1000, 7850), (1, 7850),
+   (2, 300), (64, 300), (65, 300) and (2000, 7850), with +-Inf, NaN, tied
+   and signed-zero rows, and on stacks whose keys tie across 8-bit digit
+   boundaries at (65, 300) and (1000, 7850) (medians bitwise, trimmed
+   means within 1e-5), all four modes timed at K=50 and K=1000 beside
+   ``torch.median``; the popcount kernel at (1, 1), (70, 33), (13, 300),
+   (50, 7850) and (1000, 7850), bitwise, and one call of it must issue one
+   device kernel and no memset (torch.profiler); every kernel is rerun for
+   identical bits;
    The Weiszfeld kernels' fused mode (a whole step of the loop in one
    launch) is held against its plain version (the plain num/den plus the
    torch update and stopping rule) at (1, 1), (13, 300), (50, 7850),
@@ -36,7 +42,8 @@
        1 round x interval 10;
    with the kernels' launch counters set to 0 before each run and read
    after it; each run must launch its kernel in every iteration.  One more
-   iteration of each run is profiled; for (a) and (b) the CUDA kernels
+   iteration of each run is profiled (device busy ms, idle share, and the
+   device ms of the run's own kernel); for (a) and (b) the CUDA kernels
    launched inside its Weiszfeld loop (the ``aggregators.WEISZFELD_LOOP_RANGE``
    profiler range), over that iteration's launches of the step kernel, give
    the CUDA kernels per Weiszfeld step (at most 4 for gm, 1 for gm2), and
@@ -343,92 +350,139 @@ def _same_bits(torch, a, b):
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-def check_select_and_popcount(torch, kernels):
+# float32 bit patterns whose keys tie often and differ in only their first
+# or their last 8-bit digit (or straddle one), with +-0, +-Inf and a NaN
+TIE_BITS = (0x3F800000, 0x3F7FFFFF, 0x3F800001, 0x3F8000FF, 0x3F800100, 0x3F810000,
+            0x3FFFFFFF, 0x40000000, 0xBF800000, 0xBF800001, 0x00000000, 0x80000000,
+            0x7F800000, 0xFF800000, 0x7FC00000, 0x00FFFFFF, 0x01000000)
+
+
+def _tie_stack(torch, k, d, seed):
+    vals = torch.tensor(TIE_BITS, dtype=torch.int64).to(torch.int32).view(torch.float32).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, vals.numel(), (k, d), device="cuda", generator=g)
+    idx[:, 0] = 0  # an all-equal column
+    return vals[idx].contiguous()
+
+
+def _device_kernel_names(torch, fn):
+    """The device kernels, copies and memsets one call of ``fn`` issues."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in _device_events(torch, prof)]
+
+
+def check_select_and_popcount(torch, kernels, card):
     """Both kernels of the second slice against their plain versions on the
     card; times at the main path's shapes (K=50 and K=1000, d=7850)."""
     rows = []
-    for k, d in ((13, 300), (50, 7850), (1000, 7850)):
-        timed = d == 7850
-        for adversarial in (True, False):
-            w, terms = _select_inputs(torch, k, d, seed=k + d + adversarial, adversarial=adversarial)
-            b = int(0.1 * k)
-            for mode, ch in (("median", None), ("median", terms),
-                             ("trimmed_mean", None), ("trimmed_mean", terms)):
+    # (K, d, stack): K <= 64 ranks by count in registers, K > 64 radix
+    # selects from shared memory; "ties" draws from TIE_BITS
+    cases = [(13, 300, "adversarial"), (13, 300, "plain"), (50, 7850, "adversarial"),
+             (50, 7850, "plain"), (1000, 7850, "adversarial"), (1000, 7850, "plain"),
+             (1, 7850, "plain"), (2, 300, "plain"), (64, 300, "adversarial"),
+             (65, 300, "adversarial"), (2000, 7850, "adversarial"), (65, 300, "ties"),
+             (1000, 7850, "ties")]
+    for k, d, stack in cases:
+        timed = d == 7850 and k in (50, 1000) and stack == "plain"
+        adversarial = stack == "adversarial"
+        w, terms = _select_inputs(torch, k, d, seed=k + d + adversarial, adversarial=adversarial)
+        if stack == "ties":
+            w = _tie_stack(torch, k, d, seed=k * d)
+        plan = kernels.select_plan(w.device, k, d)
+        print(f"select_columns plan K={k} d={d}: {plan}")
+        b = int(0.1 * k)
+        for mode, ch in (("median", None), ("median", terms),
+                         ("trimmed_mean", None), ("trimmed_mean", terms)):
+            if mode == "median":
+                kern = lambda: kernels.fused_median(w, ch)  # noqa: E731
+                ref = lambda: kernels.fused_median_ref(w, ch)  # noqa: E731
+            else:
+                kern = lambda: kernels.fused_trimmed_mean(w, b, ch)  # noqa: E731
+                ref = lambda: kernels.fused_trimmed_mean_ref(w, b, ch)  # noqa: E731
+            got, want = kern(), ref()
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            if mode == "median":
+                ok = _same_bits(torch, got, want)
+                err = 0.0 if ok else float("inf")
+            else:
+                err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+                ok = (torch.equal(torch.isfinite(got), fin)
+                      and _same_bits(torch, got[~fin], want[~fin])
+                      and bool(torch.allclose(got[fin], want[fin], rtol=SELECT_RTOL,
+                                              atol=SELECT_ATOL)))
+            deterministic = _same_bits(torch, kern(), got)
+            row = dict(name="select_columns", mode=mode, channel=ch is not None,
+                       k=k, d=d, b=b if mode == "trimmed_mean" else None,
+                       adversarial=adversarial, stack=stack, path=plan["path"],
+                       max_abs_err=err, ok=ok, deterministic=deterministic)
+            if timed:
+                row["ms"], row["host_ms"] = _time_ms(torch, kern)
+                row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
+                nbytes = k * d * 4 * (3 if ch is not None else 1) + d * 4 + (
+                    3 * k * 4 if ch is not None else 0)
+                row["bound_ms"], row["bound_by"] = _bytes_bound(nbytes)
+                row["library_ms"] = None
                 if mode == "median":
-                    kern = lambda: kernels.fused_median(w, ch)  # noqa: E731
-                    ref = lambda: kernels.fused_median_ref(w, ch)  # noqa: E731
-                else:
-                    kern = lambda: kernels.fused_trimmed_mean(w, b, ch)  # noqa: E731
-                    ref = lambda: kernels.fused_trimmed_mean_ref(w, b, ch)  # noqa: E731
-                got, want = kern(), ref()
-                torch.cuda.synchronize()
-                fin = torch.isfinite(want)
-                if mode == "median":
-                    ok = _same_bits(torch, got, want)
-                    err = 0.0 if ok else float("inf")
-                else:
-                    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-                    ok = (torch.equal(torch.isfinite(got), fin)
-                          and _same_bits(torch, got[~fin], want[~fin])
-                          and bool(torch.allclose(got[fin], want[fin], rtol=SELECT_RTOL,
-                                                  atol=SELECT_ATOL)))
-                deterministic = _same_bits(torch, kern(), got)
-                row = dict(name="select_columns", mode=mode, channel=ch is not None,
-                           k=k, d=d, b=b if mode == "trimmed_mean" else None,
-                           adversarial=adversarial, max_abs_err=err, ok=ok,
-                           deterministic=deterministic)
-                if timed and not adversarial:
-                    row["ms"], row["host_ms"] = _time_ms(torch, kern)
-                    row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
-                    nbytes = k * d * 4 * (3 if ch is not None else 1) + d * 4 + (
-                        3 * k * 4 if ch is not None else 0)
-                    row["bound_ms"], row["bound_by"] = _bytes_bound(nbytes)
-                    row["library_ms"] = None
-                    if mode == "median":
-                        # torch.median's own time on the same (received) stack;
-                        # the port never calls it (its NaN and signed-zero
-                        # rules differ)
-                        recv = w if ch is None else w + kernels.oma_residual(ch)
-                        row["library_ms"] = _time_ms(
-                            torch, lambda: torch.median(recv, dim=0).values)[0]
-                rows.append(row)
-                print(f"kernel select_columns {mode}{'+channel' if ch is not None else ''} "
-                      f"K={k} d={d} adversarial={adversarial}: max_abs_err={err:.3e} "
-                      + " ".join(f"{key}={row[key]:.5f}" for key in
-                                 ("ms", "plain_ms", "bound_ms", "library_ms")
-                                 if row.get(key) is not None)
-                      + f" ok={ok} deterministic={deterministic}")
-                if not ok:
-                    _fail(f"select_columns {mode} disagrees with its plain version "
-                          f"at K={k} d={d} channel={ch is not None} adversarial={adversarial}")
-                if not deterministic:
-                    _fail(f"select_columns {mode} gave different bits on a rerun at K={k} d={d}")
+                    # torch.median's own time on the same (received) stack;
+                    # the port never calls it (its NaN and signed-zero
+                    # rules differ)
+                    recv = w if ch is None else w + kernels.oma_residual(ch)
+                    row["library_ms"] = _time_ms(
+                        torch, lambda: torch.median(recv, dim=0).values)[0]
+            rows.append(row)
+            print(f"kernel select_columns {mode}{'+channel' if ch is not None else ''} "
+                  f"K={k} d={d} stack={stack} path={plan['path']}: max_abs_err={err:.3e} "
+                  + " ".join(f"{key}={row[key]:.5f}" for key in
+                             ("ms", "host_ms", "plain_ms", "bound_ms", "library_ms")
+                             if row.get(key) is not None)
+                  + f" ok={ok} deterministic={deterministic}"
+                  + (f" [{card}]" if timed else ""))
+            if not ok:
+                _fail(f"select_columns {mode} disagrees with its plain version "
+                      f"at K={k} d={d} channel={ch is not None} stack={stack}")
+            if not deterministic:
+                _fail(f"select_columns {mode} gave different bits on a rerun at K={k} d={d}")
 
-    for k, d in ((13, 300), (50, 7850), (1000, 7850)):
+    for k, d in ((1, 1), (70, 33), (13, 300), (50, 7850), (1000, 7850)):
         g = torch.Generator(device="cuda").manual_seed(k * d)
         w_cnt = -(-d // 32)
         words = torch.randint(-(2**31), 2**31 - 1, (k, w_cnt), dtype=torch.int32,
                               device="cuda", generator=g)
         words[0] = -1  # bit 31 set in every word
-        words[1] = 0  # a non-finite client packs all-zero
+        words[min(1, k - 1)] = 0  # a non-finite client packs all-zero
         kern = lambda: kernels.packed_vote_counts(words, d)  # noqa: E731
         ref = lambda: kernels.packed_vote_counts_ref(words, d)  # noqa: E731
         got = kern()
         ok = torch.equal(got, ref())
         deterministic = torch.equal(kern(), got)
-        row = dict(name="packed_vote_counts", k=k, d=d, words=w_cnt, max_abs_err=0.0 if ok else float("inf"),
-                   ok=ok, deterministic=deterministic, library_ms=None)
+        # one call is one device kernel: no memset, no second launch
+        issued = _device_kernel_names(torch, kern)
+        one_kernel = len(issued) == 1 and "count_kernel" in issued[0]
+        row = dict(name="packed_vote_counts", k=k, d=d, words=w_cnt,
+                   max_abs_err=0.0 if ok else float("inf"), ok=ok,
+                   deterministic=deterministic, device_ops_per_call=[_short(n) for n in issued],
+                   library_ms=None)
         if d == 7850:
             row["ms"], row["host_ms"] = _time_ms(torch, kern)
             row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
             row["bound_ms"], row["bound_by"] = _bytes_bound(k * w_cnt * 4 + d * 4)
         rows.append(row)
         print(f"kernel packed_vote_counts K={k} d={d} W={w_cnt}: ok={ok} "
-              f"deterministic={deterministic} "
-              + " ".join(f"{key}={row[key]:.5f}" for key in ("ms", "plain_ms", "bound_ms")
-                         if key in row))
+              f"deterministic={deterministic} device ops per call={row['device_ops_per_call']} "
+              + " ".join(f"{key}={row[key]:.5f}" for key in
+                         ("ms", "host_ms", "plain_ms", "bound_ms") if key in row)
+              + (f" [{card}]" if d == 7850 else ""))
         if not ok or not deterministic:
             _fail(f"packed_vote_counts wrong or not repeatable at K={k} d={d}")
+        if not one_kernel:
+            _fail(f"packed_vote_counts issued {issued} for one call, not one kernel")
     return rows
 
 
@@ -571,6 +625,11 @@ def _weiszfeld_loop_kernels(torch, prof):
     return len(loops), host_ms, inside
 
 
+# each wrapper's device kernel, as the profiler names it
+DEVICE_NAMES = {"weiszfeld_step": "step_kernel", "aircomp_weiszfeld_step": "step_kernel",
+                "select_columns": "select_kernel", "packed_vote_counts": "count_kernel"}
+
+
 def profile_iteration(torch, kernels, trainer, kernel):
     """One more global iteration of a finished run under torch.profiler:
     wall time, summed device kernel time and the idle share, and the
@@ -595,7 +654,11 @@ def profile_iteration(torch, kernels, trainer, kernel):
         per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time_total / 1e3
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the run's own kernel: its device ms and launches in this iteration
+    own = [ev for ev in _device_kernels(torch, prof) if DEVICE_NAMES[kernel] in ev.name]
     out = dict(
+        kernel_device_ms=sum(ev.device_time_total for ev in own) / 1e3,
+        kernel_device_launches=len(own),
         wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms > 0 else None,
         idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
@@ -650,7 +713,9 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
         print(f"run {label} profiled iteration: wall {prof['wall_ms']:.1f} ms, "
               f"device busy {prof['device_busy_ms']} ms, idle share "
               f"{prof['idle_share']}, {prof['device_kernels']} device kernels; "
-              f"top kernels {prof['top_kernels_ms'][:4]}")
+              f"{kernel} {prof['kernel_device_ms']:.4f} device ms in "
+              f"{prof['kernel_device_launches']} launch(es); "
+              f"top kernels {prof['top_kernels_ms'][:4]} [{card}]")
         per_step = prof.pop("weiszfeld_per_step", None)
         if kw["agg"] in ("gm", "gm2"):
             if per_step is None:
@@ -702,7 +767,7 @@ def main():
 
     rows = check_kernels(torch, kernels)
     rows += check_fused(torch, kernels)
-    rows += check_select_and_popcount(torch, kernels)
+    rows += check_select_and_popcount(torch, kernels, card)
     iter_errs = check_solver_and_iteration(torch)
     root = os.path.dirname(os.path.abspath(__file__))
     runs = run_main_path(torch, kernels, harness, FedConfig, card,

@@ -214,26 +214,61 @@ def _same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-# (2000, 300): the [K, 33] keys of a strip exceed shared memory, so the
-# kernel selects from a global scratch of keys
-@pytest.mark.parametrize("k,d", [(13, 300), (50, 7850), (1000, 7850), (2000, 300)])
-def test_select_columns_matches_plain_versions(cuda, k, d):
+def _tie_stack(k, d, cuda, seed=0):
+    """A stack drawn from a few values whose keys tie often and differ only
+    in their first or their last 8-bit digit (or straddle one), with +-0,
+    +-Inf and a positive NaN among them."""
+    bits = torch.tensor([
+        0x3F800000, 0x3F7FFFFF, 0x3F800001, 0x3F8000FF, 0x3F800100, 0x3F810000,
+        0x3FFFFFFF, 0x40000000, 0xBF800000, 0xBF800001, 0x00000000, 0x80000000,
+        0x7F800000, 0xFF800000, 0x7FC00000, 0x00FFFFFF, 0x01000000,
+    ], dtype=torch.int64).to(torch.int32)
+    vals = bits.view(torch.float32).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed + k * d)
+    idx = torch.randint(0, vals.numel(), (k, d), device=cuda, generator=g)
+    if d > 1:
+        idx[:, 0] = 0  # an all-equal column
+    return vals[idx].contiguous()
+
+
+def _check_select(w, ch, b):
+    med = kernels.fused_median(w, ch)
+    assert _same_bits(med, kernels.fused_median_ref(w, ch))
+    assert _same_bits(kernels.fused_median(w, ch), med)  # rerun
+    tm = kernels.fused_trimmed_mean(w, b, ch)
+    ref = kernels.fused_trimmed_mean_ref(w, b, ch)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(tm), fin)
+    assert _same_bits(tm[~fin], ref[~fin])
+    torch.testing.assert_close(tm[fin], ref[fin], rtol=1e-5, atol=1e-5)
+    assert _same_bits(kernels.fused_trimmed_mean(w, b, ch), tm)  # rerun
+
+
+# K <= 64 ranks by count in registers (path 0); up to ~3470 rows the keys
+# of a 16-column strip fit shared memory (path 1); at (4000, 300) they do
+# not, and the kernel selects from a global scratch of keys (path 2)
+@pytest.mark.parametrize("k,d,path", [
+    (13, 300, 0), (50, 7850, 0), (1000, 7850, 1), (2000, 300, 1), (1, 7850, 0),
+    (2, 300, 0), (64, 300, 0), (65, 300, 1), (2000, 7850, 1), (4000, 300, 2),
+])
+def test_select_columns_matches_plain_versions(cuda, k, d, path):
     w, terms = _select_inputs(k, d, cuda)
     b = int(0.1 * k)
+    assert kernels.select_plan(w.device, k, d)["path"] == path
     before = kernels.LAUNCHES["select_columns"]
     for ch in (None, terms):
-        med = kernels.fused_median(w, ch)
-        assert _same_bits(med, kernels.fused_median_ref(w, ch))
-        assert _same_bits(kernels.fused_median(w, ch), med)  # rerun
-        tm = kernels.fused_trimmed_mean(w, b, ch)
-        ref = kernels.fused_trimmed_mean_ref(w, b, ch)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(ref)
-        assert torch.equal(torch.isfinite(tm), fin)
-        assert _same_bits(tm[~fin], ref[~fin])
-        torch.testing.assert_close(tm[fin], ref[fin], rtol=1e-5, atol=1e-5)
-        assert _same_bits(kernels.fused_trimmed_mean(w, b, ch), tm)  # rerun
+        _check_select(w, ch, b)
     assert kernels.LAUNCHES["select_columns"] == before + 8
+
+
+@pytest.mark.parametrize("k,d,b", [
+    (3, 40, 1), (50, 300, 5), (64, 300, 0), (65, 300, 6), (300, 257, 30), (1000, 300, 100),
+    (1000, 300, 499), (4000, 99, 400),
+])
+def test_select_columns_ties_across_digits(cuda, k, d, b):
+    w = _tie_stack(k, d, cuda)
+    _check_select(w, None, b)
 
 
 def test_select_columns_channel_fold_equals_oma_first(cuda):
@@ -244,19 +279,34 @@ def test_select_columns_channel_fold_equals_oma_first(cuda):
     assert _same_bits(kernels.fused_median(w, terms), two_pass)
 
 
-@pytest.mark.parametrize("k,d", [(13, 300), (50, 7850), (1000, 7850), (70, 33)])
+@pytest.mark.parametrize("k,d", [(13, 300), (50, 7850), (1000, 7850), (70, 33), (1, 1),
+                                 (3000, 1000)])
 def test_packed_vote_counts_matches_plain_version(cuda, k, d):
     g = torch.Generator(device=cuda).manual_seed(k + d)
     w_cnt = -(-d // 32)
     words = torch.randint(-(2**31), 2**31 - 1, (k, w_cnt), dtype=torch.int32,
                           device=cuda, generator=g)
     words[0] = -1  # every bit set, bit 31 included
-    words[1] = 0  # a non-finite client's row
+    words[min(1, k - 1)] = 0  # a non-finite client's row (the only row at K=1)
     before = kernels.LAUNCHES["packed_vote_counts"]
     got = kernels.packed_vote_counts(words, d)
     assert torch.equal(got, kernels.packed_vote_counts_ref(words, d))
     assert torch.equal(kernels.packed_vote_counts(words, d), got)
     assert kernels.LAUNCHES["packed_vote_counts"] == before + 2
+
+
+def test_packed_vote_counts_is_one_kernel_and_no_memset(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    words = torch.randint(-(2**31), 2**31 - 1, (1000, 246), dtype=torch.int32, device=cuda)
+    kernels.packed_vote_counts(words, 7850)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.packed_vote_counts(words, 7850)
+        torch.cuda.synchronize()
+    device = [ev.name for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1 and "count_kernel" in device[0], device
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -321,3 +321,82 @@ def test_every_kernel_source_is_registered():
     # the channel fold must not be contracted into an FMA
     src = (tk.CSRC / "select_columns.cu").read_text()
     assert "__fmul_rn" in src and "__fdiv_rn" in src
+
+
+# ---------------------------------------------------------------------------
+# the radix select of select_columns (K > 64 on the card), rehearsed on the
+# CPU through its plain mirror
+
+_TIE_BITS = np.array([
+    0x3F800000, 0x3F7FFFFF, 0x3F800001, 0x3F8000FF, 0x3F800100, 0x3F810000,
+    0x3FFFFFFF, 0x40000000, 0xBF800000, 0xBF800001, 0x00000000, 0x80000000,
+    0x7F800000, 0xFF800000, 0x7FC00000, 0x00FFFFFF, 0x01000000,
+], np.uint32)
+
+
+def _radix_stack(case, k, d, seed):
+    rng = np.random.default_rng(seed)
+    if case == "digit_ties":  # ties whose keys differ only in one digit, +-0, +-Inf, NaN
+        return _TIE_BITS[rng.integers(0, _TIE_BITS.size, (k, d))].view(np.float32)
+    if case == "all_equal":
+        return np.full((k, d), 0.37, np.float32)
+    if case == "part_first_digit":  # half the column below 0, half above
+        w = np.abs(_select_stack(k, d, seed)) + np.float32(1e-3)
+        w[: k // 2] *= -1
+        return w
+    if case == "part_last_digit":  # consecutive keys: only the last digit differs
+        steps = rng.permuted(np.tile(np.arange(k, dtype=np.uint32)[:, None], (1, d)), axis=0)
+        return (np.uint32(0x3F800000) + steps).view(np.float32)
+    return _select_stack(k, d, seed, adversarial=case == "adversarial")
+
+
+RADIX_CASES = [
+    pytest.param("digit_ties", 65, 40, id="digit_ties_65"),
+    pytest.param("digit_ties", 300, 17, id="digit_ties_300"),
+    pytest.param("adversarial", 25, 60, id="signed_zero_inf_nan"),
+    pytest.param("all_equal", 9, 5, id="all_equal"),
+    pytest.param("realistic", 1, 30, id="k1"),
+    pytest.param("realistic", 2, 30, id="k2"),
+    pytest.param("realistic", 3, 30, id="k3"),
+    pytest.param("realistic", 64, 30, id="k64"),
+    pytest.param("realistic", 65, 30, id="k65"),
+    pytest.param("part_first_digit", 40, 20, id="ranks_part_at_first_digit"),
+    pytest.param("part_last_digit", 40, 20, id="ranks_part_at_last_digit"),
+]
+
+
+@pytest.mark.parametrize("case,k,d", RADIX_CASES)
+def test_radix_select_mirror_matches_bisection_and_jax(case, k, d):
+    """The radix mirror picks, bit for bit, the keys of the key bisection
+    (the port's and JAX's), the median of JAX's Pallas kernel (interpret
+    mode) and of its XLA key bisection, with exact #(<) and #(<=)."""
+    from byzantine_aircomp_tpu.ops import aggregators as jagg
+
+    w = _radix_stack(case, k, d, seed=k * d)
+    keys = tk.total_order_keys(torch.from_numpy(w))
+    jkeys = pk.total_order_keys(jnp.asarray(w))
+    b = int(0.1 * k)
+    for ranks in (((k - 1) // 2,), (b, k - b - 1)):
+        sel, n_lt, n_le, passes = tk.nth_smallest_keys_radix(keys, ranks)
+        for i, n in enumerate(ranks):
+            assert torch.equal(sel[i], tk.nth_smallest_keys(keys, n))
+            assert np.array_equal(sel[i].numpy(), np.asarray(jagg._nth_smallest_keys(jkeys, n)))
+            assert torch.equal(n_lt[i], torch.sum(keys < sel[i][None, :], dim=0))
+            assert torch.equal(n_le[i], torch.sum(keys <= sel[i][None, :], dim=0))
+        if len(ranks) == 1:
+            assert torch.equal(passes, torch.full_like(passes, 4))
+            med = _bits(tk.total_order_vals(sel[0]).numpy())
+            assert np.array_equal(med, _bits(pk.fused_median(jnp.asarray(w), interpret=True)))
+            assert np.array_equal(med, _bits(jagg.median(jnp.asarray(w), fused_epilogue=True)))
+        elif case == "part_first_digit":
+            assert torch.equal(passes, torch.full_like(passes, 7))
+        elif case == "part_last_digit":
+            assert torch.equal(passes, torch.full_like(passes, 4))
+        else:
+            assert bool(((passes >= 4) & (passes <= 7)).all())
+
+
+def test_radix_select_mirror_rejects_three_ranks():
+    keys = tk.total_order_keys(torch.zeros(3, 2))
+    with pytest.raises(ValueError, match="one or two ranks"):
+        tk.nth_smallest_keys_radix(keys, (0, 1, 2))
