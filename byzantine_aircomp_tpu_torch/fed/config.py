@@ -1,7 +1,8 @@
-"""Run configuration for the main path.
+"""Run configuration of the port.
 
-The main-path subset of ``byzantine_aircomp_tpu/fed/config.py``: the same
-field names and defaults, which mirror the reference's ``optConfig`` / CLI
+A subset of ``byzantine_aircomp_tpu/fed/config.py`` (the main path, every
+aggregation rule's knobs and the fault channel's): the same field names
+and defaults, which mirror the reference's ``optConfig`` / CLI
 surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
 rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
 2021, gm/gm2 maxiter 1000 tol 1e-5 (``:350``).  There is no ``agg_impl``:
@@ -34,18 +35,42 @@ class FedConfig:
     agg: str = "gm"
     attack: Optional[str] = None
     noise_var: Optional[float] = None
+    # non-adversarial fault injection (ops/faults.py): a registered fault
+    # name ("dropout", "deep_fade", "csi", "corrupt", "chaos") or None, the
+    # ideal deployment.  The knobs below override the named fault's values
+    # when not None; setting one without `fault` is an error
+    fault: Optional[str] = None
+    dropout_prob: Optional[float] = None
+    fade_floor: Optional[float] = None
+    csi_std: Optional[float] = None
+    corrupt_prob: Optional[float] = None
+    corrupt_mode: Optional[str] = None
+    corrupt_size: Optional[int] = None
+    ge_p_gb: Optional[float] = None
+    ge_p_bg: Optional[float] = None
+    ge_bad_mult: Optional[float] = None
 
     # aggregator options (reference options dict, :350)
     agg_maxiter: int = 1000
     agg_tol: float = 1e-5
     gm_p_max: float = 1.0
-    # signmv (one-bit OTA majority vote) step; None = the coordinatewise
-    # median of |w_i - guess|
+    # multi-Krum selection count (None = honest size)
+    krum_m: Optional[int] = None
+    # centered-clipping radius (None = the per-step median of the client
+    # delta norms) and its fixed step count
+    clip_tau: Optional[float] = None
+    clip_iters: int = 3
+    # signmv/bev step; None = the coordinatewise median of |w_i - guess|
     sign_eta: Optional[float] = None
-    # sign-channel payload width for signmv: 32 = full-precision ballots,
-    # 1 = bit-packed words + popcount reduce (needs sign_eta); the JAX
-    # package's 8/16 quantize emulation is not ported
+    # sign-channel payload width for signmv/bev: 32 = full-precision
+    # ballots, 8/16 = quantize-dequantize emulation, 1 = bit-packed words +
+    # popcount reduce (needs sign_eta)
     sign_bits: int = 32
+    # dnc: filtering rounds, coordinate sample size, removal multiplier
+    # (ceil(c*B) removed per round)
+    dnc_iters: int = 3
+    dnc_sub_dim: int = 10000
+    dnc_c: float = 1.0
 
     # determinism
     seed: int = 2021
@@ -66,14 +91,24 @@ class FedConfig:
     mark: str = ""
     cache_dir: str = ""
 
+    _FAULT_KNOBS = (
+        "dropout_prob", "fade_floor", "csi_std", "corrupt_prob",
+        "corrupt_mode", "corrupt_size", "ge_p_gb", "ge_p_bg", "ge_bad_mult",
+    )
+
     @property
     def node_size(self) -> int:
         return self.honest_size + self.byz_size
+
+    def fault_overrides(self) -> dict:
+        """The non-None fault knobs, as overrides of the named fault."""
+        return {k: getattr(self, k) for k in self._FAULT_KNOBS if getattr(self, k) is not None}
 
     def validate(self) -> "FedConfig":
         """Reject configurations the main path cannot run; returns self."""
         from ..ops import aggregators as agg_lib
         from ..ops import attacks as attack_lib
+        from ..ops import faults as fault_lib
         from ..registry import DATASETS, MODELS
 
         # reference asserts (MNIST_Air_weight.py:229-230)
@@ -102,16 +137,12 @@ class FedConfig:
                 f"sign_bits must be one of 1, 8, 16, 32 (payload width of the "
                 f"sign channel), got {self.sign_bits}"
             )
-        if self.sign_bits in (8, 16):
-            raise ValueError(
-                f"sign_bits={self.sign_bits} (quantize emulation) is not ported "
-                "to the torch package yet; use 1 or 32"
-            )
-        if self.sign_bits != 32 and self.agg != "signmv":
+        if self.sign_bits != 32 and self.agg not in ("signmv", "bev"):
             raise ValueError(
                 f"sign_bits={self.sign_bits} narrows the SIGN channel; only "
-                f"signmv transmits it, agg={self.agg!r} sends full-precision "
-                "weights (use --agg signmv, or leave sign_bits at 32)"
+                f"signmv and bev transmit it, agg={self.agg!r} sends "
+                "full-precision weights (use --agg signmv or bev, or leave "
+                "sign_bits at 32)"
             )
         if self.sign_bits == 1 and self.sign_eta is None:
             raise ValueError(
@@ -120,6 +151,33 @@ class FedConfig:
             )
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
+        k = self.node_size
+        if self.krum_m is not None and not 1 <= self.krum_m <= k:
+            raise ValueError(f"krum_m must be in [1, {k}] (the clients), got {self.krum_m}")
+        if not (self.clip_tau is None or self.clip_tau > 0) or self.clip_iters < 1:
+            raise ValueError(
+                f"clip_tau must be > 0 (or None = adaptive) and clip_iters >= 1, "
+                f"got {self.clip_tau}, {self.clip_iters}"
+            )
+        if not (self.dnc_iters >= 1 and self.dnc_sub_dim >= 1 and self.dnc_c > 0):
+            raise ValueError(
+                f"dnc knobs must be positive, got iters={self.dnc_iters}, "
+                f"sub_dim={self.dnc_sub_dim}, c={self.dnc_c}"
+            )
+        # the rules' own size bounds, up front rather than mid-run
+        if self.agg == "bulyan":
+            agg_lib.bulyan_sizes(k, self.byz_size)
+        if self.agg == "dnc":
+            agg_lib.dnc_removals(k, self.honest_size, self.dnc_iters, self.dnc_c)
+        # a knob without a fault, an unknown fault or a knob out of range
+        # raises here
+        spec = fault_lib.resolve(self.fault, self.fault_overrides())
+        if spec is not None and spec.corrupt_size > self.honest_size:
+            raise ValueError(
+                f"corrupt_size {spec.corrupt_size} exceeds the {self.honest_size} "
+                "honest clients (corruption models crashed honest senders; "
+                "Byzantine rows are the attack's)"
+            )
         # unknown names fail here, not mid-run (KeyError lists known names)
         agg_lib.resolve(self.agg)
         attack_lib.resolve(self.attack)

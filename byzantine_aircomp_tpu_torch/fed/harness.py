@@ -10,6 +10,7 @@ reference's analysis reads the port's records unchanged.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -20,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from .config import FedConfig
-from .train import Trainer
+from .train import FAULT_PATHS, Trainer
 
 
 def log(*k, **kw):
@@ -30,16 +31,41 @@ def log(*k, **kw):
     sys.stdout.flush()
 
 
+_CFG_DEFAULTS = {f.name: f.default for f in dataclasses.fields(FedConfig)}
+
+
+def _non_default(cfg: FedConfig, name: str) -> bool:
+    return getattr(cfg, name) != _CFG_DEFAULTS[name]
+
+
 def run_title(cfg: FedConfig) -> str:
+    """The JAX harness's title (``fed/harness.py:85``) for the knobs the
+    port has: each suffix appears only off its default, so a reference-
+    equivalent run keeps the reference's title."""
     attack_name = cfg.attack if cfg.attack is not None else "baseline"
     title = f"{cfg.model}_{cfg.opt}_{attack_name}_{cfg.agg}"
     if cfg.noise_var is not None:
         title += f"_{cfg.noise_var}"
-    # the JAX package's suffixes for the sign channel, only off the default
+    if cfg.krum_m is not None:
+        title += f"_m{cfg.krum_m}"
+    if _non_default(cfg, "clip_tau"):
+        title += f"_tau{cfg.clip_tau}"
+    elif cfg.agg == "cclip":
+        # the JAX package spells the adaptive radius out, so that its runs
+        # never alias its older fixed-radius ones
+        title += "_tauadaptive"
+    if _non_default(cfg, "clip_iters"):
+        title += f"_ci{cfg.clip_iters}"
     if cfg.sign_eta is not None:
         title += f"_eta{cfg.sign_eta}"
-    if cfg.sign_bits != 32:
-        title += f"_sb{cfg.sign_bits}"
+    for knob, tag in (("sign_bits", "sb"), ("dnc_iters", "di"), ("dnc_sub_dim", "ds"),
+                      ("dnc_c", "dc")):
+        if _non_default(cfg, knob):
+            title += f"_{tag}{getattr(cfg, knob)}"
+    if cfg.fault is not None:
+        title += f"_fault{cfg.fault}"
+        for knob, val in sorted(cfg.fault_overrides().items()):
+            title += f"_{knob.replace('_', '')}{val}"
     if cfg.mark:
         title += f"_{cfg.mark}"
     return title
@@ -93,7 +119,7 @@ def build_record(
     max_feature: int,
 ) -> Dict:
     """The reference-format pickled record from a finished run's paths."""
-    return {
+    record = {
         # dataset config block (reference dataSetConfig, :536-541)
         "name": dataset_name,
         "dataSet": dataset_name,
@@ -122,6 +148,12 @@ def build_record(
         # framework extras
         "roundsPerSec": paths["roundsPerSec"],
     }
+    if cfg.fault is not None:
+        record["fault"] = cfg.fault
+        record["faultOverrides"] = cfg.fault_overrides()
+        for key in FAULT_PATHS:
+            record[key] = paths[key]
+    return record
 
 
 def atomic_pickle(path: str, obj) -> str:

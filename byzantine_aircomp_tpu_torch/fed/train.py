@@ -1,11 +1,16 @@
 """The federated training engine of the main path.
 
 Port of the resident round of ``byzantine_aircomp_tpu/fed/train.py``
-(``_iteration`` :605 with faults, defense, service, streaming, bucketing,
-momentum and sharding off).  One global iteration is
+(``_iteration`` :605 with defense, service, streaming, bucketing, momentum
+and sharding off).  One global iteration is
 
     flat_params [d] --per-client local SGD step--> weight stack [K, d]
-      --message attack--> --OMA channel (not for gm, signmv)--> --aggregate--> [d]
+      [--fault: dropout replay-->] --message attack-->
+      [--fault: corruption, CSI error, deep-fade erasure-->]
+      --OMA channel (not for gm, signmv)--> --aggregate--> [d]
+
+With a fault set the rule runs in its degraded mode, and a finite guard
+keeps the previous params wherever the aggregate is not finite.
 
 with per-client gradients taken with respect to the flat parameter vector
 through ``torch.func`` (``functional_call`` + ``vmap(grad)``), so the
@@ -14,9 +19,10 @@ train set stays on the device and is normalized after the gather.
 
 Random draws: every iteration of every round has four streams, as the JAX
 package splits its iteration key into (batch, channel, aggregation,
-message); here each is a ``torch.Generator`` seeded from
-``(seed, round, iteration, stream)``.  ``iteration`` also takes the draws
-as inputs (``draws``), so the tests can feed it the JAX package's numbers.
+message), and a fifth for the fault channel when a fault is set; here each
+is a ``torch.Generator`` seeded from ``(seed, round, iteration, stream)``.
+``iteration`` also takes the draws as inputs (``draws``), so the tests can
+feed it the JAX package's numbers.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..device import resolve_device
 from ..ops import aggregators as agg_lib
 from ..ops import attacks as attack_lib
 from ..ops import channel as channel_lib
+from ..ops import faults as fault_lib
 from ..ops import flatten as flatten_lib
 from ..registry import MODELS
 from .config import FedConfig
@@ -53,12 +60,22 @@ def honest_variance(w_stack: torch.Tensor, honest_size: int) -> torch.Tensor:
 
 
 class IterationGenerators(NamedTuple):
-    """One iteration's random streams, in the JAX package's split order."""
+    """One iteration's random streams, in the JAX package's split order;
+    ``fault`` (stream 4) exists only when a fault is set, so a fault-free
+    run draws what it drew before the fault channel was ported."""
 
     batch: torch.Generator
     channel: torch.Generator
     aggregation: torch.Generator
     message: torch.Generator
+    fault: Optional[torch.Generator] = None
+
+
+# the record's paths of the fault counts (dropped, erased and corrupt rows,
+# then the effective K: the finite rows aggregated), in the order of the
+# JAX package's fault_metrics; the first three are summed over a round, the
+# effective K is the round's minimum
+FAULT_PATHS = ("faultDroppedPath", "faultErasedPath", "faultCorruptPath", "effectiveKPath")
 
 
 class Trainer:
@@ -79,6 +96,7 @@ class Trainer:
         self.dataset = dataset or data_lib.load(cfg.dataset)
         self.attack = attack_lib.resolve(cfg.attack)
         self.agg_fn = agg_lib.resolve(cfg.agg)
+        self.fault = fault_lib.resolve(cfg.fault, cfg.fault_overrides())
         self.num_classes = self.dataset.num_classes
 
         # init params (reference modelFactory + setup_seed(2021), :98-104)
@@ -124,6 +142,16 @@ class Trainer:
         self._per_client_grad = vmap(grad(self._loss), in_dims=(None, 0, 0))
         self._eval_cache: Dict[str, tuple] = {}
 
+        # the fault channel's carried state (stale buffer, Gilbert-Elliott
+        # states), and the [4] counts of FAULT_PATHS: of the last iteration,
+        # and reduced over the last round (device tensors)
+        self.fault_state = (
+            fault_lib.init_state(self.fault, cfg.node_size, self.flat_params)
+            if self.fault is not None else None
+        )
+        self.iteration_fault_metrics: Optional[torch.Tensor] = None
+        self.last_fault_metrics: Optional[torch.Tensor] = None
+
     # ------------------------------------------------------------------
     # one iteration
 
@@ -146,7 +174,7 @@ class Trainer:
 
     def iteration_generators(self, round_idx: int, it: int) -> IterationGenerators:
         gens = []
-        for stream in range(4):
+        for stream in range(4 if self.fault is None else 5):
             hi, lo = np.random.SeedSequence(
                 [self.cfg.seed, round_idx, it, stream]
             ).generate_state(2)
@@ -162,24 +190,38 @@ class Trainer:
         draws: Optional[dict] = None,
         want_variance: bool = False,
     ):
-        """One global iteration: local steps -> attack -> channel -> agg.
+        """One global iteration: local steps -> [dropout] -> attack ->
+        [corruption, CSI error, erasure] -> channel -> agg.
 
         Returns ``(new flat params, honest variance or None)``.  ``draws``
         may supply any of: ``"u"`` [K, B] batch uniforms, ``"oma"`` the
         OMA link's terms (:class:`..ops.channel.OmaTerms`), ``"fades"``
         (h_r, h_i) [T, K] and ``"noise"`` [T, d+1] for gm's Weiszfeld
-        steps, ``"vote_noise"`` [d] for signmv's receiver; the rest comes
-        from ``generators``.
+        steps, ``"vote_noise"`` [d] for signmv's receiver, ``"dnc"`` dnc's
+        ``[(cols, v0)]`` per filtering round, and ``"fault"`` a dict of the
+        fault channel's draws (``"dropped"`` for
+        :func:`..ops.faults.apply_dropout`, the keys of
+        :func:`..ops.faults.apply_transmission`); the rest comes from
+        ``generators``.
+
+        With a fault set, the carried ``fault_state`` advances, the rule
+        runs degraded, every non-finite coordinate of the aggregate keeps
+        its previous value, and ``iteration_fault_metrics`` holds this
+        iteration's [4] counts (in the order of :data:`FAULT_PATHS`).
 
         With ``--var`` set, median and trimmed_mean take the OMA terms as
         ``channel=`` and fold the corruption into their one read of the
-        stack; the other rules (except gm and signmv, which own their
-        channel) get the corrupted stack.  Either way the terms are the
-        same draws, and the honest variance is taken on the post-channel
-        stack, as the reference does (``:351-352``, ``:360-361``)."""
+        stack, except under a fault (their degraded modes take the received
+        stack, as the JAX package's degraded rounds do); the other rules
+        (except gm and signmv, which own their channel) get the corrupted
+        stack.  Either way the terms are the same draws, and the honest
+        variance is taken on the post-channel stack, as the reference does
+        (``:351-352``, ``:360-361``)."""
         cfg = self.cfg
         draws = draws or {}
         gens = generators or IterationGenerators(None, None, None, None)
+        fault = self.fault
+        fault_draws = draws.get("fault") or {}
 
         idx = data_lib.sample_client_batch_indices(
             self.offsets, self.sizes, cfg.batch_size,
@@ -191,10 +233,23 @@ class Trainer:
         y = self.y_train[idx]
         w_stack = self.client_stack(flat_params, x, y, self.byz_mask)
 
+        if fault is not None:
+            # before the attack: the buffer keeps what the clients sent
+            stale, ge_bad = self.fault_state
+            w_stack, stale, n_dropped = fault_lib.apply_dropout(
+                fault, w_stack, stale, generator=gens.fault,
+                dropped=fault_draws.get("dropped"),
+            )
         if self.attack is not None:
             w_stack = self.attack.apply_message(
                 w_stack, cfg.byz_size, gens.message
             )
+        if fault is not None:
+            # after it: corruption and the channel's faults hit every row
+            w_stack, ge_bad, n_erased, n_corrupt = fault_lib.apply_transmission(
+                fault, w_stack, ge_bad, generator=gens.fault, draws=fault_draws,
+            )
+            self.fault_state = fault_lib.FaultState(stale, ge_bad)
         terms = None
         if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
             terms = draws.get("oma")
@@ -204,7 +259,7 @@ class Trainer:
                     k, d, cfg.noise_var, generator=gens.channel,
                     device=w_stack.device,
                 )
-            if not agg_lib.supports_fused_epilogue(cfg.agg):
+            if fault is not None or not agg_lib.supports_fused_epilogue(cfg.agg):
                 w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
                 terms = None
 
@@ -217,13 +272,27 @@ class Trainer:
             maxiter=cfg.agg_maxiter,
             tol=cfg.agg_tol,
             p_max=cfg.gm_p_max,
+            m=cfg.krum_m,
+            clip_tau=cfg.clip_tau,
+            clip_iters=cfg.clip_iters,
             sign_eta=cfg.sign_eta,
             sign_bits=cfg.sign_bits,
+            dnc_iters=cfg.dnc_iters,
+            dnc_sub_dim=cfg.dnc_sub_dim,
+            dnc_c=cfg.dnc_c,
+            degraded=fault is not None,
             generator=gens.aggregation,
             fades=draws.get("fades"),
             noise=draws.get("noise"),
             vote_noise=draws.get("vote_noise"),
+            dnc_draws=draws.get("dnc"),
         ).to(torch.float32)  # reference semantics (:354-358)
+        if fault is not None:
+            # the receiver's finite guard: a coordinate that no finite row
+            # reached keeps its previous value
+            new_flat = torch.where(torch.isfinite(new_flat), new_flat, flat_params)
+            eff_k = torch.sum(agg_lib._finite_rows(w_stack)).to(torch.float32)
+            self.iteration_fault_metrics = torch.stack([n_dropped, n_erased, n_corrupt, eff_k])
         variance = None
         if want_variance:
             w_h = w_stack[: cfg.honest_size]
@@ -238,14 +307,25 @@ class Trainer:
     def run_round(self, round_idx: int) -> torch.Tensor:
         """``display_interval`` iterations; returns the honest dispersion of
         the last iteration's stack (reference ``:360-361``) as a device
-        scalar, without a host sync."""
+        scalar, without a host sync.  With a fault set,
+        ``last_fault_metrics`` becomes the round's counts: dropped, erased
+        and corrupt rows summed over its iterations, the effective K at its
+        minimum (device tensors too)."""
         interval = self.cfg.display_interval
         variance = None
+        counts = []
         for it in range(interval):
             self.flat_params, variance = self.iteration(
                 self.flat_params,
                 self.iteration_generators(round_idx, it),
                 want_variance=it == interval - 1,
+            )
+            if self.fault is not None:
+                counts.append(self.iteration_fault_metrics)
+        if counts:
+            per_it = torch.stack(counts)
+            self.last_fault_metrics = torch.cat(
+                [torch.sum(per_it[:, :3], dim=0), torch.amin(per_it[:, 3:], dim=0)]
             )
         return variance
 
@@ -301,6 +381,9 @@ class Trainer:
             "variencePath": [],  # sic — reference spelling
             "roundsPerSec": [],
         }
+        if self.fault is not None:
+            for key in FAULT_PATHS:
+                paths[key] = []
         log(
             f"[0/{cfg.rounds}](interval: {cfg.display_interval}) "
             f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
@@ -320,9 +403,17 @@ class Trainer:
             paths["valAccPath"].append(va_acc)
             paths["variencePath"].append(float(variance))
             paths["roundsPerSec"].append(1.0 / dt)
+            fault_str = ""
+            if self.fault is not None:
+                # the round's counts, read with the eval: one host read
+                dropped, erased, corrupt, eff_k = self.last_fault_metrics.tolist()
+                for key, v in zip(FAULT_PATHS, (dropped, erased, corrupt, eff_k)):
+                    paths[key].append(v)
+                fault_str = (f" effK={eff_k:.0f} drop={dropped:.0f} "
+                             f"erase={erased:.0f} corrupt={corrupt:.0f}")
             log(
                 f"[{r + 1}/{cfg.rounds}](interval: {cfg.display_interval}) "
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
-                f"val: loss={va_loss:.4f} acc={va_acc:.4f}{var_str}"
+                f"val: loss={va_loss:.4f} acc={va_acc:.4f}{var_str}{fault_str}"
             )
         return paths

@@ -1,12 +1,20 @@
 """Robust aggregation rules over the [K, d] client stack.
 
-Port of ``mean``, ``gm2``, ``gm``, ``median``, ``trimmed_mean``, ``krum``
-and ``signmv`` from ``byzantine_aircomp_tpu/ops/aggregators.py`` (reference
-``MNIST_Air_weight.py:131-204``; ``signmv`` goes beyond it).  Each
-Weiszfeld step, each selection and each packed vote count runs through
+Port of every rule of ``byzantine_aircomp_tpu/ops/aggregators.py``: the
+reference's ``mean``, ``gm2``, ``gm``, ``median``, ``trimmed_mean`` and
+``krum`` (``MNIST_Air_weight.py:131-204``), and beyond it ``multi_krum``,
+``bulyan``, ``cclip``, ``dnc``, ``signmv`` and ``bev``, with the degraded
+(fault-mode) variants.  Each Weiszfeld step, each coordinatewise median or
+trimmed mean over a static K and each packed vote count runs through
 :mod:`.kernels`: the hand-written CUDA kernel for a tensor on the card, its
-plain version for one on the CPU.  Krum's Gram product is one matmul, as
-the JAX package leaves it to XLA.
+plain version for one on the CPU.  Krum's Gram product is one matmul, and
+the degraded rules' dynamic ranks a ``torch.sort``, as the JAX package
+leaves both to XLA.
+
+Selections that JAX makes with ``lax.top_k`` take ties lowest index first;
+``torch.topk`` promises no order on ties, so every selection whose tie
+order reaches the result (multi_krum's winners, bulyan's theta rows and
+beta closest values, dnc's removals) is a stable ``torch.sort`` instead.
 
 The JAX package keeps the Weiszfeld loop on the device
 (``lax.while_loop``).  Here the loop runs in chunks of ``chunk`` steps with
@@ -35,8 +43,10 @@ WEISZFELD_CHUNK = 16
 # torch.profiler range around the Weiszfeld loop (its steps, not its set-up)
 WEISZFELD_LOOP_RANGE = "weiszfeld_loop"
 
-# aggregators of the JAX package that later slices of the port bring over
-NOT_PORTED = ("multi_krum", "bulyan", "cclip", "bev", "dnc")
+# one-shot budget, in elements, of the dense selection paths' largest
+# temporary (JAX ``_DENSE_MAX_ELEMS``): above it multi_krum, bulyan and the
+# sign votes run over column blocks
+_DENSE_MAX_ELEMS = 1 << 25
 
 
 def _finite_rows(wmatrix: torch.Tensor) -> torch.Tensor:
@@ -52,9 +62,18 @@ def _finite_centroid(wmatrix: torch.Tensor, finite: torch.Tensor) -> torch.Tenso
     return torch.sum(masked, dim=0) / torch.clamp(torch.sum(finite), min=1)
 
 
+def _nan_unless(ok: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, out, math.nan)
+
+
 @AGGREGATORS.register("mean")
-def mean(wmatrix: torch.Tensor, **_) -> torch.Tensor:
-    """Column mean (reference ``mean``, ``:186-187``), accumulated in f32."""
+def mean(wmatrix: torch.Tensor, *, degraded: bool = False, **_) -> torch.Tensor:
+    """Column mean (reference ``mean``, ``:186-187``), accumulated in f32.
+    ``degraded``: the mean of the finite rows only, NaN when there is none
+    (the trainer's finite guard then keeps the previous params)."""
+    if degraded:
+        finite = _finite_rows(wmatrix)
+        return _nan_unless(torch.sum(finite) > 0, _finite_centroid(wmatrix, finite))
     return torch.mean(wmatrix.to(torch.float32), dim=0)
 
 
@@ -200,31 +219,72 @@ def gm(wmatrix: torch.Tensor, *, noise_var=None, guess=None, maxiter: int = 1000
     )[0]
 
 
+def _received(wmatrix: torch.Tensor, terms: Optional[channel.OmaTerms]) -> torch.Tensor:
+    return wmatrix if terms is None else wmatrix + channel.oma_residual(terms)
+
+
+def _sorted_finite_columns(wmatrix: torch.Tensor):
+    """``(sorted [K, d], n)``: each column sorted with every row that holds
+    a non-finite entry moved to +Inf, and n the finite-row count as a
+    device scalar.  Sorted on total-order keys, so the order is the one
+    ``jnp.sort`` gives (-0.0 below +0.0)."""
+    w = wmatrix.to(torch.float32)
+    finite = _finite_rows(w)
+    keys = kernels.total_order_keys(torch.where(finite[:, None], w, math.inf))
+    return kernels.total_order_vals(torch.sort(keys, dim=0).values), torch.sum(finite)
+
+
 @AGGREGATORS.register("median", supports_fused_epilogue=True)
 def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
-           **_) -> torch.Tensor:
+           degraded: bool = False, **_) -> torch.Tensor:
     """Coordinatewise median with torch semantics: the lower-middle order
     statistic ``sorted[(K-1)//2]`` (reference ``median``, ``:194-195``),
     selected over IEEE total-order keys, so a NaN or +-Inf row ranks as a
     sort ranks it.  ``channel``: the OMA link's terms, folded into the
     stack read (``w + oma_residual(channel)``, bitwise the received stack
-    of ``channel.oma``)."""
-    return kernels.fused_median(wmatrix.to(torch.float32).contiguous(), channel)
+    of ``channel.oma``).
+
+    ``degraded``: the median of the n finite rows, ``sorted[(n-1)//2]``
+    with the non-finite rows sorted to +Inf (+Inf when n = 0).  n is a
+    device scalar, so this is a sort and a gather at a device index, as
+    the JAX package's degraded rounds always take its sort path."""
+    if not degraded:
+        return kernels.fused_median(wmatrix.to(torch.float32).contiguous(), channel)
+    srt, n = _sorted_finite_columns(_received(wmatrix, channel))
+    idx = torch.clamp(n - 1, min=0) // 2
+    return torch.index_select(srt, 0, idx.reshape(1))[0]
 
 
 @AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True)
 def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio: float = 0.1,
                  beta: Optional[int] = None,
-                 channel: Optional[channel.OmaTerms] = None, **_) -> torch.Tensor:
+                 channel: Optional[channel.OmaTerms] = None,
+                 degraded: bool = False, **_) -> torch.Tensor:
     """Coordinatewise beta-trimmed mean: ``b = int(K * trim_ratio)`` (or
     ``beta``) entries dropped at each end, the mean of the middle K - 2b
     (reference ``trimmed_mean``, ``:189-192``), with the optional channel
-    fold of :func:`median`."""
+    fold of :func:`median`.
+
+    ``degraded``: over the n finite rows, ``b = int(f32(n) * trim_ratio)``
+    (computed in f32 on the device, as JAX does), an explicit ``beta``
+    clamped to ``(n-1)//2``; the mean of sorted ranks [b, n - b) with the
+    non-finite rows sorted to +Inf, NaN when n = 0."""
     k = wmatrix.shape[0]
-    b = int(k * trim_ratio) if beta is None else int(beta)
-    return kernels.fused_trimmed_mean(
-        wmatrix.to(torch.float32).contiguous(), b, channel
-    )
+    if not degraded:
+        b = int(k * trim_ratio) if beta is None else int(beta)
+        return kernels.fused_trimmed_mean(
+            wmatrix.to(torch.float32).contiguous(), b, channel
+        )
+    srt, n = _sorted_finite_columns(_received(wmatrix, channel))
+    if beta is None:
+        b = (n.to(torch.float32) * torch.tensor(trim_ratio, dtype=torch.float32)).to(n.dtype)
+    else:
+        b = torch.clamp(torch.clamp(n - 1, min=0) // 2, max=int(beta))
+    ranks = torch.arange(k, device=srt.device)[:, None]
+    keep = (ranks >= b) & (ranks < n - b)
+    total = torch.sum(torch.where(keep, srt, 0.0), dim=0)
+    kept_n = torch.clamp(n - 2 * b, min=1).to(torch.float32)
+    return _nan_unless(n > 0, total / kept_n)
 
 
 def pairwise_sq_dists(wmatrix: torch.Tensor) -> torch.Tensor:
@@ -257,11 +317,244 @@ def krum_scores(wmatrix: torch.Tensor, honest_size: int) -> torch.Tensor:
     return torch.sum(smallest, dim=1)
 
 
-@AGGREGATORS.register("krum", aliases=("Krum",), needs_honest_size=True)
-def krum(wmatrix: torch.Tensor, *, honest_size: int, **_) -> torch.Tensor:
+def krum_scores_degraded(wmatrix: torch.Tensor, honest_size: int) -> torch.Tensor:
+    """Krum scores whose neighbour count adapts to the n finite rows (JAX
+    ``krum_scores_degraded``, :398): each row sums its
+    ``c = clip(min(honest_size - 1, n - 1), 1, K)`` smallest finite
+    distances (the sorted row masked at the device rank c); a non-finite
+    row scores +Inf."""
+    k = wmatrix.shape[0]
+    dist = pairwise_sq_dists(wmatrix)
+    finite = _finite_rows(wmatrix)
+    n = torch.sum(finite)
+    c = torch.clamp(torch.clamp(n - 1, max=honest_size - 1), 1, k)
+    srt = torch.sort(dist, dim=1).values
+    ranks = torch.arange(k, device=dist.device)[None, :]
+    scores = torch.sum(torch.where((ranks < c) & torch.isfinite(srt), srt, 0.0), dim=1)
+    return torch.where(finite, scores, math.inf)
+
+
+def _krum_scores(wmatrix, honest_size, degraded):
+    if degraded:
+        return krum_scores_degraded(wmatrix, honest_size)
+    return krum_scores(wmatrix, honest_size)
+
+
+def lowest(scores: torch.Tensor, m: int) -> torch.Tensor:
+    """Indices of the m lowest scores, ties lowest index first, in
+    ascending score order: ``lax.top_k(-scores, m)``'s indices."""
+    return torch.sort(scores, stable=True).indices[:m]
+
+
+@AGGREGATORS.register("krum", aliases=("Krum",), needs_honest_size=True,
+                      krum_like=True)
+def krum(wmatrix: torch.Tensor, *, honest_size: int, degraded: bool = False,
+         **_) -> torch.Tensor:
     """Single-Krum: the client row with the least Krum score (reference
-    ``Krum``, ``:197-204``); ``argmin`` takes the first index on a tie."""
-    return wmatrix[torch.argmin(krum_scores(wmatrix, honest_size))]
+    ``Krum``, ``:197-204``); ``argmin`` takes the first index on a tie.
+    ``degraded``: the adaptive-neighbour scores of
+    :func:`krum_scores_degraded`."""
+    return wmatrix[torch.argmin(_krum_scores(wmatrix, honest_size, degraded))]
+
+
+def _blocked_columns(arrays, fn, max_block_elems: int = 1 << 26) -> torch.Tensor:
+    """``fn(*column_blocks) -> [block]`` over column blocks of one or more
+    tensors whose last axis is d (the [K, d] stack and optional [d]
+    vectors, sliced together), concatenated to [d] (JAX
+    ``_blocked_columns``, :1036): peak extra memory O(K * block)."""
+    if not isinstance(arrays, (tuple, list)):
+        arrays = (arrays,)
+    k, d = arrays[0].shape[0], arrays[0].shape[-1]
+    block = max(128, (min(d, max_block_elems // k) // 128) * 128)
+    return torch.cat([
+        fn(*(a[..., lo:lo + block] for a in arrays)) for lo in range(0, d, block)
+    ])
+
+
+def _dense_or_blocked(arrays, fn, elems: int) -> torch.Tensor:
+    if elems <= _DENSE_MAX_ELEMS:
+        return fn(*arrays) if isinstance(arrays, (tuple, list)) else fn(arrays)
+    return _blocked_columns(arrays, fn)
+
+
+def _row_weights_mean(wmatrix: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``weights @ wmatrix`` with the zero-weight rows selected (never
+    multiplied) to 0, so a rejected row holding Inf cannot make 0 * Inf."""
+    k, d = wmatrix.shape
+
+    def wmean(cols):
+        return weights @ torch.where(weights[:, None] > 0, cols, 0.0).to(torch.float32)
+
+    return _dense_or_blocked(wmatrix, wmean, k * d)
+
+
+def selected_rows_mean(wmatrix: torch.Tensor, idx: torch.Tensor, m_sel: int) -> torch.Tensor:
+    """Mean of the ``idx`` rows as a [K]-weight matvec, 1/m on the picked
+    rows (JAX ``selected_rows_mean``, :1016)."""
+    weights = torch.zeros(wmatrix.shape[0], dtype=torch.float32, device=wmatrix.device)
+    weights[idx] = 1.0 / m_sel
+    return _row_weights_mean(wmatrix, weights)
+
+
+@AGGREGATORS.register("multi_krum", needs_honest_size=True, krum_like=True)
+def multi_krum(wmatrix: torch.Tensor, *, honest_size: int, m: Optional[int] = None,
+               degraded: bool = False, **_) -> torch.Tensor:
+    """Multi-Krum: the mean of the m lowest-scoring clients (JAX
+    ``multi_krum``, :451; beyond the reference), m = honest_size unless
+    given.  ``degraded``: adaptive-neighbour scores, and the mean over the
+    finite rows among the m winners only (NaN when there is none)."""
+    m_sel = honest_size if m is None else int(m)
+    idx = lowest(_krum_scores(wmatrix, honest_size, degraded), m_sel)
+    if not degraded:
+        return selected_rows_mean(wmatrix, idx, m_sel)
+    keep = _finite_rows(wmatrix)[idx]
+    count = torch.sum(keep)
+    weights = torch.zeros(wmatrix.shape[0], dtype=torch.float32, device=wmatrix.device)
+    weights[idx] = keep.to(torch.float32) / torch.clamp(count, min=1)
+    return _nan_unless(count > 0, _row_weights_mean(wmatrix, weights))
+
+
+def bulyan_sizes(k: int, b: int) -> Tuple[int, int]:
+    """(theta, beta) for Bulyan at K clients / B Byzantine; raises unless
+    K > 4B, so that both the selection and the trimmed set are non-empty."""
+    theta = k - 2 * b
+    beta = theta - 2 * b
+    if beta < 1:
+        raise ValueError(
+            f"bulyan needs K > 4B for a nonempty trimmed set "
+            f"(K={k}, B={b} -> theta={theta}, beta={beta})"
+        )
+    return theta, beta
+
+
+def bulyan_tail(sel: torch.Tensor, beta: int) -> torch.Tensor:
+    """Coordinatewise Bulyan over the selected [theta, d] rows: the mean of
+    the beta values closest to the lower-middle median (JAX
+    ``bulyan_tail``, :1069).  The median is :func:`median` (the
+    ``select_columns`` kernel on the card); the closest values are taken by
+    a stable sort of the distances, ties in ``sel``'s row order."""
+    med = median(sel)
+    dist = torch.abs(sel - med[None, :])
+    rows = torch.sort(dist, dim=0, stable=True).indices[:beta]  # [beta, d]
+    return torch.mean(torch.gather(sel, 0, rows).to(torch.float32), dim=0)
+
+
+def impute_non_finite(wmatrix: torch.Tensor) -> torch.Tensor:
+    """The stack with every row that holds a non-finite entry replaced by
+    the finite rows' centroid (all NaN when no row is finite): degraded
+    bulyan's imputation (JAX ``bulyan``, :978-982)."""
+    finite = _finite_rows(wmatrix)
+    cent = _finite_centroid(wmatrix, finite).to(wmatrix.dtype)
+    wmatrix = torch.where(finite[:, None], wmatrix, cent[None, :])
+    return _nan_unless(torch.sum(finite) > 0, wmatrix)
+
+
+@AGGREGATORS.register("bulyan", needs_honest_size=True)
+def bulyan(wmatrix: torch.Tensor, *, honest_size: int, degraded: bool = False,
+           **_) -> torch.Tensor:
+    """Bulyan (El Mhamdi et al., ICML 2018; JAX ``bulyan``, :954): the
+    theta = K - 2B lowest Krum scores, then per coordinate the mean of the
+    beta = theta - 2B values closest to their median.  ``degraded``:
+    non-finite rows are replaced by the finite rows' centroid first (all
+    NaN when no row is finite)."""
+    k, d = wmatrix.shape
+    theta, beta = bulyan_sizes(k, k - honest_size)
+    if degraded:
+        wmatrix = impute_non_finite(wmatrix)
+    idx = lowest(krum_scores(wmatrix, honest_size), theta)
+    return _dense_or_blocked(
+        wmatrix, lambda cols: bulyan_tail(cols[idx].contiguous(), beta), theta * d
+    )
+
+
+@AGGREGATORS.register("cclip")
+def centered_clip(wmatrix: torch.Tensor, *, guess: Optional[torch.Tensor] = None,
+                  clip_tau: Optional[float] = None, clip_iters: int = 3,
+                  **_) -> torch.Tensor:
+    """Centered clipping (Karimireddy, He & Jaggi, ICML 2021; JAX
+    ``centered_clip``, :903): ``clip_iters`` fixed steps from ``guess``,
+
+        v <- v + mean_i( (w_i - v) * min(1, tau / ||w_i - v||) )
+
+    over all K rows, a non-finite row's delta selected to 0.  ``clip_tau``
+    None: tau is the lower-middle median of the delta norms, non-finite
+    rows counted as +Inf, found by :func:`median` on a [K, 1] column (one
+    ``select_columns`` launch per step on the card); an Inf tau makes the
+    step a no-op."""
+    finite = _finite_rows(wmatrix)
+    v = (_finite_centroid(wmatrix, finite) if guess is None else guess).to(torch.float32)
+    for _ in range(clip_iters):
+        delta = torch.where(finite[:, None], wmatrix - v[None, :], 0.0)
+        norms = torch.clamp(torch.linalg.vector_norm(delta, dim=1), min=1e-12)
+        if clip_tau is None:
+            tau = median(torch.where(finite, norms, math.inf)[:, None])[0]
+            tau = torch.where(torch.isfinite(tau), tau, 0.0)
+        else:
+            tau = _f32(clip_tau, v)
+        scale = torch.clamp(tau / norms, max=1.0)
+        v = v + torch.mean(delta * scale[:, None], dim=0)
+    return v
+
+
+def dnc_removals(k: int, honest_size: int, dnc_iters: int, dnc_c: float) -> int:
+    """Clients dnc removes per round, ceil(c * B); raises unless K exceeds
+    all the removals."""
+    n_remove = math.ceil(dnc_c * (k - honest_size))
+    if n_remove * dnc_iters >= k:
+        raise ValueError(
+            f"dnc removes ceil(c*B)={n_remove} clients per round x "
+            f"{dnc_iters} rounds but K={k}; need K > removals (K >> is the "
+            f"paper's regime) - lower dnc_c/dnc_iters or raise K"
+        )
+    return n_remove
+
+
+@AGGREGATORS.register("dnc", needs_honest_size=True)
+def dnc(wmatrix: torch.Tensor, *, honest_size: int, dnc_iters: int = 3,
+        dnc_sub_dim: int = 10000, dnc_c: float = 1.0,
+        generator: Optional[torch.Generator] = None, dnc_draws=None,
+        **_) -> torch.Tensor:
+    """Divide-and-Conquer (Shejwalkar & Houmansadr, NDSS 2021; JAX ``dnc``,
+    :511).  Each of ``dnc_iters`` rounds draws r = min(d, dnc_sub_dim)
+    columns with replacement, centers them over the finite rows, finds the
+    top right-singular vector by 10 power steps (norms clamped at 1e-12),
+    scores each row by its squared projection (a non-finite row -Inf) and
+    removes the ceil(c*B) highest scorers, ties lowest index first.  The
+    aggregate is the mean of the rows never removed and never non-finite,
+    the finite centroid when none is left.
+
+    Round t draws its columns [r] (``torch.randint``) and then ``v0`` [r]
+    (standard normals) from ``generator``, or reads them from
+    ``dnc_draws[t] = (cols, v0)`` (the tests pass the JAX package's)."""
+    k, d = wmatrix.shape
+    n_remove = dnc_removals(k, honest_size, dnc_iters, dnc_c)
+    dev = wmatrix.device
+    finite = _finite_rows(wmatrix)
+    n_finite = torch.clamp(torch.sum(finite), min=1).to(torch.float32)
+    r = min(d, int(dnc_sub_dim))
+    keep = finite
+    for it in range(dnc_iters):
+        if dnc_draws is None:
+            cols = torch.randint(0, d, (r,), generator=generator, device=dev)
+            v0 = torch.randn(r, generator=generator, device=dev)
+        else:
+            cols, v0 = dnc_draws[it]
+        sub = torch.where(finite[:, None], wmatrix[:, cols], 0.0).to(torch.float32)
+        centered = sub - torch.sum(sub, dim=0) / n_finite
+        centered = torch.where(finite[:, None], centered, 0.0)
+        v = v0 / torch.clamp(torch.linalg.vector_norm(v0), min=1e-12)
+        for _ in range(10):
+            v2 = centered.T @ (centered @ v)
+            v = v2 / torch.clamp(torch.linalg.vector_norm(v2), min=1e-12)
+        # a row-wise reduce, not a matvec: equal rows score bit-equal (as
+        # in JAX), so a tie among them goes to the lowest index
+        scores = torch.where(finite, torch.sum(centered * v[None, :], dim=1) ** 2, -math.inf)
+        if n_remove:
+            out = torch.sort(scores, descending=True, stable=True).indices[:n_remove]
+            keep = keep.clone()
+            keep[out] = False
+    return torch.where(torch.sum(keep) > 0, _finite_centroid(wmatrix, keep),
+                       _finite_centroid(wmatrix, finite))
 
 
 # packed one-bit sign channel: [K, W = ceil(d/32)] words, LSB-first,
@@ -299,13 +592,30 @@ def packed_sign_votes(words: torch.Tensor, d: int) -> torch.Tensor:
     return kernels.packed_vote_counts(words, d)
 
 
-def _packed_sign_step(wmatrix, guess, noise, sign_eta):
+def _quantize_deltas(wmatrix: torch.Tensor, guess: torch.Tensor, bits: int) -> torch.Tensor:
+    """b-bit symmetric uniform quantize-dequantize emulation of the delta
+    channel (sign_bits 8 or 16; JAX ``_quantize_deltas``, :695): per-client
+    scale ``s_i = max |delta_i|`` over the finite rows, ``Q = 2^(b-1) - 1``
+    levels, ``q = round(delta / max(s, 1e-30) * Q)`` (half to even) and the
+    stack ``guess + q * s / Q``.  A row with a non-finite entry passes
+    through unchanged; an all-zero delta row dequantizes to exactly 0."""
+    g = guess[None, :].to(torch.float32)
+    delta = wmatrix.to(torch.float32) - g
+    finite = _finite_rows(delta)
+    q_max = _f32(2 ** (bits - 1) - 1, delta)
+    scale = torch.amax(torch.abs(torch.where(finite[:, None], delta, 0.0)), dim=1, keepdim=True)
+    q = torch.clamp(torch.round(delta / torch.clamp(scale, min=1e-30) * q_max), -q_max, q_max)
+    dq = torch.where(scale > 0.0, q * scale / q_max, 0.0)
+    return torch.where(finite[:, None], g + dq, wmatrix)
+
+
+def _packed_sign_step(wmatrix, guess, noise, sign_eta, name):
     """sign_bits = 1: pack, count the ballots, recover the signed votes
     ``2*counts - k_valid`` (each set bit +1, each clear bit of a valid row
     -1), and step ``sign_eta`` in the voted direction."""
     if sign_eta is None:
         raise ValueError(
-            "signmv at sign_bits=1 needs an explicit sign_eta: the one-bit "
+            f"{name} at sign_bits=1 needs an explicit sign_eta: the one-bit "
             "channel carries no magnitudes for the adaptive eta median"
         )
     words, k_valid = pack_signs(wmatrix, guess)
@@ -316,6 +626,34 @@ def _packed_sign_step(wmatrix, guess, noise, sign_eta):
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _vote_step(wmatrix, guess, noise, sign_eta, sign_bits, name):
+    """The vote of signmv and bev, after the receiver noise is drawn:
+    ``guess + eta * sign(sum_i sign(w_i - guess) + noise)``."""
+    if sign_bits == 1:
+        return _packed_sign_step(wmatrix, guess, noise, sign_eta, name)
+    if sign_bits in (8, 16):
+        wmatrix = _quantize_deltas(wmatrix, guess, sign_bits)
+    elif sign_bits != 32:
+        raise ValueError(f"{name} sign_bits must be one of 1, 8, 16, 32, got {sign_bits}")
+
+    def tail(cols, g, n):
+        delta = cols.to(torch.float32) - g[None, :]
+        finite = torch.isfinite(delta)
+        votes = torch.sum(torch.where(finite, torch.sign(delta), 0.0), dim=0) + n
+        if sign_eta is None:
+            eta = median(torch.where(finite, torch.abs(delta), math.inf))
+            # where >= ceil(K/2) deltas are non-finite the median is Inf,
+            # and Inf * sign(0) on a tie would be NaN: no step there instead
+            eta = torch.where(torch.isfinite(eta), eta, 0.0)
+        else:
+            eta = _f32(sign_eta, g)
+        return g + eta * torch.sign(votes)
+
+    noise = torch.broadcast_to(noise, guess.shape)
+    k, d = wmatrix.shape
+    return _dense_or_blocked((wmatrix, guess, noise), tail, k * d)
 
 
 @AGGREGATORS.register("signmv", owns_channel=True)
@@ -340,16 +678,13 @@ def sign_majority_vote(
     normals from ``generator`` (or ``vote_noise``) when ``noise_var`` is
     set.  A tied coordinate does not move.  ``eta`` is ``sign_eta``, else
     the coordinatewise median of ``|w_i - guess|``.  ``sign_bits``: 32 sends
-    full-precision ballots (a non-finite delta casts a 0 ballot); 1 packs
-    them into 32-bit words and counts them with the popcount kernel (a row
-    with any non-finite delta casts none, and needs ``sign_eta``)."""
+    full-precision ballots (a non-finite delta casts a 0 ballot); 8 and 16
+    vote on the quantize-dequantize emulated stack
+    (:func:`_quantize_deltas`); 1 packs the ballots into 32-bit words and
+    counts them with the popcount kernel (a row with any non-finite delta
+    casts none, and needs ``sign_eta``)."""
     if guess is None:
         raise ValueError("signmv needs the pre-round params as `guess`")
-    if sign_bits not in (1, 32):
-        raise ValueError(
-            f"signmv sign_bits={sign_bits} is not ported to the torch package "
-            "yet (1 and 32 are)"
-        )
     d = wmatrix.shape[1]
     dev = wmatrix.device
     guess = guess.to(torch.float32)
@@ -359,28 +694,32 @@ def sign_majority_vote(
         z = (torch.randn(d, generator=generator, device=dev)
              if vote_noise is None else vote_noise)
         noise = torch.sqrt(_f32(noise_var, guess) / 2.0) * z
-    if sign_bits == 1:
-        return _packed_sign_step(wmatrix, guess, noise, sign_eta)
-    delta = wmatrix.to(torch.float32) - guess[None, :]
-    finite = torch.isfinite(delta)
-    votes = torch.sum(torch.where(finite, torch.sign(delta), 0.0), dim=0) + noise
-    if sign_eta is None:
-        eta = median(torch.where(finite, torch.abs(delta), math.inf))
-        # where >= ceil(K/2) deltas are non-finite the median is Inf, and
-        # Inf * sign(0) on a tie would be NaN: no step there instead
-        eta = torch.where(torch.isfinite(eta), eta, 0.0)
-    else:
-        eta = _f32(sign_eta, guess)
-    return guess + eta * torch.sign(votes)
+    return _vote_step(wmatrix, guess, noise, sign_eta, sign_bits, "signmv")
+
+
+@AGGREGATORS.register("bev")
+def best_effort_voting(
+    wmatrix: torch.Tensor,
+    *,
+    guess: Optional[torch.Tensor] = None,
+    sign_eta: Optional[float] = None,
+    sign_bits: int = 32,
+    **_,
+) -> torch.Tensor:
+    """Best-effort voting (BEV-SGD, Jin et al. 2021; JAX
+    ``best_effort_voting``, :835) as a receiver-side rule: the signmv vote
+    on the received stack, with no receiver noise of its own (the OMA
+    prepass corrupts the stack, as for the other receiver-side rules).  At
+    ``sign_bits=1`` it is the same packed wire and popcount kernel as
+    signmv's, at 8/16 the same quantize emulation."""
+    if guess is None:
+        raise ValueError("bev needs the pre-round params as `guess`")
+    guess = guess.to(torch.float32)
+    return _vote_step(wmatrix, guess, _f32(0.0, guess), sign_eta, sign_bits, "bev")
 
 
 def resolve(name: str):
     """Look up an aggregator by its reference-compatible CLI name."""
-    if name in NOT_PORTED:
-        raise KeyError(
-            f"aggregator {name!r} is not ported to the torch package yet; "
-            f"ported: {', '.join(AGGREGATORS.names())}"
-        )
     return AGGREGATORS.get(name)
 
 

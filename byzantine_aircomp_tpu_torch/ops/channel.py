@@ -55,6 +55,33 @@ def floored_hsq(h_r: torch.Tensor, h_i: torch.Tensor) -> torch.Tensor:
     return torch.clamp(h_r**2 + h_i**2, min=HSQ_FLOOR)
 
 
+def deep_fade_mask(h_sq: torch.Tensor, fade_floor: float) -> torch.Tensor:
+    """[K] bool: the clients whose channel power |h|^2 lies below the
+    truncation threshold (JAX ``deep_fade_mask``, :66).  Under truncated
+    channel inversion they are in outage: the receiver decodes nothing
+    from them, and the fault layer erases their rows to NaN."""
+    return h_sq < torch.tensor(fade_floor, dtype=torch.float32, device=h_sq.device)
+
+
+def csi_error_scale(
+    k: int,
+    csi_std,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    z: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[K] post-equalization magnitude scale under CSI error (JAX
+    ``csi_error_scale``, :75): the estimate ``|h_hat| = |h| exp(eps)`` with
+    ``eps = csi_std * z``, z [K] standard normals from ``generator`` (or
+    passed in), so zero-forcing scales the delivered row by ``exp(-eps)``.
+    ``csi_std`` is a scalar or a [K] tensor."""
+    if z is None:
+        z = torch.randn(k, generator=generator, device=device)
+    std = torch.broadcast_to(torch.as_tensor(csi_std, dtype=torch.float32, device=z.device), (k,))
+    return torch.exp(-(std * z))
+
+
 def oma_terms(
     k: int,
     d: int,

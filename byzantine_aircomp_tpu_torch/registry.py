@@ -74,3 +74,4 @@ AGGREGATORS = Registry("aggregator")
 ATTACKS = Registry("attack")
 MODELS = Registry("model")
 DATASETS = Registry("dataset")
+FAULTS = Registry("fault")

@@ -28,9 +28,16 @@
    bit for bit); every case rerun for identical bits; timed at K=50 and
    K=1000;
 3. checks one iteration on the card against the same iteration on the CPU
-   (plain versions), from the same params and draws: gm2, gm, median + var
-   and trimmed_mean + var within 1e-4; krum and signmv (discontinuous
-   rules) bitwise on one shared stack, with the share of coordinates that
+   (plain versions), from the same params and draws: gm2, gm, median + var,
+   trimmed_mean + var, cclip, and under ``--fault chaos`` (its draws shared)
+   mean, median + var, trimmed_mean + var and gm2, within 1e-4; the
+   discontinuous rules on one shared stack (rows of graded spread, three
+   of them equal) at K=50 and K=1000: krum, signmv at 1, 8, 16 and 32
+   bits, bev at 1 and 32 bits, and the degraded krum and median on a
+   faulted copy bitwise; multi_krum, bulyan and dnc (its draws shared),
+   the degraded mean, trimmed_mean and multi_krum, and degraded bulyan as
+   its imputation and bulyan on the imputed stack, with the same rows
+   picked and the means within 1e-6; with the share of coordinates that
    differ after a whole iteration reported;
 4. drives each path through ``harness.run_with_trainer`` (the CLI's
    entry) on synthetic MNIST with the full MLP, classflip:
@@ -40,6 +47,17 @@
    (d) trimmed_mean, var 1e-2, K=1000 (B=100), 1 round x interval 10;
    (e) signmv --sign-bits 1 --sign-eta 0.01, var 1e-2, K=1000 (B=100),
        1 round x interval 10;
+   (f) bulyan, var 1e-2, K=50 (B=10), 1 round x interval 10: one
+       ``select_columns`` median at [30, 7850] per iteration;
+   (g) bev --sign-bits 1 --sign-eta 0.01, K=1000 (B=100), 1 round x
+       interval 10: one ``packed_vote_counts`` per iteration;
+   (h) cclip, weightflip, K=50 (B=10), 1 round x interval 10: three
+       ``select_columns`` medians at [50, 1] per iteration (the adaptive
+       radius);
+   (i) gm2 --fault chaos, K=50 (B=10), 2 rounds x interval 10: the
+       Weiszfeld kernel on stacks with erased and corrupted NaN rows; the
+       effective K must drop below 50 in some round, the params stay
+       finite and the val accuracy pass 0.3;
    with the kernels' launch counters set to 0 before each run and read
    after it; each run must launch its kernel in every iteration.  One more
    iteration of each run is profiled (device busy ms, idle share, and the
@@ -49,6 +67,10 @@
    the CUDA kernels per Weiszfeld step (at most 4 for gm, 1 for gm2), and
    the range's host time over the same launches the host ms per step.
 
+5. times the degraded median and trimmed mean (a ``torch.sort`` of the
+   [1000, 7850] stack and a gather at a device rank, the path every
+   ``--fault`` round of those rules takes) beside the kernel's.
+
 Any failed check raises, so the exit code is not 0 and the result line is
 not printed.  The last two lines of standard output are the ``kernels``
 JSON line and the ``ok`` JSON line, the card's name and power limit before
@@ -57,6 +79,7 @@ and prints nothing on standard output when no GPU is visible.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -74,6 +97,12 @@ ITER_ATOL = 1e-4
 # trimmed mean kernel vs its plain version: the sums run in other orders
 SELECT_RTOL = 1e-5
 SELECT_ATOL = 1e-5
+# a mean over selected rows, card vs CPU on one stack with the same
+# selection: the sums run in other orders
+SHARED_ATOL = 1e-6
+# the select_columns shapes timed: the main path's, with bulyan's median of
+# its theta = 30 rows at K=50 and cclip's median of the K=50 delta norms
+SELECT_TIMED = ((50, 7850), (1000, 7850), (30, 7850), (50, 1))
 
 
 def _fail(msg):
@@ -387,9 +416,10 @@ def check_select_and_popcount(torch, kernels, card):
              (50, 7850, "plain"), (1000, 7850, "adversarial"), (1000, 7850, "plain"),
              (1, 7850, "plain"), (2, 300, "plain"), (64, 300, "adversarial"),
              (65, 300, "adversarial"), (2000, 7850, "adversarial"), (65, 300, "ties"),
-             (1000, 7850, "ties")]
+             (1000, 7850, "ties"), (30, 7850, "adversarial"), (30, 7850, "plain"),
+             (50, 1, "adversarial"), (50, 1, "plain"), (1000, 1, "ties")]
     for k, d, stack in cases:
-        timed = d == 7850 and k in (50, 1000) and stack == "plain"
+        timed = (k, d) in SELECT_TIMED and stack == "plain"
         adversarial = stack == "adversarial"
         w, terms = _select_inputs(torch, k, d, seed=k + d + adversarial, adversarial=adversarial)
         if stack == "ties":
@@ -514,11 +544,17 @@ def check_solver_and_iteration(torch):
 
     ds = datasets.load("mnist", synthetic_train=3000, synthetic_val=500)
     errs = {}
+    chaos = dict(fault="chaos", dropout_prob=0.3, fade_floor=0.3, corrupt_prob=0.5,
+                 corrupt_size=2)
     for kw in (dict(agg="gm2"), dict(agg="gm", noise_var=1e-2, agg_maxiter=5),
                dict(agg="median", noise_var=1e-2), dict(agg="trimmed_mean", noise_var=1e-2),
                dict(agg="krum"),
-               dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01)):
+               dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01),
+               dict(agg="cclip"), dict(agg="mean", **chaos),
+               dict(agg="median", noise_var=1e-2, **chaos),
+               dict(agg="trimmed_mean", noise_var=1e-2, **chaos), dict(agg="gm2", **chaos)):
         cfg = FedConfig(honest_size=8, byz_size=2, attack="classflip", **kw)
+        label = kw["agg"] + ("_chaos" if "fault" in kw else "")
         cpu = Trainer(cfg, dataset=ds, device="cpu")
         gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
         g = torch.Generator().manual_seed(3)
@@ -530,55 +566,181 @@ def check_solver_and_iteration(torch):
             "noise": torch.randn(cfg.agg_maxiter, d + 1, generator=g),
             "oma": channel.oma_terms(k, d, 1e-2, generator=g),
             "vote_noise": torch.randn(d, generator=g),
+            "fault": _fault_draws(torch, cpu.fault, k, g) if "fault" in kw else None,
         }
         new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
-        on_gpu = {
-            "u": draws["u"].cuda(),
-            "fades": tuple(f.cuda() for f in draws["fades"]),
-            "noise": draws["noise"].cuda(),
-            "oma": channel.OmaTerms(*(t.cuda() for t in draws["oma"])),
-            "vote_noise": draws["vote_noise"].cuda(),
-        }
-        new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=on_gpu, want_variance=True)
+        new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=_to(draws, "cuda"),
+                                         want_variance=True)
         diff = (new_gpu.cpu() - new_cpu).abs()
         err = float(diff.max())
         differ = float((diff > 0).float().mean())
-        errs[kw["agg"]] = dict(max_abs_err=err, share_of_coords_differing=differ,
-                               variance_card=float(var_gpu), variance_cpu=float(var_cpu))
-        print(f"one {kw['agg']} iteration, card vs CPU: max_abs_err={err:.3e} "
-              f"share of coordinates differing={differ:.3e} "
-              f"variance {float(var_gpu):.6e} vs {float(var_cpu):.6e}")
+        errs[label] = dict(max_abs_err=err, share_of_coords_differing=differ,
+                           variance_card=float(var_gpu), variance_cpu=float(var_cpu))
+        fault_str = ""
+        if "fault" in kw:
+            counts_cpu = cpu.iteration_fault_metrics.tolist()
+            counts_gpu = gpu.iteration_fault_metrics.cpu().tolist()
+            errs[label]["fault_counts"] = counts_gpu
+            fault_str = f" fault counts card {counts_gpu} CPU {counts_cpu}"
+            if counts_gpu != counts_cpu or counts_cpu[3] >= k:
+                _fail(f"{label}: fault counts differ or nothing was faulted: {fault_str}")
+        print(f"one {label} iteration, card vs CPU: max_abs_err={err:.3e} (tolerance "
+              f"{ITER_ATOL:.0e}) share of coordinates differing={differ:.3e} "
+              f"variance {float(var_gpu):.6e} vs {float(var_cpu):.6e} (rtol 1e-4){fault_str}")
         if new_gpu.shape != (d,) or not bool(torch.isfinite(new_gpu).all()):
-            _fail(f"{kw['agg']} iteration on the card gave non-finite params")
+            _fail(f"{label} iteration on the card gave non-finite params")
         # krum and signmv are discontinuous: a 1e-7 difference in the
         # client stack can flip a ballot or the argmin, so those two are
         # held bitwise on one shared stack below instead
         if kw["agg"] not in ("krum", "signmv") and err > ITER_ATOL:
-            _fail(f"{kw['agg']} iteration on the card disagrees with the CPU: {err}")
-        if abs(float(var_gpu) - float(var_cpu)) > 1e-4 * abs(float(var_cpu)):
-            _fail(f"{kw['agg']} honest variance on the card disagrees with the CPU")
+            _fail(f"{label} iteration on the card disagrees with the CPU: {err}")
+        # an erased or corrupted honest row makes the variance NaN on both
+        same_nan = math.isnan(float(var_gpu)) and math.isnan(float(var_cpu))
+        if not same_nan and not abs(float(var_gpu) - float(var_cpu)) <= 1e-4 * abs(float(var_cpu)):
+            _fail(f"{label} honest variance on the card disagrees with the CPU")
 
-    # krum and signmv on the same stack, card vs CPU, bitwise
+    errs.update(check_shared_stacks(torch))
+    return errs
+
+
+def _fault_draws(torch, spec, k, g):
+    """The fault channel's draws for one iteration, from ``g`` on the CPU."""
+    return {
+        "dropped": torch.rand(k, generator=g) < spec.dropout_prob,
+        "crash": torch.rand(k, generator=g) < spec.corrupt_prob,
+        "fade": (torch.randn(k, generator=g) / 2**0.5, torch.randn(k, generator=g) / 2**0.5),
+        "ge_recover": torch.rand(k, generator=g) < spec.ge_p_bg,
+        "ge_degrade": torch.rand(k, generator=g) < spec.ge_p_gb,
+        "csi_z": torch.randn(k, generator=g),
+    }
+
+
+def _to(obj, dev):
+    """``obj`` with every tensor in it moved to ``dev``."""
+    if hasattr(obj, "to") and not isinstance(obj, (dict, tuple, list)):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {key: _to(v, dev) for key, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to(v, dev) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to(v, dev) for v in obj)
+    return obj
+
+
+def _graded_stack(torch, k, d, seed):
+    """A [K, d] stack whose rows spread from the center by 1e-3 to 3e-3 in
+    index order, so that the Krum scores of its K rows sit well apart: with
+    equal spreads, at K=1000 adjacent scores sit closer than the f32
+    rounding by which cuBLAS's Gram product and the CPU's differ, and the
+    rows picked at the selection boundary are then the device's choice.
+    Row 3 holds a NaN, and the last three rows are equal (their scores
+    tie)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spread = 1e-3 * (1.0 + 2.0 * torch.arange(k, device="cuda") / k)
+    w = 0.01 * torch.randn(1, d, device="cuda", generator=g) + spread[:, None] * torch.randn(
+        k, d, device="cuda", generator=g)
+    w[3, 7] = float("nan")
+    w[-3:] = w[-3].clone()
+    finite = torch.isfinite(w).all(dim=1)
+    guess = (w[finite].mean(dim=0) + 1e-4 * torch.randn(d, device="cuda", generator=g))
+    return w.contiguous(), guess.contiguous()
+
+
+def check_shared_stacks(torch):
+    """The discontinuous rules on one stack, card vs CPU: a 1e-7 difference
+    in the stack can flip a ballot, an argmin or a removal, so they are
+    held on the same bits (:func:`_graded_stack`, at K=50 and 1000), and a
+    faulted copy (a NaN row, an Inf entry) feeds the degraded rules.  Rules
+    that return a row or a +-eta step, and medians, must agree bit for bit;
+    a mean over selected rows must pick the same rows and agree within
+    ``SHARED_ATOL``, its sum running in another order.  The same rows: the
+    picked rows, in index order, hold the same bits (cuBLAS may score the
+    equal rows a few ulp apart, and then picks another of them).  Degraded
+    bulyan is held in two parts: its imputation (a column sum, so within
+    ``SHARED_ATOL``) and bulyan on the CPU's imputed stack, whose three
+    imputed rows are equal and sit at the median (values ``med + x`` and
+    ``med - x`` tie there); on the card's own imputed stack an ulp of the
+    centroid could decide such a tie."""
     from byzantine_aircomp_tpu_torch.ops import aggregators
 
+    errs = {}
     for k in (50, 1000):
-        w, guess, _, _ = _inputs(torch, k, 7850, torch.float32, seed=k)
+        honest = int(0.8 * k)
+        w, guess = _graded_stack(torch, k, 7850, seed=k)
+        faulted = w.clone()
+        faulted[1] = float("nan")
+        faulted[5, 11] = float("inf")
+        imputed = aggregators.impute_non_finite(faulted.cpu())
+        err = float((aggregators.impute_non_finite(faulted).cpu() - imputed).abs().max())
+        errs[f"impute_non_finite_K{k}"] = dict(max_abs_err=err)
+        print(f"impute_non_finite on one K={k} stack, card vs CPU: max_abs_err={err:.3e} "
+              f"(tolerance {SHARED_ATOL:.0e})")
+        if not err <= SHARED_ATOL:
+            _fail(f"degraded bulyan's imputation differs between card and CPU at K={k}")
         z = torch.randn(7850, device="cuda", generator=torch.Generator(device="cuda").manual_seed(k))
-        cases = {
-            "krum": lambda t, **_: aggregators.krum(t, honest_size=int(0.8 * k)),
-            "signmv1": lambda t, dev: aggregators.sign_majority_vote(
-                t, guess=guess.to(dev), noise_var=1e-2, sign_bits=1, sign_eta=0.01,
-                vote_noise=z.to(dev)),
-            "signmv32": lambda t, dev: aggregators.sign_majority_vote(
-                t, guess=guess.to(dev), noise_var=1e-2, vote_noise=z.to(dev)),
+        g = torch.Generator().manual_seed(k)
+        dnc_draws = [(torch.randint(0, 7850, (7850,), generator=g), torch.randn(7850, generator=g))
+                     for _ in range(3)]
+
+        def vote(fn, bits, eta, noise=True):
+            return lambda t, dev: fn(t, guess=guess.to(dev), sign_bits=bits, sign_eta=eta,
+                                     **(dict(noise_var=1e-2, vote_noise=z.to(dev))
+                                        if noise else {}))
+
+        signmv, bev = aggregators.sign_majority_vote, aggregators.best_effort_voting
+        bitwise = {
+            "krum": lambda t, dev: aggregators.krum(t, honest_size=honest),
+            "signmv1": vote(signmv, 1, 0.01), "signmv32": vote(signmv, 32, None),
+            "signmv8": vote(signmv, 8, None), "signmv16": vote(signmv, 16, 0.01),
+            "bev1": vote(bev, 1, 0.01, noise=False), "bev32": vote(bev, 32, None, noise=False),
+            "krum_degraded": lambda t, dev: aggregators.krum(
+                t, honest_size=honest, degraded=True),
+            "median_degraded": lambda t, dev: aggregators.median(t, degraded=True),
         }
-        for name, fn in cases.items():
-            on_card = fn(w, dev="cuda")
-            on_cpu = fn(w.cpu(), dev="cpu")
+        selection = lambda t, dev: aggregators.lowest(  # noqa: E731
+            aggregators.krum_scores(t, honest), honest)
+        theta_rows = lambda t, dev: aggregators.lowest(  # noqa: E731
+            aggregators.krum_scores(t, honest), k - 2 * (k - honest))
+        close = {
+            "multi_krum": (lambda t, dev: aggregators.multi_krum(t, honest_size=honest),
+                           selection),
+            "bulyan": (lambda t, dev: aggregators.bulyan(t, honest_size=honest), theta_rows),
+            "dnc": (lambda t, dev: aggregators.dnc(t, honest_size=honest,
+                                                   dnc_draws=_to(dnc_draws, dev)), None),
+            "mean_degraded": (lambda t, dev: aggregators.mean(t, degraded=True), None),
+            "trimmed_mean_degraded": (
+                lambda t, dev: aggregators.trimmed_mean(t, degraded=True), None),
+            "multi_krum_degraded": (
+                lambda t, dev: aggregators.multi_krum(t, honest_size=honest, degraded=True),
+                lambda t, dev: aggregators.lowest(
+                    aggregators.krum_scores_degraded(t, honest), honest)),
+            "bulyan_imputed": (lambda t, dev: aggregators.bulyan(t, honest_size=honest),
+                               theta_rows),
+        }
+        for name, fn in list(bitwise.items()) + list(close.items()):
+            exact = name in bitwise
+            fn, select = (fn, None) if exact else fn
+            stack = (faulted if name.endswith("_degraded")
+                     else imputed.cuda() if name.endswith("_imputed") else w)
+            on_card = fn(stack, dev="cuda")
+            on_cpu = fn(stack.cpu(), dev="cpu")
             same = _same_bits(torch, on_card.cpu(), on_cpu)
-            errs[f"{name}_same_stack_K{k}"] = dict(bitwise=same)
-            print(f"{name} on one K={k} stack, card vs CPU: bitwise equal={same}")
-            if not same:
+            err = float((on_card.cpu() - on_cpu).abs().max())
+            picked = None
+            if select is not None:
+                rows_card = stack.cpu()[torch.sort(select(stack, "cuda").cpu()).values]
+                rows_cpu = stack.cpu()[torch.sort(select(stack.cpu(), "cpu")).values]
+                picked = _same_bits(torch, rows_card, rows_cpu)
+            errs[f"{name}_same_stack_K{k}"] = dict(bitwise=same, max_abs_err=err,
+                                                   same_selection=picked)
+            print(f"{name} on one K={k} stack, card vs CPU: bitwise equal={same} "
+                  f"max_abs_err={err:.3e}"
+                  + ("" if exact else f" (tolerance {SHARED_ATOL:.0e})")
+                  + ("" if picked is None else f" same rows selected={picked}"))
+            if not bool(torch.isfinite(on_card).all()):
+                _fail(f"{name} on the card gave non-finite values on the K={k} stack")
+            if (exact and not same) or picked is False or not err <= SHARED_ATOL:
                 _fail(f"{name} differs between card and CPU on the same K={k} stack")
     return errs
 
@@ -680,34 +842,57 @@ def profile_iteration(torch, kernels, trainer, kernel):
     return out
 
 
+# each run: label, config, rounds, its kernel, the kernel's launches per
+# iteration at least
+RUNS = (
+    ("a_gm_var", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10), 2,
+     "aircomp_weiszfeld_step", 1),
+    ("b_gm2", dict(agg="gm2", honest_size=900, byz_size=100), 1, "weiszfeld_step", 1),
+    ("c_median_var", dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10), 2,
+     "select_columns", 1),
+    ("d_trimmed_mean_var", dict(agg="trimmed_mean", noise_var=1e-2, honest_size=900,
+                                byz_size=100), 1, "select_columns", 1),
+    ("e_signmv1_var", dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01,
+                           honest_size=900, byz_size=100), 1, "packed_vote_counts", 1),
+    ("f_bulyan_var", dict(agg="bulyan", noise_var=1e-2, honest_size=40, byz_size=10), 1,
+     "select_columns", 1),
+    ("g_bev1", dict(agg="bev", sign_bits=1, sign_eta=0.01, honest_size=900, byz_size=100), 1,
+     "packed_vote_counts", 1),
+    ("h_cclip_weightflip", dict(agg="cclip", attack="weightflip", honest_size=40,
+                                byz_size=10), 1, "select_columns", 3),
+    ("i_gm2_chaos", dict(agg="gm2", fault="chaos", honest_size=40, byz_size=10), 2,
+     "weiszfeld_step", 1),
+)
+# runs whose accuracy after 2 rounds must pass 0.3
+ACCURACY_BAR = ("a_gm_var", "i_gm2_chaos")
+
+
 def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
     runs = {}
-    for label, kw, rounds, kernel in (
-        ("a_gm_var", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10), 2,
-         "aircomp_weiszfeld_step"),
-        ("b_gm2", dict(agg="gm2", honest_size=900, byz_size=100), 1, "weiszfeld_step"),
-        ("c_median_var", dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10), 2,
-         "select_columns"),
-        ("d_trimmed_mean_var", dict(agg="trimmed_mean", noise_var=1e-2, honest_size=900,
-                                    byz_size=100), 1, "select_columns"),
-        ("e_signmv1_var", dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01,
-                               honest_size=900, byz_size=100), 1, "packed_vote_counts"),
-    ):
-        cfg = FedConfig(attack="classflip", rounds=rounds, display_interval=10,
-                        cache_dir=cache_dir, **kw)
+    for label, kw, rounds, kernel, per_iteration in RUNS:
+        cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=rounds,
+                        display_interval=10, cache_dir=cache_dir)
         kernels.reset_launches()
         t0 = time.perf_counter()
         trainer, record = harness.run_with_trainer(cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        if launches[kernel] < rounds * cfg.display_interval:
-            _fail(f"run {label} did not launch {kernel} in every iteration: {launches}")
+        if launches[kernel] < per_iteration * rounds * cfg.display_interval:
+            _fail(f"run {label} did not launch {kernel} {per_iteration} time(s) in every "
+                  f"iteration: {launches}")
         if not bool(torch.isfinite(trainer.flat_params).all()):
             _fail(f"run {label} ended with non-finite params")
         val_acc = record["valAccPath"][-1]
-        if label == "a_gm_var" and not val_acc > 0.3:
+        if label in ACCURACY_BAR and not val_acc > 0.3:
             _fail(f"run {label}: val accuracy {val_acc} not above 0.3")
+        if cfg.fault is not None:
+            eff_k = record["effectiveKPath"]
+            print(f"run {label} fault paths: effectiveK={eff_k} "
+                  f"dropped={record['faultDroppedPath']} erased={record['faultErasedPath']} "
+                  f"corrupt={record['faultCorruptPath']}")
+            if not min(eff_k) < cfg.node_size:
+                _fail(f"run {label}: the effective K never dropped below {cfg.node_size}")
         rps = record["roundsPerSec"]
         prof = profile_iteration(torch, kernels, trainer, kernel)
         print(f"run {label} profiled iteration: wall {prof['wall_ms']:.1f} ms, "
@@ -732,8 +917,10 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
                       f"Weiszfeld step, more than {most}")
         runs[label] = dict(
             profiled_iteration=prof, weiszfeld_per_step=per_step,
-            config=dict(kw, attack="classflip", rounds=rounds, display_interval=10,
+            config=dict(dict(attack="classflip"), **kw, rounds=rounds, display_interval=10,
                         batch_size=cfg.batch_size),
+            fault_paths={key: record[key] for key in record
+                         if key.startswith("fault") or key == "effectiveKPath"},
             launches=launches, launches_per_round={n: c / rounds for n, c in launches.items()},
             val_acc=val_acc, val_acc_path=record["valAccPath"],
             rounds_per_sec=rps, wall_seconds=wall, card=card,
@@ -742,6 +929,36 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
               f"rounds/sec per round={['%.4f' % r for r in rps]} wall={wall:.1f}s "
               f"variance={record['variencePath']} [{card}]")
     return runs
+
+
+def time_degraded_sort(torch, kernels, card):
+    """The degraded median and trimmed mean at [1000, 7850] (a sort of the
+    stack's total-order keys and a gather at the device rank (n-1)//2, or a
+    masked sum of the ranks [b, n-b)), a ``torch.sort`` of the keys alone,
+    and the kernel's static-K median and trimmed mean on the same stack;
+    device ms from CUDA-graph replay.  The stack has 3 non-finite rows."""
+    from byzantine_aircomp_tpu_torch.ops import aggregators
+
+    w, _ = _select_inputs(torch, 1000, 7850, seed=5, adversarial=False)
+    w[[7, 70, 700]] = float("nan")
+    keys = kernels.total_order_keys(w)
+    got = aggregators.median(w, degraded=True)
+    want = aggregators.median(w.cpu(), degraded=True)
+    if not _same_bits(torch, got.cpu(), want):
+        _fail("degraded median on the card differs from the CPU")
+    rows = {}
+    for name, fn in (
+        ("median_degraded", lambda: aggregators.median(w, degraded=True)),
+        ("trimmed_mean_degraded", lambda: aggregators.trimmed_mean(w, degraded=True)),
+        ("torch_sort_keys", lambda: torch.sort(keys, dim=0)),
+        ("select_columns_median", lambda: kernels.fused_median(w)),
+        ("select_columns_trimmed_mean", lambda: kernels.fused_trimmed_mean(w, 100)),
+    ):
+        ms, host_ms = _time_ms(torch, fn, iters=20, reps=3)
+        rows[name] = dict(ms=ms, host_ms=host_ms)
+        print(f"degraded path K=1000 d=7850 {name}: ms={ms:.4f} host_ms={host_ms:.4f} "
+              f"[{card}]")
+    return rows
 
 
 def main():
@@ -772,6 +989,7 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     runs = run_main_path(torch, kernels, harness, FedConfig, card,
                          os.path.join(root, "build", "chip_smoke"))
+    degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape its main-path run gives it
     # (the Weiszfeld kernels in their fused mode, which the main path runs)
@@ -808,7 +1026,7 @@ def main():
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_seconds=build_s, kernel_rows=rows,
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs,
-                       kernels=line), f, indent=1)
+                       degraded_sort=degraded_sort, kernels=line), f, indent=1)
     print(json.dumps({"kernels": line}))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {

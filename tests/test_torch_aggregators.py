@@ -236,11 +236,16 @@ def test_mean_matches_jax():
 
 
 def test_unported_aggregator_raises_clear_keyerror():
-    with pytest.raises(KeyError, match="not ported"):
-        tagg.resolve("bulyan")
-    with pytest.raises(KeyError, match="unknown aggregator"):
+    """Every rule of the JAX package resolves now; an unknown name is a
+    KeyError that lists the known ones."""
+    from byzantine_aircomp_tpu.registry import AGGREGATORS as JAX_AGGREGATORS
+
+    for name in JAX_AGGREGATORS.names():
+        assert callable(tagg.resolve(name)), name
+    with pytest.raises(KeyError, match="unknown aggregator.*bulyan"):
         tagg.resolve("no_such_rule")
     assert tagg.needs_oma_prepass("gm2") and not tagg.needs_oma_prepass("gm")
+    assert tagg.needs_oma_prepass("bev") and tagg.needs_oma_prepass("cclip")
 
 
 # ---------------------------------------------------------------------------
@@ -368,11 +373,21 @@ def test_pack_signs_matches_jax_words():
 
 
 def test_signmv_unported_widths_and_missing_eta_raise():
+    """8 and 16 bits are ported (and match JAX bitwise); a width the wire
+    does not have, and the one-bit vote without an eta, raise, naming the
+    rule that was called."""
     w, g = _sign_case(5, 40, seed=1)
     wt, gt = torch.from_numpy(w), torch.from_numpy(g)
-    with pytest.raises(ValueError, match="not ported"):
-        tagg.sign_majority_vote(wt, guess=gt, sign_bits=8, sign_eta=0.1)
-    with pytest.raises(ValueError, match="sign_eta"):
+    for bits in (8, 16):
+        got = tagg.sign_majority_vote(wt, guess=gt, sign_bits=bits, sign_eta=0.1).numpy()
+        want = jagg.sign_majority_vote(jnp.asarray(w), guess=jnp.asarray(g),
+                                       sign_bits=bits, sign_eta=0.1)
+        assert np.array_equal(_bits(got), _bits(want))
+    with pytest.raises(ValueError, match="one of 1, 8, 16, 32"):
+        tagg.sign_majority_vote(wt, guess=gt, sign_bits=3, sign_eta=0.1)
+    with pytest.raises(ValueError, match="signmv at sign_bits=1.*sign_eta"):
         tagg.sign_majority_vote(wt, guess=gt, sign_bits=1)
+    with pytest.raises(ValueError, match="bev at sign_bits=1.*sign_eta"):
+        tagg.best_effort_voting(wt, guess=gt, sign_bits=1)
     assert not tagg.needs_oma_prepass("signmv")
     assert tagg.supports_fused_epilogue("median") and not tagg.supports_fused_epilogue("krum")

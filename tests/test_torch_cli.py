@@ -69,7 +69,15 @@ def test_cli_cuda_without_gpu_fails_clearly(tmp_path):
     (["--agg", "krum"], "MLP_SGD_classflip_krum"),
     (["--agg", "signmv", "--var", "1e-2", "--sign-bits", "1", "--sign-eta", "0.01"],
      "MLP_SGD_classflip_signmv_0.01_eta0.01_sb1"),
-], ids=["median_var", "trimmed_mean_var", "krum", "signmv1_var"])
+    (["--agg", "multi_krum"], "MLP_SGD_classflip_multi_krum"),
+    (["--agg", "bulyan"], "MLP_SGD_classflip_bulyan"),
+    (["--agg", "cclip"], "MLP_SGD_classflip_cclip_tauadaptive"),
+    (["--agg", "dnc"], "MLP_SGD_classflip_dnc"),
+    (["--agg", "bev", "--sign-bits", "1", "--sign-eta", "0.01"],
+     "MLP_SGD_classflip_bev_eta0.01_sb1"),
+    (["--agg", "signmv", "--sign-bits", "8"], "MLP_SGD_classflip_signmv_sb8"),
+], ids=["median_var", "trimmed_mean_var", "krum", "signmv1_var", "multi_krum", "bulyan",
+        "cclip", "dnc", "bev1", "signmv8"])
 def test_cli_cpu_drives_each_new_aggregator(tmp_path, args, title):
     cmd = [
         sys.executable, "-m", "byzantine_aircomp_tpu_torch", "--device", "cpu",
@@ -90,6 +98,8 @@ def test_cli_cpu_drives_each_new_aggregator(tmp_path, args, title):
     dict(agg="signmv", sign_eta=0.5),
     dict(agg="median", noise_var=1e-2),
     dict(agg="krum"),
+    dict(agg="cclip", clip_iters=5),
+    dict(agg="bulyan", fault="deep_fade", fade_floor=0.1),
 ])
 def test_run_title_matches_jax(kw):
     from byzantine_aircomp_tpu_torch.fed import harness as tharness

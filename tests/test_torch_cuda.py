@@ -248,9 +248,12 @@ def _check_select(w, ch, b):
 # K <= 64 ranks by count in registers (path 0); up to ~3470 rows the keys
 # of a 16-column strip fit shared memory (path 1); at (4000, 300) they do
 # not, and the kernel selects from a global scratch of keys (path 2)
+# (30, 7850): bulyan's median of its theta rows at K=50; (50, 1) and
+# (1000, 1): cclip's median of the client delta norms
 @pytest.mark.parametrize("k,d,path", [
     (13, 300, 0), (50, 7850, 0), (1000, 7850, 1), (2000, 300, 1), (1, 7850, 0),
     (2, 300, 0), (64, 300, 0), (65, 300, 1), (2000, 7850, 1), (4000, 300, 2),
+    (30, 7850, 0), (50, 1, 0), (1000, 1, 1),
 ])
 def test_select_columns_matches_plain_versions(cuda, k, d, path):
     w, terms = _select_inputs(k, d, cuda)
@@ -319,3 +322,91 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.fused_trimmed_mean(w, 10)
     with pytest.raises(ValueError):
         kernels.packed_vote_counts(torch.zeros(4, 3, dtype=torch.int32, device=cuda), 200)
+
+
+def _tied_stack(k, d, cuda):
+    """A stack whose rows spread from the center by 1e-3 to 3e-3 in index
+    order, whose last three rows are equal (their Krum scores tie), with
+    one non-finite row, and its pre-round params.  The graded spread keeps
+    the K Krum scores well apart: with equal spreads, at K=1000 adjacent
+    scores sit closer than the f32 rounding by which cuBLAS's Gram product
+    and the CPU's differ, and the rows picked at the selection boundary
+    are then the device's choice."""
+    g = torch.Generator(device=cuda).manual_seed(k * d)
+    spread = 1e-3 * (1.0 + 2.0 * torch.arange(k, device=cuda) / k)
+    w = 0.01 * torch.randn(1, d, device=cuda, generator=g) + spread[:, None] * torch.randn(
+        k, d, device=cuda, generator=g)
+    w[k // 2, d // 3] = float("nan")
+    w[-3:] = w[-3].clone()
+    guess = w[torch.isfinite(w).all(dim=1)].mean(dim=0).contiguous()
+    return w.contiguous(), guess
+
+
+def _picked_rows(w, idx):
+    """The picked rows in index order: equal rows picked in another order
+    (cuBLAS may score equal rows a few ulp apart) are the same rows."""
+    return w.cpu()[torch.sort(idx.cpu()).values]
+
+
+@pytest.mark.parametrize("k", [50, 1000])
+def test_selection_rules_on_the_card_equal_the_cpu(cuda, k):
+    """multi_krum, bulyan and bev at one bit on one stack with ties.  The
+    card picks the CPU's rows (Krum's theta and m winners compared by their
+    bits), and bev's +-eta step is the CPU's bit for bit.  The means over
+    the picked rows agree within 1e-6: cuBLAS and the CPU's BLAS sum the
+    [K]-weight matvec, and CUDA and the CPU reduce bulyan's beta values, in
+    other orders."""
+    w, guess = _tied_stack(k, 7850, cuda)
+    honest = int(0.8 * k)
+    theta = k - 2 * (k - honest)
+    for m, scores in ((honest, aggregators.krum_scores),
+                      (theta, aggregators.krum_scores),
+                      (honest, aggregators.krum_scores_degraded)):
+        on_card = aggregators.lowest(scores(w, honest), m)
+        on_cpu = aggregators.lowest(scores(w.cpu(), honest), m)
+        assert _same_bits(_picked_rows(w, on_card), _picked_rows(w, on_cpu))
+    for name, fn in (
+        ("multi_krum", lambda t, g: aggregators.multi_krum(t, honest_size=honest)),
+        ("bulyan", lambda t, g: aggregators.bulyan(t, honest_size=honest)),
+        ("bev1", lambda t, g: aggregators.best_effort_voting(
+            t, guess=g, sign_bits=1, sign_eta=0.01)),
+        ("multi_krum_degraded", lambda t, g: aggregators.multi_krum(
+            t, honest_size=honest, degraded=True)),
+    ):
+        before = dict(kernels.LAUNCHES)
+        on_card = fn(w, guess)
+        after = dict(kernels.LAUNCHES)
+        on_cpu = fn(w.cpu(), guess.cpu())
+        if name == "bev1":
+            assert _same_bits(on_card.cpu(), on_cpu), name
+            assert after["packed_vote_counts"] == before["packed_vote_counts"] + 1
+        else:
+            torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=1e-6)
+        if name == "bulyan":  # its median of the theta rows is the kernel's
+            assert after["select_columns"] == before["select_columns"] + 1
+
+
+def test_cclip_launches_one_select_per_step_at_d_1(cuda):
+    w, guess = _tied_stack(50, 7850, cuda)
+    before = kernels.LAUNCHES["select_columns"]
+    got = aggregators.centered_clip(w, guess=guess, clip_iters=3)
+    assert kernels.LAUNCHES["select_columns"] == before + 3
+    torch.testing.assert_close(got.cpu(), aggregators.centered_clip(
+        w.cpu(), guess=guess.cpu(), clip_iters=3), rtol=0, atol=1e-6)
+
+
+def test_chaos_round_on_the_card_keeps_params_finite(cuda):
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = datasets.load("mnist", synthetic_train=2000, synthetic_val=200)
+    cfg = FedConfig(honest_size=40, byz_size=10, attack="classflip", agg="gm2",
+                    display_interval=5, fault="chaos", fade_floor=0.3, corrupt_prob=0.5)
+    tr = Trainer(cfg, dataset=ds, device="cuda")
+    before = kernels.LAUNCHES["weiszfeld_step"]
+    tr.run_round(0)
+    assert kernels.LAUNCHES["weiszfeld_step"] > before
+    assert torch.isfinite(tr.flat_params).all()
+    dropped, erased, corrupt, eff_k = tr.last_fault_metrics.tolist()
+    assert erased > 0 and corrupt > 0 and eff_k < cfg.node_size
