@@ -33,6 +33,7 @@ class FedConfig:
 
     # dispatch
     agg: str = "gm"
+    # a registered attack name, or "name@R": honest behavior until round R
     attack: Optional[str] = None
     noise_var: Optional[float] = None
     # non-adversarial fault injection (ops/faults.py): a registered fault
@@ -56,6 +57,10 @@ class FedConfig:
     gm_p_max: float = 1.0
     # multi-Krum selection count (None = honest size)
     krum_m: Optional[int] = None
+    # scalar magnitude of a parameterized message attack (alie z, ipm eps,
+    # gaussian sigma, minmax/minsum fixed gamma); None = the attack's own
+    # default (and the bisection, for minmax/minsum)
+    attack_param: Optional[float] = None
     # centered-clipping radius (None = the per-step median of the client
     # delta norms) and its fixed step count
     clip_tau: Optional[float] = None
@@ -86,6 +91,16 @@ class FedConfig:
 
     # federated optimizer (reference --opt, only SGD exists)
     opt: str = "SGD"
+
+    # checkpoint / resume (the reference's --inherit is dead; this one
+    # works): the params and the extra state are written after every round
+    # under checkpoint_dir, and inherit resumes from them
+    checkpoint_dir: str = ""
+    inherit: bool = False
+
+    # the reference's --use-gpu: False asks for the CPU (the CLI's --device
+    # cpu sets it too); True runs on CUDA, never on the CPU for want of a card
+    use_gpu: bool = True
 
     # misc
     mark: str = ""
@@ -149,6 +164,10 @@ class FedConfig:
                 "sign_bits=1 requires an explicit --sign-eta: the one-bit wire "
                 "carries no delta magnitudes for the adaptive eta"
             )
+        if self.inherit and not self.checkpoint_dir:
+            raise ValueError(
+                "inherit resumes from checkpoint_dir; set --checkpoint-dir too"
+            )
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
         k = self.node_size
@@ -180,7 +199,14 @@ class FedConfig:
             )
         # unknown names fail here, not mid-run (KeyError lists known names)
         agg_lib.resolve(self.agg)
-        attack_lib.resolve(self.attack)
+        # an unknown name, or a malformed "name@R", raises here
+        attack = attack_lib.resolve(self.attack)
+        if self.attack_param is not None and (attack is None or attack.param_name is None):
+            raise ValueError(
+                f"attack {self.attack!r} takes no scalar parameter "
+                f"(attack_param={self.attack_param}); the knob exists for "
+                "alie, ipm, gaussian, minmax and minsum"
+            )
         DATASETS.get(self.dataset)
         MODELS.get(self.model)
         return self

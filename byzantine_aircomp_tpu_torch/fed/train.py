@@ -22,7 +22,16 @@ package splits its iteration key into (batch, channel, aggregation,
 message), and a fifth for the fault channel when a fault is set; here each
 is a ``torch.Generator`` seeded from ``(seed, round, iteration, stream)``.
 ``iteration`` also takes the draws as inputs (``draws``), so the tests can
-feed it the JAX package's numbers.
+feed it the JAX package's numbers.  No generator carries state from one
+round to the next, so a run resumed at round R draws exactly what the
+uninterrupted run drew from round R on.
+
+A delayed attack (``name@R``) counts global iterations in ``attack_iter``,
+a device int32 scalar, and one device bool, ``attack_iter >= R *
+display_interval``, gates every Byzantine behavior (the data swap, the
+gradient scale and the message attack), as the JAX trainer's carried
+counter does (``fed/train.py:100-108``, ``:639-645``, ``:800-803``): the
+counter is never read on the host inside a round.
 """
 
 from __future__ import annotations
@@ -139,6 +148,14 @@ class Trainer:
             mask[-cfg.byz_size:] = True
         self.byz_mask = torch.from_numpy(mask).to(self.device)
 
+        # delayed onset ("name@R"): the threshold in global iterations, and
+        # the device counter of iterations run (None without an onset)
+        self._attack_onset = None
+        self.attack_iter: Optional[torch.Tensor] = None
+        if self.attack is not None and self.attack.onset_round is not None:
+            self._attack_onset = self.attack.onset_round * cfg.display_interval
+            self.attack_iter = torch.zeros((), dtype=torch.int32, device=self.device)
+
         self._per_client_grad = vmap(grad(self._loss), in_dims=(None, 0, 0))
         self._eval_cache: Dict[str, tuple] = {}
 
@@ -163,13 +180,19 @@ class Trainer:
     def client_stack(self, flat_params, x, y, is_byz) -> torch.Tensor:
         """[K, d] weights after each client's local SGD step
         ``w <- w - gamma*(g + wd*w)`` (``:302-303``), with the data-level
-        attack applied to the Byzantine clients' batches."""
+        attack applied to the Byzantine clients' batches and a gradient-
+        scale attack to their gradient, before weight decay (JAX
+        ``fed/train.py:475-483``)."""
         cfg = self.cfg
-        if self.attack is not None and self.attack.data_fn is not None:
-            x_att, y_att = self.attack.apply_data(x, y, self.num_classes)
+        attack = self.attack
+        if attack is not None and attack.data_fn is not None:
+            x_att, y_att = attack.apply_data(x, y, self.num_classes)
             x = torch.where(is_byz[:, None, None], x_att, x)
             y = torch.where(is_byz[:, None], y_att, y)
         g = self._per_client_grad(flat_params, x, y)
+        if attack is not None and attack.grad_scale != 1.0:
+            one = torch.ones((), dtype=g.dtype, device=g.device)
+            g = g * torch.where(is_byz, attack.grad_scale * one, one)[:, None]
         return flat_params - cfg.gamma * (g + cfg.weight_decay * flat_params)
 
     def iteration_generators(self, round_idx: int, it: int) -> IterationGenerators:
@@ -198,7 +221,8 @@ class Trainer:
         OMA link's terms (:class:`..ops.channel.OmaTerms`), ``"fades"``
         (h_r, h_i) [T, K] and ``"noise"`` [T, d+1] for gm's Weiszfeld
         steps, ``"vote_noise"`` [d] for signmv's receiver, ``"dnc"`` dnc's
-        ``[(cols, v0)]`` per filtering round, and ``"fault"`` a dict of the
+        ``[(cols, v0)]`` per filtering round, ``"message"`` the gaussian
+        attack's [B, d] normals, and ``"fault"`` a dict of the
         fault channel's draws (``"dropped"`` for
         :func:`..ops.faults.apply_dropout`, the keys of
         :func:`..ops.faults.apply_transmission`); the rest comes from
@@ -231,7 +255,12 @@ class Trainer:
         if self._norm_scale is not None:
             x = x.to(torch.float32) * self._norm_scale + self._norm_bias
         y = self.y_train[idx]
-        w_stack = self.client_stack(flat_params, x, y, self.byz_mask)
+        # one device bool gates every Byzantine behavior until the onset
+        is_byz, attack_on = self.byz_mask, None
+        if self._attack_onset is not None:
+            attack_on = self.attack_iter >= self._attack_onset
+            is_byz = is_byz & attack_on
+        w_stack = self.client_stack(flat_params, x, y, is_byz)
 
         if fault is not None:
             # before the attack: the buffer keeps what the clients sent
@@ -241,9 +270,11 @@ class Trainer:
                 dropped=fault_draws.get("dropped"),
             )
         if self.attack is not None:
-            w_stack = self.attack.apply_message(
-                w_stack, cfg.byz_size, gens.message
+            w_att = self.attack.apply_message(
+                w_stack, cfg.byz_size, gens.message, param=cfg.attack_param,
+                noise=draws.get("message"),
             )
+            w_stack = w_att if attack_on is None else torch.where(attack_on, w_att, w_stack)
         if fault is not None:
             # after it: corruption and the channel's faults hit every row
             w_stack, ge_bad, n_erased, n_corrupt = fault_lib.apply_transmission(
@@ -302,6 +333,8 @@ class Trainer:
                     channel_lib.OmaTerms(*(t[: cfg.honest_size] for t in terms))
                 )
             variance = honest_variance(w_h, cfg.honest_size)
+        if self.attack_iter is not None:
+            self.attack_iter = self.attack_iter + 1
         return new_flat, variance
 
     def run_round(self, round_idx: int) -> torch.Tensor:
@@ -362,9 +395,19 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train(self, log_fn: Optional[Callable[[str], None]] = None) -> Dict[str, List[float]]:
+    def train(
+        self,
+        log_fn: Optional[Callable[[str], None]] = None,
+        checkpoint_fn: Optional[Callable[[int, "Trainer", Dict[str, List[float]]], None]] = None,
+        start_round: int = 0,
+    ) -> Dict[str, List[float]]:
         """Full training run; returns the reference-schema metric paths
-        (``trainLossPath`` etc., pickled record keys at ``:481-489``)."""
+        (``trainLossPath`` etc., pickled record keys at ``:481-489``).
+        ``start_round > 0`` resumes a checkpointed run (the caller restores
+        the state first, ``harness.restore_trainer``): the paths start with
+        the eval of the restored params.  ``checkpoint_fn(r, trainer, paths)``
+        runs after every round, with ``r`` the number of rounds done and
+        ``paths`` those recorded so far."""
         cfg = self.cfg
         log = log_fn or (lambda s: None)
 
@@ -385,12 +428,12 @@ class Trainer:
             for key in FAULT_PATHS:
                 paths[key] = []
         log(
-            f"[0/{cfg.rounds}](interval: {cfg.display_interval}) "
+            f"[{start_round}/{cfg.rounds}](interval: {cfg.display_interval}) "
             f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
             f"val: loss={va_loss:.4f} acc={va_acc:.4f}"
         )
         var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
-        for r in range(cfg.rounds):
+        for r in range(start_round, cfg.rounds):
             self._sync()
             t0 = time.perf_counter()
             variance = self.run_round(r)
@@ -416,4 +459,6 @@ class Trainer:
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
                 f"val: loss={va_loss:.4f} acc={va_acc:.4f}{var_str}{fault_str}"
             )
+            if checkpoint_fn is not None:
+                checkpoint_fn(r + 1, self, paths)
         return paths

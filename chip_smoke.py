@@ -27,6 +27,11 @@
    with one non-finite row: active, stopping, and inactive (the guess left
    bit for bit); every case rerun for identical bits; timed at K=50 and
    K=1000;
+   At the EMNIST MLP's width, d = 48,670 (784 x 62 + 62), each of the four
+   kernels is held the same way at K=50 and K=1000 (f32 and bf16 for the
+   Weiszfeld steps, both modes; the selection on plain and adversarial
+   stacks; the popcount at W = 1521) and timed beside its bound and, for
+   the median, ``torch.median``;
 3. checks one iteration on the card against the same iteration on the CPU
    (plain versions), from the same params and draws: gm2, gm, median + var,
    trimmed_mean + var, cclip, and under ``--fault chaos`` (its draws shared)
@@ -38,7 +43,9 @@
    the degraded mean, trimmed_mean and multi_krum, and degraded bulyan as
    its imputation and bulyan on the imputed stack, with the same rows
    picked and the means within 1e-6; with the share of coordinates that
-   differ after a whole iteration reported;
+   differ after a whole iteration reported; and one iteration (mean) under
+   each static message or gradient attack (signflip, gradascent, gaussian
+   with its draws shared, alie, ipm, minmax, minsum) within 1e-4;
 4. drives each path through ``harness.run_with_trainer`` (the CLI's
    entry) on synthetic MNIST with the full MLP, classflip:
    (a) gm, var 1e-2, K=50 (B=10), 2 rounds x interval 10;
@@ -58,6 +65,20 @@
        Weiszfeld kernel on stacks with erased and corrupted NaN rows; the
        effective K must drop below 50 in some round, the params stay
        finite and the val accuracy pass 0.3;
+   (j) resume on mnist_hard, gm2, K=50 (B=5): 2 rounds straight, and 1
+       round with ``checkpoint_dir`` then ``inherit`` to round 2 in a fresh
+       Trainer; the final params and the paths must be bitwise equal;
+   (k) alie against bulyan, var 1e-2, K=50 (B=10), 1 round;
+   (l) minsum against median, var 1e-2, K=50 (B=10), 1 round, the
+       message attack (its 25-step bisection) under
+       ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails it;
+   (m) gradascent@1 against gm, var 1e-2, K=50 (B=10), 2 rounds: round 0's
+       Byzantine rows must be bitwise what the same clients send with no
+       attack set, round 1's not, and the onset counter must end at 20;
+   (n) emnist_hard (d = 48,670), gm2, K=1000 (B=100), 1 round;
+   (o) emnist_hard, median, var 1e-2, gaussian, K=50 (B=10), 1 round;
+   (p) emnist_hard, signmv --sign-bits 1 --sign-eta 0.01, ipm, K=1000
+       (B=100), 1 round;
    with the kernels' launch counters set to 0 before each run and read
    after it; each run must launch its kernel in every iteration.  One more
    iteration of each run is profiled (device busy ms, idle share, and the
@@ -81,6 +102,7 @@ and prints nothing on standard output when no GPU is visible.
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -100,9 +122,15 @@ SELECT_ATOL = 1e-5
 # a mean over selected rows, card vs CPU on one stack with the same
 # selection: the sums run in other orders
 SHARED_ATOL = 1e-6
+# the EMNIST MLP's width: 784 x 62 + 62 (emnist, emnist_hard)
+EMNIST_D = 48670
 # the select_columns shapes timed: the main path's, with bulyan's median of
-# its theta = 30 rows at K=50 and cclip's median of the K=50 delta norms
-SELECT_TIMED = ((50, 7850), (1000, 7850), (30, 7850), (50, 1))
+# its theta = 30 rows at K=50 and cclip's median of the K=50 delta norms,
+# and the EMNIST width's
+SELECT_TIMED = ((50, 7850), (1000, 7850), (30, 7850), (50, 1), (50, EMNIST_D),
+                (1000, EMNIST_D))
+# (K, d) at which the Weiszfeld steps' fused mode and the popcount are timed
+TIMED = ((50, 7850), (1000, 7850), (50, EMNIST_D), (1000, EMNIST_D))
 
 
 def _fail(msg):
@@ -117,6 +145,12 @@ def _card_line():
     if out.returncode != 0:
         _fail(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _reps(k, d):
+    """Calls per graph and graph replays for :func:`_time_ms`: fewer at the
+    largest stacks, whose plain versions take tens of ms a call."""
+    return dict(iters=50, reps=5) if k * d <= 8_000_000 else dict(iters=10, reps=3)
 
 
 def _time_ms(torch, fn, iters=50, reps=5):
@@ -183,7 +217,8 @@ def _bound(k, d, elem_bytes, aircomp):
 
 def check_kernels(torch, kernels):
     rows = []
-    shapes = [(50, 7850), (60, 7850), (1000, 7850), (13, 300)]
+    shapes = [(50, 7850), (60, 7850), (1000, 7850), (13, 300), (50, EMNIST_D),
+              (1000, EMNIST_D)]
     for name, kern, ref in (
         ("weiszfeld_step", kernels.weiszfeld_step, kernels.weiszfeld_step_ref),
         ("aircomp_weiszfeld_step", kernels.aircomp_weiszfeld_step,
@@ -207,8 +242,8 @@ def check_kernels(torch, kernels):
                 )
                 again = kern(*args)
                 deterministic = torch.equal(again[0], num_k) and torch.equal(again[1], den_k)
-                ms, host_ms = _time_ms(torch, lambda: kern(*args))
-                plain_ms, plain_host_ms = _time_ms(torch, lambda: ref(*args))
+                ms, host_ms = _time_ms(torch, lambda: kern(*args), **_reps(k, d))
+                plain_ms, plain_host_ms = _time_ms(torch, lambda: ref(*args), **_reps(k, d))
                 bound_ms, bound_by = _bound(k, d, w.element_size(), air)
                 row = dict(
                     name=name, mode="num_den", k=k, d=d, dtype=str(dtype).replace("torch.", ""),
@@ -271,7 +306,7 @@ def check_fused(torch, kernels):
     # rows wider than 8192 columns split across blocks: 2 tiles at d = 9001,
     # 3 at d = 16500
     shapes = [(1, 1), (13, 300), (50, 7850), (60, 7850), (1000, 7850), (2000, 7850),
-              (13, 9001), (50, 16500)]
+              (13, 9001), (50, 16500), (50, EMNIST_D), (1000, EMNIST_D)]
     for name, air in (("weiszfeld_step", False), ("aircomp_weiszfeld_step", True)):
         for k, d in shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -317,7 +352,7 @@ def check_fused(torch, kernels):
                 row = dict(name=name, mode="fused", k=k, d=d,
                            dtype=str(dtype).replace("torch.", ""), max_abs_err=max(errs),
                            ok=ok, inactive_ok=inactive_ok, deterministic=deterministic)
-                if d == 7850 and k in (50, 1000) and dtype == torch.float32:
+                if (k, d) in TIMED and dtype == torch.float32:
                     # tol = -1 keeps every timed call active; the state is
                     # updated in place, with no copy inside the timed calls
                     active, steps, scaler = (t.clone() for t in state)
@@ -332,9 +367,9 @@ def check_fused(torch, kernels):
                             scaler, fade_scale=draws["fade_scale"], z=draws["z"],
                             noise_scale=draws["noise_scale"])
 
-                    row["ms"], row["host_ms"] = _time_ms(torch, step)
+                    row["ms"], row["host_ms"] = _time_ms(torch, step, **_reps(k, d))
                     row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, lambda: _fused_ref_call(
-                        kernels, air, w, guess, state, -1.0, draws))
+                        kernels, air, w, guess, state, -1.0, draws), **_reps(k, d))
                     row["bound_ms"], row["bound_by"] = _fused_bound(k, d, w.element_size(), air)
                 rows.append(row)
                 print(f"kernel {name} fused K={k} d={d} {row['dtype']}: "
@@ -417,7 +452,9 @@ def check_select_and_popcount(torch, kernels, card):
              (1, 7850, "plain"), (2, 300, "plain"), (64, 300, "adversarial"),
              (65, 300, "adversarial"), (2000, 7850, "adversarial"), (65, 300, "ties"),
              (1000, 7850, "ties"), (30, 7850, "adversarial"), (30, 7850, "plain"),
-             (50, 1, "adversarial"), (50, 1, "plain"), (1000, 1, "ties")]
+             (50, 1, "adversarial"), (50, 1, "plain"), (1000, 1, "ties"),
+             (50, EMNIST_D, "adversarial"), (50, EMNIST_D, "plain"),
+             (1000, EMNIST_D, "adversarial"), (1000, EMNIST_D, "plain")]
     for k, d, stack in cases:
         timed = (k, d) in SELECT_TIMED and stack == "plain"
         adversarial = stack == "adversarial"
@@ -453,8 +490,8 @@ def check_select_and_popcount(torch, kernels, card):
                        adversarial=adversarial, stack=stack, path=plan["path"],
                        max_abs_err=err, ok=ok, deterministic=deterministic)
             if timed:
-                row["ms"], row["host_ms"] = _time_ms(torch, kern)
-                row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
+                row["ms"], row["host_ms"] = _time_ms(torch, kern, **_reps(k, d))
+                row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref, **_reps(k, d))
                 nbytes = k * d * 4 * (3 if ch is not None else 1) + d * 4 + (
                     3 * k * 4 if ch is not None else 0)
                 row["bound_ms"], row["bound_by"] = _bytes_bound(nbytes)
@@ -465,7 +502,7 @@ def check_select_and_popcount(torch, kernels, card):
                     # rules differ)
                     recv = w if ch is None else w + kernels.oma_residual(ch)
                     row["library_ms"] = _time_ms(
-                        torch, lambda: torch.median(recv, dim=0).values)[0]
+                        torch, lambda: torch.median(recv, dim=0).values, **_reps(k, d))[0]
             rows.append(row)
             print(f"kernel select_columns {mode}{'+channel' if ch is not None else ''} "
                   f"K={k} d={d} stack={stack} path={plan['path']}: max_abs_err={err:.3e} "
@@ -480,7 +517,8 @@ def check_select_and_popcount(torch, kernels, card):
             if not deterministic:
                 _fail(f"select_columns {mode} gave different bits on a rerun at K={k} d={d}")
 
-    for k, d in ((1, 1), (70, 33), (13, 300), (50, 7850), (1000, 7850)):
+    for k, d in ((1, 1), (70, 33), (13, 300), (50, 7850), (1000, 7850), (50, EMNIST_D),
+                 (1000, EMNIST_D)):
         g = torch.Generator(device="cuda").manual_seed(k * d)
         w_cnt = -(-d // 32)
         words = torch.randint(-(2**31), 2**31 - 1, (k, w_cnt), dtype=torch.int32,
@@ -499,16 +537,16 @@ def check_select_and_popcount(torch, kernels, card):
                    max_abs_err=0.0 if ok else float("inf"), ok=ok,
                    deterministic=deterministic, device_ops_per_call=[_short(n) for n in issued],
                    library_ms=None)
-        if d == 7850:
-            row["ms"], row["host_ms"] = _time_ms(torch, kern)
-            row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref)
+        if (k, d) in TIMED:
+            row["ms"], row["host_ms"] = _time_ms(torch, kern, **_reps(k, d))
+            row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref, **_reps(k, d))
             row["bound_ms"], row["bound_by"] = _bytes_bound(k * w_cnt * 4 + d * 4)
         rows.append(row)
         print(f"kernel packed_vote_counts K={k} d={d} W={w_cnt}: ok={ok} "
               f"deterministic={deterministic} device ops per call={row['device_ops_per_call']} "
               + " ".join(f"{key}={row[key]:.5f}" for key in
                          ("ms", "host_ms", "plain_ms", "bound_ms") if key in row)
-              + (f" [{card}]" if d == 7850 else ""))
+              + (f" [{card}]" if (k, d) in TIMED else ""))
         if not ok or not deterministic:
             _fail(f"packed_vote_counts wrong or not repeatable at K={k} d={d}")
         if not one_kernel:
@@ -552,9 +590,11 @@ def check_solver_and_iteration(torch):
                dict(agg="signmv", noise_var=1e-2, sign_bits=1, sign_eta=0.01),
                dict(agg="cclip"), dict(agg="mean", **chaos),
                dict(agg="median", noise_var=1e-2, **chaos),
-               dict(agg="trimmed_mean", noise_var=1e-2, **chaos), dict(agg="gm2", **chaos)):
-        cfg = FedConfig(honest_size=8, byz_size=2, attack="classflip", **kw)
-        label = kw["agg"] + ("_chaos" if "fault" in kw else "")
+               dict(agg="trimmed_mean", noise_var=1e-2, **chaos), dict(agg="gm2", **chaos),
+               *(dict(agg="mean", attack=a) for a in STATIC_ATTACKS)):
+        cfg = FedConfig(honest_size=8, byz_size=2, **dict(dict(attack="classflip"), **kw))
+        label = kw["agg"] + ("_chaos" if "fault" in kw else "") + (
+            f"_{kw['attack']}" if "attack" in kw else "")
         cpu = Trainer(cfg, dataset=ds, device="cpu")
         gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
         g = torch.Generator().manual_seed(3)
@@ -567,6 +607,9 @@ def check_solver_and_iteration(torch):
             "oma": channel.oma_terms(k, d, 1e-2, generator=g),
             "vote_noise": torch.randn(d, generator=g),
             "fault": _fault_draws(torch, cpu.fault, k, g) if "fault" in kw else None,
+            # the gaussian attack's normals; the other attacks draw none
+            "message": (torch.randn(cfg.byz_size, d, generator=g)
+                        if cfg.attack == "gaussian" else None),
         }
         new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
         new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=_to(draws, "cuda"),
@@ -842,6 +885,10 @@ def profile_iteration(torch, kernels, trainer, kernel):
     return out
 
 
+# the static message and gradient attacks (ops/attacks.py), each held card vs
+# CPU for one iteration with shared draws
+STATIC_ATTACKS = ("signflip", "gradascent", "gaussian", "alie", "ipm", "minmax", "minsum")
+
 # each run: label, config, rounds, its kernel, the kernel's launches per
 # iteration at least
 RUNS = (
@@ -862,25 +909,178 @@ RUNS = (
                                 byz_size=10), 1, "select_columns", 3),
     ("i_gm2_chaos", dict(agg="gm2", fault="chaos", honest_size=40, byz_size=10), 2,
      "weiszfeld_step", 1),
+    ("j_resume_gm2", dict(agg="gm2", honest_size=45, byz_size=5, dataset="mnist_hard"), 2,
+     "weiszfeld_step", 1),
+    ("k_alie_bulyan_var", dict(agg="bulyan", attack="alie", noise_var=1e-2, honest_size=40,
+                               byz_size=10), 1, "select_columns", 1),
+    ("l_minsum_median_var", dict(agg="median", attack="minsum", noise_var=1e-2,
+                                 honest_size=40, byz_size=10), 1, "select_columns", 1),
+    ("m_gradascent_onset_gm_var", dict(agg="gm", attack="gradascent@1", noise_var=1e-2,
+                                       honest_size=40, byz_size=10), 2,
+     "aircomp_weiszfeld_step", 1),
+    ("n_emnist_gm2", dict(agg="gm2", dataset="emnist_hard", honest_size=900, byz_size=100), 1,
+     "weiszfeld_step", 1),
+    ("o_emnist_median_var_gaussian", dict(agg="median", attack="gaussian", noise_var=1e-2,
+                                          dataset="emnist_hard", honest_size=40, byz_size=10),
+     1, "select_columns", 1),
+    ("p_emnist_signmv1_ipm", dict(agg="signmv", attack="ipm", sign_bits=1, sign_eta=0.01,
+                                  dataset="emnist_hard", honest_size=900, byz_size=100), 1,
+     "packed_vote_counts", 1),
 )
 # runs whose accuracy after 2 rounds must pass 0.3
-ACCURACY_BAR = ("a_gm_var", "i_gm2_chaos")
+ACCURACY_BAR = ("a_gm_var", "i_gm2_chaos", "j_resume_gm2")
+# the run whose message attack runs under torch.cuda.set_sync_debug_mode("error")
+SYNC_GUARDED = "l_minsum_median_var"
 
 
-def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
+def _same_record(a, b):
+    """Two records equal in every entry but ``roundsPerSec`` (host clock);
+    floats compared as bits, NaN included."""
+    for key in a:
+        if key == "roundsPerSec":
+            continue
+        x, y = a[key], b[key]
+        if isinstance(x, list):
+            if len(x) != len(y) or any(
+                    struct.pack("<d", u) != struct.pack("<d", v) for u, v in zip(x, y)):
+                return False
+        elif x != y:
+            return False
+    return set(a) == set(b)
+
+
+def run_resume(torch, kernels, harness, cfg):
+    """Run (j): ``cfg`` straight through, and again as one round with a
+    checkpoint per round and then ``inherit`` to the end in a fresh
+    Trainer; the final params and the paths (all but ``roundsPerSec``) must
+    be bitwise equal.  Returns the resumed run's (trainer, record), with the
+    launches of all three runs."""
+    import dataclasses
+    import shutil
+
+    ck = os.path.join(cfg.cache_dir, "ckpt_j")
+    shutil.rmtree(ck, ignore_errors=True)
+    straight_t, straight = harness.run_with_trainer(cfg, device="cuda")
+    harness.run_with_trainer(dataclasses.replace(cfg, rounds=1, checkpoint_dir=ck),
+                             device="cuda")
+    resumed_t, resumed = harness.run_with_trainer(
+        dataclasses.replace(cfg, checkpoint_dir=ck, inherit=True), device="cuda")
+    torch.cuda.synchronize()
+    same_params = torch.equal(straight_t.flat_params, resumed_t.flat_params)
+    same_paths = _same_record(straight, resumed)
+    print(f"run j resume: 2 rounds straight vs 1 round + --inherit to 2 in a fresh Trainer: "
+          f"params bitwise equal={same_params}, paths bitwise equal={same_paths} "
+          f"(valAccPath {straight['valAccPath']} vs {resumed['valAccPath']})")
+    if not (same_params and same_paths):
+        diff = float((straight_t.flat_params - resumed_t.flat_params).abs().max())
+        _fail(f"run j: the resumed run differs from the straight run (params max abs "
+              f"diff {diff}; paths equal {same_paths})")
+    return resumed_t, resumed
+
+
+def check_onset_rows(torch, trainer):
+    """Run (m)'s onset: in round 0 the Byzantine rows under ``gradascent@1``
+    are bitwise what the same clients send with no attack set; in round 1
+    they are not.  Each trainer starts from the seeded initial params, as
+    the run's first iteration did."""
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    cfg = trainer.cfg
+    rows = {}
+    for attacked, r in ((True, 0), (False, 0), (True, 1), (False, 1)):
+        t = Trainer(cfg, dataset=trainer.dataset, device="cuda")
+        if not attacked:
+            t.attack = None
+        else:
+            t.attack_iter.fill_(r * cfg.display_interval)
+        seen, agg = {}, t.agg_fn
+
+        def capture(w, **kw):
+            seen["w"] = w[-cfg.byz_size:].clone()
+            return agg(w, **kw)
+
+        t.agg_fn = capture
+        t.iteration(t.flat_params, t.iteration_generators(r, 0))
+        rows[(attacked, r)] = seen["w"]
+    before = _same_bits(torch, rows[(True, 0)], rows[(False, 0)])
+    after = _same_bits(torch, rows[(True, 1)], rows[(False, 1)])
+    print(f"run m onset: round 0 Byzantine rows bitwise the unattacked ones={before}; "
+          f"round 1 (onset) equal={after}; attack_iter at the end={int(trainer.attack_iter)}")
+    if not before or after:
+        _fail("run m: gradascent@1 acted before its onset, or not at it")
+    if int(trainer.attack_iter) != 2 * cfg.display_interval:
+        _fail(f"run m: attack_iter ended at {int(trainer.attack_iter)}, not 20")
+    return dict(round0_rows_bitwise_unattacked=before, round1_rows_equal=after,
+                attack_iter=int(trainer.attack_iter))
+
+
+class _SyncGuard:
+    """Runs every message attack under ``torch.cuda.set_sync_debug_mode
+    ("error")``: a host sync inside it (an ``.item()``, a ``bool()`` of a
+    device value) raises.  Counts the guarded calls."""
+
+    def __init__(self, torch, attacks):
+        self.torch, self.spec, self.calls = torch, attacks.AttackSpec, 0
+
+    def __enter__(self):
+        self.orig = self.spec.apply_message
+        guard = self
+
+        def guarded(spec, *a, **kw):
+            guard.torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = guard.orig(spec, *a, **kw)
+            finally:
+                guard.torch.cuda.set_sync_debug_mode("default")
+            guard.calls += 1
+            return out
+
+        self.spec.apply_message = guarded
+        return self
+
+    def __exit__(self, *exc):
+        self.spec.apply_message = self.orig
+
+
+def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir, labels=None):
+    from byzantine_aircomp_tpu_torch.ops import attacks
+
     runs = {}
     for label, kw, rounds, kernel, per_iteration in RUNS:
+        if labels is not None and label not in labels:
+            continue
         cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=rounds,
                         display_interval=10, cache_dir=cache_dir)
         kernels.reset_launches()
         t0 = time.perf_counter()
-        trainer, record = harness.run_with_trainer(cfg, device="cuda")
+        guard, extra = None, {}
+        if label == "j_resume_gm2":
+            # three runs: straight, one round checkpointed, the resume
+            trainer, record = run_resume(torch, kernels, harness, cfg)
+            iterations = 2 * rounds * cfg.display_interval
+        elif label == SYNC_GUARDED:
+            with _SyncGuard(torch, attacks) as guard:
+                trainer, record = harness.run_with_trainer(cfg, device="cuda")
+            iterations = rounds * cfg.display_interval
+        else:
+            trainer, record = harness.run_with_trainer(cfg, device="cuda")
+            iterations = rounds * cfg.display_interval
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        if launches[kernel] < per_iteration * rounds * cfg.display_interval:
+        if launches[kernel] < per_iteration * iterations:
             _fail(f"run {label} did not launch {kernel} {per_iteration} time(s) in every "
                   f"iteration: {launches}")
+        if guard is not None:
+            print(f"run {label}: {guard.calls} message-attack calls under "
+                  f"torch.cuda.set_sync_debug_mode('error'), no host sync")
+            if guard.calls != iterations:
+                _fail(f"run {label}: {guard.calls} guarded attack calls, not {iterations}")
+            extra["sync_guarded_attack_calls"] = guard.calls
+        if cfg.attack.startswith("gradascent@"):
+            extra["onset"] = check_onset_rows(torch, trainer)
+        if cfg.dataset.startswith("emnist") and trainer.dim != EMNIST_D:
+            _fail(f"run {label}: d = {trainer.dim}, not {EMNIST_D}")
         if not bool(torch.isfinite(trainer.flat_params).all()):
             _fail(f"run {label} ended with non-finite params")
         val_acc = record["valAccPath"][-1]
@@ -916,12 +1116,14 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir):
                 _fail(f"run {label}: {per_step['kernels_per_step']} CUDA kernels per "
                       f"Weiszfeld step, more than {most}")
         runs[label] = dict(
-            profiled_iteration=prof, weiszfeld_per_step=per_step,
+            profiled_iteration=prof, weiszfeld_per_step=per_step, d=trainer.dim, **extra,
             config=dict(dict(attack="classflip"), **kw, rounds=rounds, display_interval=10,
                         batch_size=cfg.batch_size),
             fault_paths={key: record[key] for key in record
                          if key.startswith("fault") or key == "effectiveKPath"},
-            launches=launches, launches_per_round={n: c / rounds for n, c in launches.items()},
+            launches=launches,
+            launches_per_round={n: c * cfg.display_interval / iterations
+                                for n, c in launches.items()},
             val_acc=val_acc, val_acc_path=record["valAccPath"],
             rounds_per_sec=rps, wall_seconds=wall, card=card,
         )

@@ -410,3 +410,61 @@ def test_chaos_round_on_the_card_keeps_params_finite(cuda):
     assert torch.isfinite(tr.flat_params).all()
     dropped, erased, corrupt, eff_k = tr.last_fault_metrics.tolist()
     assert erased > 0 and corrupt > 0 and eff_k < cfg.node_size
+
+
+# the EMNIST MLP's width (784 x 62 + 62): rows split across 6 blocks in the
+# Weiszfeld steps, 1521 words per client in the popcount
+EMNIST_D = 48670
+
+
+@pytest.mark.parametrize("k", [50, 1000])
+def test_kernels_at_emnist_width(cuda, k):
+    d = EMNIST_D
+    w, guess, h_sq, s = _stack(k, d, torch.float32, cuda, bad=float("inf"))
+    for kern, ref, args in (
+        (kernels.weiszfeld_step, kernels.weiszfeld_step_ref, (w, guess)),
+        (kernels.aircomp_weiszfeld_step, kernels.aircomp_weiszfeld_step_ref,
+         (w, guess, h_sq, s, 1.0)),
+    ):
+        num_k, den_k = kern(*args)
+        num_r, den_r = ref(*args)
+        torch.testing.assert_close(num_k, num_r, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(den_k, den_r, rtol=1e-4, atol=1e-6)
+    for air in (False, True):
+        w, guess, (active, steps), draws = _fused_args(k, d, torch.float32, cuda, air)
+        for tol in (0.0, 1e9):
+            got = _fused(air, w, guess, torch.empty_like(guess), active, steps, tol, draws)
+            want = _fused_ref(air, w, guess, active, steps, tol, draws)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+            assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2]) == 1
+    w, terms = _select_inputs(k, d, cuda)
+    for ch in (None, terms):
+        _check_select(w, ch, int(0.1 * k))
+    g = torch.Generator(device=cuda).manual_seed(k)
+    words = torch.randint(-(2**31), 2**31 - 1, (k, -(-d // 32)), dtype=torch.int32,
+                          device=cuda, generator=g)
+    words[1] = 0
+    assert torch.equal(kernels.packed_vote_counts(words, d),
+                       kernels.packed_vote_counts_ref(words, d))
+
+
+def test_message_attacks_need_no_host_sync_on_the_card(cuda):
+    """The static message attacks (minmax's and minsum's 25 bisection steps
+    included) read nothing back to the host, and agree with the CPU."""
+    from byzantine_aircomp_tpu_torch.ops import attacks
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = 0.1 * torch.randn(50, 7850, device=cuda, generator=g)
+    noise = torch.randn(10, 7850, device=cuda, generator=g)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {name: attacks.resolve(name).apply_message(
+                    w, 10, None, noise=noise if name == "gaussian" else None)
+                for name in ("signflip", "gaussian", "alie", "ipm", "minmax", "minsum")}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        want = attacks.resolve(name).apply_message(
+            w.cpu(), 10, None, noise=noise.cpu() if name == "gaussian" else None)
+        torch.testing.assert_close(out.cpu(), want, rtol=0, atol=1e-5)

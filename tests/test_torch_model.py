@@ -109,6 +109,12 @@ def test_per_client_grads_match_jax_grad(attack):
 
 def test_config_fields_mirror_jax_fedconfig():
     jax_fields = {f.name: f.default for f in dataclasses.fields(JaxFedConfig)}
+    # use_gpu is the reference's --use-gpu, which the JAX CLI parses (default
+    # "true") and ignores, and the port keeps as a field
+    from byzantine_aircomp_tpu.cli import build_parser
+
+    assert build_parser().get_default("use_gpu") == "true"
+    jax_fields["use_gpu"] = True
     for f in dataclasses.fields(FedConfig):
         assert f.name in jax_fields, f"{f.name} is not a JAX FedConfig field"
         assert f.default == jax_fields[f.name], f.name
@@ -119,7 +125,7 @@ def test_config_fields_mirror_jax_fedconfig():
     (dict(byz_size=2), "requires an attack"),
     (dict(honest_size=0), "honest_size"),
     (dict(agg="bulyan", attack="classflip", honest_size=6, byz_size=2), "K > 4B"),
-    (dict(attack="signflip", byz_size=1), "unknown attack"),
+    (dict(attack="mimic", byz_size=1), "unknown attack"),
     (dict(display_interval=0), "display_interval"),
     (dict(agg="median", sign_bits=1, sign_eta=0.1), "only signmv"),
     (dict(agg="signmv", sign_bits=1), "sign-eta"),
