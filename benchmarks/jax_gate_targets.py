@@ -1,20 +1,22 @@
-"""JAX seed-means for the port's accuracy gate (the two ideal-channel configs).
+"""JAX accuracies for the port's accuracy gate, one config and seed a run.
 
     JAX_PLATFORMS=cpu python benchmarks/jax_gate_targets.py \
         --gate gm2_classflip_b5 --seed 2021 --out targets_cf5_2021.json
 
 Runs the JAX package's ``FedTrainer`` on one gate config of
 ``byzantine_aircomp_tpu_torch.tools.reproduce.GATES`` (the same FedConfig
-fields, the same mnist_hard 20000/10000 set) at one seed, and writes the
-tail-averaged final val accuracy and the run's wall seconds as JSON.  The
-seed-means of seeds 2021 and 2022 are the targets ``reproduce.GATES``
-holds the port to; the AirComp ``gm`` target comes from
-``docs/aircomp_parity_r04.json`` instead.
+fields, the same synthetic set) at one seed, and writes the tail-averaged
+final val accuracy, the val accuracy path and the run's wall seconds as
+JSON.  The seed-means of seeds 2021 and 2022 are the targets of the two
+ideal-channel MLP configs; the AirComp ``gm`` and the CNN targets come
+from ``docs/aircomp_parity_r04.json`` and ``docs/cnn_parity_r04.json``
+(the CNN takes about 5 minutes a seed on the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import platform
 import time
@@ -33,13 +35,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     gate = next(g for g in reproduce.GATES if g.name == args.gate)
-    ds = jax_data.load(
-        reproduce.GATE_DATA["dataset"],
-        synthetic_train=reproduce.GATE_DATA["synthetic_train"],
-        synthetic_val=reproduce.GATE_DATA["synthetic_val"],
-    )
-    kw = dict(reproduce.GATE_COMMON, dataset=reproduce.GATE_DATA["dataset"],
-              seed=args.seed, **gate.fields)
+    data = dict(gate.data)
+    ds = jax_data.load(data.pop("dataset"), **data)
+    cfg = reproduce.gate_config(gate, args.seed)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+          if f.name in FedConfig.__dataclass_fields__}
     t0 = time.perf_counter()
     paths = FedTrainer(FedConfig(**kw), dataset=ds).train()
     secs = time.perf_counter() - t0

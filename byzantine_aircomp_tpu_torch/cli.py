@@ -11,6 +11,11 @@ takes ``gm2``, ``mean``, ``median``, ``trimmed_mean``, ``krum``,
 ``deep_fade``, ``csi``, ``corrupt``, ``chaos``) injects non-adversarial
 failures, and the rule runs in its degraded mode.
 
+``--model CNN`` trains the reference's CNN and ``--model ResNet18
+--dataset cifar10 [--resnet-width W] [--remat]`` ResNet-18;
+``--partition dirichlet --dirichlet-alpha A`` splits the data label-skewed
+and ``--size-skew zipf:S`` skews the shard sizes.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -66,6 +71,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every round here (and --inherit from here)")
     p.add_argument("--dataset", type=str, default="mnist")
     p.add_argument("--model", type=str, default="MLP")
+    p.add_argument("--resnet-width", type=int, default=64,
+                   help="ResNet-18 stem width (64 = standard; a multiple of 8)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute residual-block activations in the backward "
+                        "pass (less activation memory for more FLOPs)")
+    p.add_argument("--partition", choices=["contiguous", "dirichlet"],
+                   default="contiguous",
+                   help="client data split (dirichlet = label-skewed non-IID, "
+                        "Hsu et al. 2019)")
+    p.add_argument("--dirichlet-alpha", type=float, default=0.3,
+                   help="Dirichlet concentration for --partition dirichlet "
+                        "(smaller = more label skew)")
+    p.add_argument("--size-skew", type=str, default="none",
+                   help="per-client quantity skew: 'zipf:<s>' re-cuts the "
+                        "(possibly Dirichlet-permuted) sample stream into "
+                        "Zipf(s)-proportioned shards (zipf:0 = the equal cut)")
     p.add_argument("--krum-m", type=int, default=None,
                    help="multi-Krum selection count (default: honest size)")
     p.add_argument("--clip-tau", type=float, default=None,
@@ -145,6 +166,11 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
         seed=args.seed,
         dataset=args.dataset,
         model=args.model,
+        resnet_width=args.resnet_width,
+        remat=args.remat,
+        partition=args.partition,
+        dirichlet_alpha=args.dirichlet_alpha,
+        size_skew=args.size_skew,
         sign_eta=args.sign_eta,
         sign_bits=args.sign_bits,
         krum_m=args.krum_m,

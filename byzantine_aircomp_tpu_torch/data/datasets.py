@@ -1,17 +1,22 @@
-"""Data layer: MNIST ingestion, client sharding, batch sampling.
+"""Data layer: dataset ingestion, client sharding, batch sampling.
 
-Port of the main-path parts of ``byzantine_aircomp_tpu/data/datasets.py``:
+Port of ``byzantine_aircomp_tpu/data/datasets.py``:
 
-* the ``Dataset`` container and the numpy IDX reader (no torchvision);
-* ``mnist``, ``mnist_hard``, ``emnist`` (byclass, 62 classes) and
-  ``emnist_hard``: IDX files where the plain sets find them on disk, else
-  the synthetic sets; the ``_hard`` sets are always synthetic, with 9%
-  label noise, which pins the Bayes ceiling at ``1 - 0.09*(C-1)/C``;
+* the ``Dataset`` container, the numpy IDX reader and the numpy CIFAR-10
+  readers (binary batches, then Python pickles; no torchvision, and no
+  native parser: the JAX package's own numpy fallback);
+* ``mnist``, ``mnist_hard``, ``emnist`` (byclass, 62 classes),
+  ``emnist_hard``, ``cifar10`` and ``cifar10_hard``: files where the plain
+  sets find them under ``DATA_ROOTS`` (IDX; ``cifar-10-batches-bin`` or
+  ``cifar-10-batches-py``), else the synthetic sets; the ``_hard`` sets are
+  always synthetic, with 9% label noise, which pins the Bayes ceiling at
+  ``1 - 0.09*(C-1)/C``;
 * the seeded synthetic fallback, drawn from the same
   ``np.random.default_rng(2021)`` stream, so its arrays are byte-identical
   to the JAX package's;
 * the reference's contiguous client shards ``pieces[i] = floor(i*N/K)``
-  (``MNIST_Air_weight.py:238-239``);
+  (``MNIST_Air_weight.py:238-239``), the label-Dirichlet split and the
+  Zipf quantity skew, from the same numpy streams as the JAX package's;
 * per-client with-replacement batch indices (the reference's
   ``RandomSampler(replacement=True)``, ``:260-269``), computed on the
   device from uniforms drawn with an explicit ``torch.Generator``.
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import pickle
 import struct
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -33,6 +39,10 @@ from ..registry import DATASETS
 # normalization stats used by the reference transforms
 MNIST_STATS = (0.1307, 0.3081)  # MNIST_Air_weight.py:555
 EMNIST_STATS = (0.1736, 0.3317)  # EMNIST_Air_weight.py:563-569
+CIFAR10_STATS = (
+    (0.4914, 0.4822, 0.4465),
+    (0.2470, 0.2435, 0.2616),
+)
 
 DATA_ROOTS = ("./dataset", "./data", os.path.expanduser("~/datasets"))
 
@@ -82,6 +92,14 @@ def _find(*relpaths: str) -> Optional[str]:
             for cand in (os.path.join(root, rel), os.path.join(root, rel + ".gz")):
                 if os.path.exists(cand):
                     return cand
+    return None
+
+
+def _find_dir(name: str) -> Optional[str]:
+    for root in DATA_ROOTS:
+        cand = os.path.join(root, name)
+        if os.path.isdir(cand):
+            return cand
     return None
 
 
@@ -227,6 +245,99 @@ def emnist_hard(synthetic_train: int = 100000, synthetic_val: int = 16000, **_) 
     )
 
 
+def _read_cifar_bin(path: str):
+    """CIFAR-10 binary batch -> (images [N, 3, 32, 32] u8, labels [N] u8),
+    or None for a missing or malformed file (record: 1 label byte + 3072
+    CHW pixel bytes per row)."""
+    try:
+        raw = np.fromfile(path, np.uint8)
+    except OSError:
+        return None
+    if raw.size == 0 or raw.size % 3073:
+        return None
+    rows = raw.reshape(-1, 3073)
+    return (
+        np.ascontiguousarray(rows[:, 1:]).reshape(-1, 3, 32, 32),
+        np.ascontiguousarray(rows[:, 0]),
+    )
+
+
+def _cifar10_from_bin() -> Optional[Dataset]:
+    """CIFAR-10 from the binary-batch distribution."""
+    root = _find_dir("cifar-10-batches-bin")
+    if root is None:
+        return None
+    train = [
+        _read_cifar_bin(os.path.join(root, f"data_batch_{i}.bin"))
+        for i in range(1, 6)
+    ]
+    test = _read_cifar_bin(os.path.join(root, "test_batch.bin"))
+    if test is None or any(p is None for p in train):
+        return None
+    x_tr = np.concatenate([p[0] for p in train]).transpose(0, 2, 3, 1)
+    y_tr = np.concatenate([p[1] for p in train])
+    x_va = test[0].transpose(0, 2, 3, 1)
+    mean, std = CIFAR10_STATS
+    return Dataset(
+        "cifar10",
+        _normalize(x_tr, mean, std),
+        y_tr.astype(np.int32),
+        _normalize(x_va, mean, std),
+        test[1].astype(np.int32),
+        10,
+        "disk",
+        x_train_raw=np.ascontiguousarray(x_tr),
+        stats=CIFAR10_STATS,
+    )
+
+
+@DATASETS.register("cifar10")
+def cifar10(synthetic_train: int = 50000, synthetic_val: int = 10000, **_) -> Dataset:
+    """CIFAR-10 (32x32x3, NHWC) from ``cifar-10-batches-bin``, else from
+    ``cifar-10-batches-py``, under ``DATA_ROOTS``; else the synthetic
+    50,000 / 10,000 set."""
+    from_bin = _cifar10_from_bin()
+    if from_bin is not None:
+        return from_bin
+    root = _find_dir("cifar-10-batches-py")
+    if root is not None:
+        xs, ys = [], []
+        for i in range(1, 6):
+            with open(os.path.join(root, f"data_batch_{i}"), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.append(d[b"labels"])
+        with open(os.path.join(root, "test_batch"), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x_tr = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        x_va = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        mean, std = CIFAR10_STATS
+        return Dataset(
+            "cifar10",
+            _normalize(x_tr, mean, std),
+            np.concatenate(ys).astype(np.int32),
+            _normalize(x_va, mean, std),
+            np.asarray(d[b"labels"], np.int32),
+            10,
+            "disk",
+            x_train_raw=np.ascontiguousarray(x_tr),
+            stats=CIFAR10_STATS,
+        )
+    return _synthetic(
+        "cifar10", synthetic_train, synthetic_val, 10, (32, 32, 3), CIFAR10_STATS
+    )
+
+
+@DATASETS.register("cifar10_hard")
+def cifar10_hard(synthetic_train: int = 50000, synthetic_val: int = 10000, **_) -> Dataset:
+    """Always-synthetic CIFAR-shaped set with mnist_hard's 0.919 ceiling
+    (9% uniform label resampling over the 10 classes)."""
+    return _synthetic(
+        "cifar10_hard", synthetic_train, synthetic_val, 10, (32, 32, 3),
+        CIFAR10_STATS, label_noise=0.09,
+    )
+
+
 def load(name: str, **kw) -> Dataset:
     return DATASETS.get(name)(**kw)
 
@@ -249,6 +360,85 @@ def contiguous_shards(n: int, k: int) -> ClientSharding:
         offsets=pieces[:-1].astype(np.int32),
         sizes=np.diff(pieces).astype(np.int32),
     )
+
+
+def dirichlet_shards(
+    labels: np.ndarray, k: int, alpha: float, seed: int = 0
+) -> Tuple[np.ndarray, ClientSharding]:
+    """Label-skewed non-IID partition (Hsu et al. 2019, arXiv:1909.06335):
+    each class's samples are split among the K clients with proportions
+    drawn from Dirichlet(alpha).  Returns ``(perm, sharding)``: client i
+    owns the permuted index range ``[offsets[i], offsets[i] + sizes[i])``,
+    so the caller permutes the train arrays once and samples contiguous
+    shards as before.  A client left empty by the draw takes one sample
+    from the largest shard (the sampler needs nonempty shards)."""
+    labels = np.asarray(labels)
+    if len(labels) < k:
+        raise ValueError(
+            f"dirichlet_shards needs >= 1 sample per client "
+            f"(n={len(labels)} < k={k})"
+        )
+    rng = np.random.default_rng(seed)
+    per_client = [[] for _ in range(k)]
+    for c in np.unique(labels):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        p = rng.dirichlet(np.full(k, float(alpha)))
+        counts = np.floor(p * len(idx)).astype(np.int64)
+        frac = p * len(idx) - counts
+        short = len(idx) - int(counts.sum())
+        counts[np.argsort(-frac)[:short]] += 1
+        for i, part in enumerate(np.split(idx, np.cumsum(counts)[:-1])):
+            per_client[i].append(part)
+    shards = [np.concatenate(parts) for parts in per_client]
+    for i, s in enumerate(shards):
+        if len(s) == 0:
+            donor = int(np.argmax([len(t) for t in shards]))
+            shards[i], shards[donor] = shards[donor][:1], shards[donor][1:]
+    sizes = np.array([len(s) for s in shards], dtype=np.int32)
+    offsets = np.concatenate([[0], np.cumsum(sizes[:-1], dtype=np.int64)])
+    return np.concatenate(shards), ClientSharding(
+        offsets=offsets.astype(np.int32), sizes=sizes
+    )
+
+
+def zipf_shards(n: int, k: int, s: float) -> ClientSharding:
+    """Quantity-skewed contiguous cut: client i (1-based) owns a share
+    proportional to ``i^-s``, boundaries ``floor(n * W_i / W_k)`` with
+    ``W_i = sum_{j<=i} j^-s``; ``s = 0`` is :func:`contiguous_shards`
+    exactly.  Every client keeps >= 1 sample (needs ``n >= k``)."""
+    if n < k:
+        raise ValueError(
+            f"zipf_shards needs >= 1 sample per client (n={n} < k={k})"
+        )
+    if s < 0:
+        raise ValueError(f"zipf exponent must be >= 0, got {s}")
+    w = np.arange(1, k + 1, dtype=np.float64) ** (-float(s))
+    cum = np.concatenate([[0.0], np.cumsum(w)])
+    pieces = np.floor(n * cum / cum[-1]).astype(np.int64)
+    pieces[-1] = n  # a float round-down at the tail
+    for i in range(1, k + 1):  # >= 1 sample per client
+        if pieces[i] <= pieces[i - 1]:
+            pieces[i] = pieces[i - 1] + 1
+    for i in range(k, 0, -1):  # the bumped tail stays inside n
+        if pieces[i] > n - (k - i):
+            pieces[i] = n - (k - i)
+    return ClientSharding(
+        offsets=pieces[:-1].astype(np.int32),
+        sizes=np.diff(pieces).astype(np.int32),
+    )
+
+
+def parse_size_skew(spec: str) -> Optional[float]:
+    """``"none"`` -> None, ``"zipf:<s>"`` -> s (s >= 0)."""
+    if spec == "none":
+        return None
+    if not spec.startswith("zipf:"):
+        raise ValueError(f"size_skew must be 'none' or 'zipf:<s>', got {spec!r}")
+    s = float(spec.split(":", 1)[1])
+    if s < 0:
+        raise ValueError(f"zipf exponent must be >= 0, got {s}")
+    return s
 
 
 def sample_client_batch_indices(

@@ -16,7 +16,10 @@ def resolve_device(device: str = "cuda") -> torch.device:
 
     Also switches TF32 off for float32 matmuls and convolutions: the JAX
     reference computes in full float32, and TF32 keeps only about three
-    decimal digits (cuDNN convolutions default to it).
+    decimal digits (cuDNN convolutions default to it).  And it holds cuDNN
+    to deterministic algorithms, picked without benchmarking: a conv's
+    backward then gives the same bits on a rerun, which a bitwise resume
+    of the CNN and ResNet-18 runs needs.
     """
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
@@ -28,4 +31,6 @@ def resolve_device(device: str = "cuda") -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev

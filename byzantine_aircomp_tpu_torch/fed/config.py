@@ -1,7 +1,8 @@
 """Run configuration of the port.
 
 A subset of ``byzantine_aircomp_tpu/fed/config.py`` (the main path, every
-aggregation rule's knobs and the fault channel's): the same field names
+aggregation rule's knobs, the fault channel's, the models' widths and the
+client partition): the same field names
 and defaults, which mirror the reference's ``optConfig`` / CLI
 surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
 rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
@@ -84,6 +85,21 @@ class FedConfig:
     # model / data
     model: str = "MLP"
     dataset: str = "mnist"
+    # the CNN's hidden width (1024 = the reference's MNIST CNN; 2048 its
+    # EMNIST one)
+    fc_width: int = 1024
+    # ResNet-18's stem width (64 = the standard net; stage i is width*2^i)
+    # and per-block activation recomputation in the backward pass
+    resnet_width: int = 64
+    remat: bool = False
+    # client data partition: "contiguous" (the reference's equal slices,
+    # :238-239) or "dirichlet" (label-skewed non-IID, Hsu et al. 2019,
+    # derived from (seed, dirichlet_alpha); smaller alpha = more skew)
+    partition: str = "contiguous"
+    dirichlet_alpha: float = 0.3
+    # quantity skew on top of the partition: "none" (equal cut) or
+    # "zipf:<s>" (client i owns ~ i^-s of the samples; zipf:0 = equal cut)
+    size_skew: str = "none"
 
     # eval
     eval_batch: int = 2000
@@ -168,6 +184,27 @@ class FedConfig:
             raise ValueError(
                 "inherit resumes from checkpoint_dir; set --checkpoint-dir too"
             )
+        if self.partition not in ("contiguous", "dirichlet"):
+            raise ValueError(
+                f"partition must be 'contiguous' or 'dirichlet', got {self.partition!r}"
+            )
+        if not self.dirichlet_alpha > 0:
+            raise ValueError(
+                f"dirichlet_alpha must be positive, got {self.dirichlet_alpha}"
+            )
+        if self.size_skew != "none":
+            if not self.size_skew.startswith("zipf:"):
+                raise ValueError(
+                    f"size_skew must be 'none' or 'zipf:<s>', got {self.size_skew!r}"
+                )
+            try:
+                skew = float(self.size_skew.split(":", 1)[1])
+            except ValueError:
+                raise ValueError(
+                    f"size_skew exponent must be a float, got {self.size_skew!r}"
+                ) from None
+            if skew < 0:
+                raise ValueError(f"size_skew exponent must be >= 0, got {skew}")
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
         k = self.node_size

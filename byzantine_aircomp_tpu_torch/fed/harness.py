@@ -72,6 +72,10 @@ def run_title(cfg: FedConfig) -> str:
                       ("dnc_c", "dc")):
         if _non_default(cfg, knob):
             title += f"_{tag}{getattr(cfg, knob)}"
+    if cfg.partition == "dirichlet":
+        title += f"_dir{cfg.dirichlet_alpha}"
+    if cfg.size_skew != "none":
+        title += f"_skew{cfg.size_skew.replace(':', '')}"
     if cfg.fault is not None:
         title += f"_fault{cfg.fault}"
         for knob, val in sorted(cfg.fault_overrides().items()):
@@ -94,10 +98,12 @@ def config_hash(cfg: FedConfig) -> str:
     skip list, the JAX harness's scheme (``fed/harness.py:205-300``).
     ``run_title`` leaves out the seed, the sizes, the data set and more, so
     two cells that share a title could otherwise resume each other's state.
-    As in the JAX package, ``sign_bits`` is skipped at its default 32.  The
+    As in the JAX package, ``sign_bits`` is skipped at its default 32 and
+    ``size_skew`` at its default "none".  The
     digest is NOT the JAX package's for the same run: the two FedConfigs
     hold different field sets, so their pairs differ."""
-    skip = _HASH_SKIP + (("sign_bits",) if cfg.sign_bits == 32 else ())
+    skip = (_HASH_SKIP + (("sign_bits",) if cfg.sign_bits == 32 else ())
+            + (("size_skew",) if cfg.size_skew == "none" else ()))
     items = sorted(
         (f.name, repr(getattr(cfg, f.name)))
         for f in dataclasses.fields(cfg)

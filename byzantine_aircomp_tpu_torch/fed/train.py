@@ -109,11 +109,16 @@ class Trainer:
         self.num_classes = self.dataset.num_classes
 
         # init params (reference modelFactory + setup_seed(2021), :98-104)
+        # (the factories take the knobs they use: fc_width the CNN's,
+        # width and remat ResNet-18's, as in JAX fed/train.py:111-118)
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model = MODELS.get(cfg.model)(
             input_shape=self.dataset.input_shape,
             num_classes=self.num_classes,
             generator=init_gen,
+            fc_width=cfg.fc_width,
+            width=cfg.resnet_width,
+            remat=cfg.remat,
         ).to(self.device)
         self.spec = flatten_lib.make_flat_spec(self.model)
         self.dim = self.spec.total
@@ -123,11 +128,33 @@ class Trainer:
 
         # device-resident u8 train rows [N, features]; ((u8/255) - mean)/std
         # folded into one multiply-add after the gather, with the same f32
-        # constants as the JAX package
+        # constants as the JAX package.  Spatial models (CNN, ResNet-18)
+        # get each batch back in the image shape after the gather, as the
+        # JAX trainer does (fed/train.py:730); the MLP takes the rows.
         ds = self.dataset
-        sharding = data_lib.contiguous_shards(len(ds.y_train), cfg.node_size)
+        self._sample_shape = (
+            tuple(ds.input_shape) if getattr(type(self.model), "SPATIAL_INPUT", True)
+            else (-1,)
+        )
+        # the client partition (JAX fed/train.py:138-178): the reference's
+        # contiguous equal slices, or the label-Dirichlet split, whose
+        # shards are made contiguous by permuting the train rows and labels
+        # once on the host; then the Zipf re-cut of that index stream
+        y_host = np.asarray(ds.y_train)
+        perm = None
+        if cfg.partition == "dirichlet":
+            perm, sharding = data_lib.dirichlet_shards(
+                y_host, cfg.node_size, cfg.dirichlet_alpha, seed=cfg.seed
+            )
+            y_host = y_host[perm]
+        else:
+            sharding = data_lib.contiguous_shards(len(y_host), cfg.node_size)
+        skew = data_lib.parse_size_skew(cfg.size_skew)
+        if skew is not None:
+            sharding = data_lib.zipf_shards(len(y_host), cfg.node_size, skew)
         if ds.x_train_raw is not None:
-            raw = ds.x_train_raw.reshape(len(ds.x_train_raw), -1)
+            raw = ds.x_train_raw if perm is None else ds.x_train_raw[perm]
+            raw = raw.reshape(len(raw), -1)
             self.x_train = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
             mean, std = ds.stats
             m = np.broadcast_to(np.asarray(mean, np.float32), ds.input_shape).reshape(-1)
@@ -135,10 +162,13 @@ class Trainer:
             self._norm_scale = torch.from_numpy(1.0 / (255.0 * s)).to(self.device)
             self._norm_bias = torch.from_numpy(-m / s).to(self.device)
         else:
-            x = np.asarray(ds.x_train, np.float32).reshape(len(ds.x_train), -1)
+            x = np.asarray(ds.x_train, np.float32)
+            if perm is not None:
+                x = x[perm]
+            x = x.reshape(len(x), -1)
             self.x_train = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
             self._norm_scale = self._norm_bias = None
-        self.y_train = torch.from_numpy(np.asarray(ds.y_train, np.int64)).to(self.device)
+        self.y_train = torch.from_numpy(y_host.astype(np.int64)).to(self.device)
         self.offsets = torch.from_numpy(sharding.offsets).to(self.device)
         self.sizes = torch.from_numpy(sharding.sizes).to(self.device)
 
@@ -187,7 +217,7 @@ class Trainer:
         attack = self.attack
         if attack is not None and attack.data_fn is not None:
             x_att, y_att = attack.apply_data(x, y, self.num_classes)
-            x = torch.where(is_byz[:, None, None], x_att, x)
+            x = torch.where(is_byz.reshape((-1,) + (1,) * (x.dim() - 1)), x_att, x)
             y = torch.where(is_byz[:, None], y_att, y)
         g = self._per_client_grad(flat_params, x, y)
         if attack is not None and attack.grad_scale != 1.0:
@@ -254,6 +284,7 @@ class Trainer:
         x = self.x_train[idx]  # [K, B, features] on-device gather
         if self._norm_scale is not None:
             x = x.to(torch.float32) * self._norm_scale + self._norm_bias
+        x = x.reshape(x.shape[:2] + self._sample_shape)
         y = self.y_train[idx]
         # one device bool gates every Byzantine behavior until the onset
         is_byz, attack_on = self.byz_mask, None
@@ -369,8 +400,9 @@ class Trainer:
         if split not in self._eval_cache:
             ds = self.dataset
             x, y = (ds.x_val, ds.y_val) if split == "val" else (ds.x_train, ds.y_train)
+            x = np.ascontiguousarray(x, np.float32).reshape((len(x),) + self._sample_shape)
             self._eval_cache[split] = (
-                torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device),
+                torch.from_numpy(x).to(self.device),
                 torch.from_numpy(np.asarray(y, np.int64)).to(self.device),
             )
         return self._eval_cache[split]

@@ -1,8 +1,9 @@
 """Carry weights between the JAX package and the port.
 
 The JAX package's parameters arrive as numpy: either the flax tree
-``{'params': {'Dense_0': {'bias': [out], 'kernel': [in, out]}}}`` or its
-flat [d] vector.  :func:`from_jax` returns the port's module state dict and
+(``{'params': {'Dense_0': {'bias': [out], 'kernel': [in, out]}}}``, nested
+as deep as the model: ``{'BasicBlock_0': {'Conv_0': {'kernel': ...}}}``)
+or its flat [d] vector.  :func:`from_jax` returns the port's module state dict and
 flat vector; :func:`to_jax` is its inverse (the tests use it to round-trip).
 The layout mapping itself lives in :mod:`.ops.flatten`.
 
@@ -28,11 +29,13 @@ def from_jax(
     ``(state_dict, flat [d] float32)`` on the CPU."""
     if isinstance(params, dict):
         tree = params.get("params", params)
-        flat = np.concatenate([
-            np.asarray(tree[leaf.jax_path[0]][leaf.jax_path[1]], np.float32)
-            .reshape(-1)
-            for leaf in spec.leaves
-        ])
+        parts = []
+        for leaf in spec.leaves:
+            node = tree
+            for key in leaf.jax_path:
+                node = node[key]
+            parts.append(np.asarray(node, np.float32).reshape(-1))
+        flat = np.concatenate(parts)
     else:
         flat = np.asarray(params, np.float32).reshape(-1)
     if flat.size != spec.total:
@@ -57,8 +60,10 @@ def to_jax(
     flat = flat_t.detach().cpu().to(torch.float32).numpy().copy()
     tree: dict = {}
     for leaf in spec.leaves:
-        layer, name = leaf.jax_path
-        tree.setdefault(layer, {})[name] = (
+        node = tree
+        for key in leaf.jax_path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf.jax_path[-1]] = (
             flat[leaf.offset : leaf.offset + leaf.size].reshape(leaf.jax_shape)
         )
     return {"params": tree}, flat

@@ -19,6 +19,8 @@ from .initializers import bias_001_, xavier_normal_relu_
 
 
 class MLP(nn.Module):
+    SPATIAL_INPUT = False  # takes the trainer's flat rows
+
     def __init__(
         self,
         input_shape: Tuple[int, ...] = (28, 28),

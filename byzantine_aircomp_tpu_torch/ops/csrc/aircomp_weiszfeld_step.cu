@@ -20,7 +20,8 @@
 // sqrt(mean(g_out^2)).  The draws themselves stay in torch.
 //
 // Bound: K*d*bytes(dtype) read once, plus g, z, g_out (3*d*4 bytes) and the
-// fades (2*K*4), at the H100's 3.35 TB/s: 0.5 us at K=50, d=7850, f32.
+// fades (2*K*4), at the H100's 3.35 TB/s: 0.5 us at K=50, d=7850, f32;
+// past SMs x 8192 columns the stack is read twice (the wide plan).
 // Design and determinism as in weiszfeld_common.cuh.
 #include "weiszfeld_common.cuh"
 

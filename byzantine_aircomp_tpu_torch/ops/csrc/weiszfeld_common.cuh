@@ -69,6 +69,31 @@
 // graph) do: two steps running at the same time on two streams would mix
 // their partials and their ticket, with no error.
 //
+// The wide plan.  The layout above needs every column tile of a row on a
+// block of its own, so it holds while C = ceil(d / 8192) <= SMs (d up to
+// 1,081,344 on an H100 SXM's 132 SMs).  Past that (the MNIST CNN's
+// d = 3,274,634, ResNet-18's 11,173,962) wide_kernel takes the step, still
+// one cooperative launch of one 512-thread block per SM, in three passes:
+//   1. each block walks the column tiles b, b + G, ... (C is rounded up to
+//      a multiple of the grid, so every block gets the same number of
+//      tiles), reads each tile's rows in groups of kRows and writes each
+//      (row, tile) partial ||w_i - g||^2, ||w_i||^2 and finite flag to the
+//      workspace;
+//   2. after a grid barrier one warp per row sums the row's C partials
+//      (lane l takes tiles l, l + 32, ..., then the xor butterfly) and
+//      writes its weight;
+//   3. after a second barrier every block sums the K weights into den (the
+//      same order in every block), reads its tiles' rows a second time and
+//      takes num = sum_i coeff_i w_i per column in row order, skipping rows
+//      of weight 0, then writes num or the updated guess.
+// Nothing of the stack stays on chip between the distances and the
+// weighted sum: a [K, d] stack of hundreds of MB is far past L2 (50 MB) and
+// shared memory (132 x 227 KB), and no column's num can start before every
+// row's weight is known, so two reads of the stack are the least traffic
+// there.  The workspace is K x C partials (12 bytes each) and K weights,
+// not S x d slice sums; the sums run in fixed orders with no float atomics,
+// as in the one-pass plan.
+//
 // Bound on an H100: a step must read the stack once (K*d*bytes(dtype)),
 // plus g_in, z and the fades, and write g_out (or num): bound by bytes at
 // 3.35 TB/s (0.47 us at K=50, 9.4 us at K=1000, d=7850, f32).  The stack is
@@ -136,6 +161,7 @@ struct Params {
   float2* part;         // [K * C] partial ||w - g||^2, ||w||^2 (C > 1)
   int* part_fin;        // [K * C] (C > 1)
   float* numpart;       // [S * d]
+  float* coeff;         // [K] row weights (wide plan)
 };
 
 // Columns j and j + 1 of a row (0 past its width n): one 8-byte (f32) or
@@ -248,6 +274,66 @@ __device__ __forceinline__ void load_channel(const Params& p, long long row, flo
   }
 }
 
+// The fused mode's new guess of one column from its num, den, the scaler
+// and (gm with a noisy receiver) its normal zj and the den's normal zd,
+// each op rounded as torch rounds it.
+template <bool kAir>
+__device__ __forceinline__ float next_guess(const Params& p, float num, float den,
+                                            float s, float zj, float zd) {
+  if (!kAir) return __fdiv_rn(num, den);
+  if (p.z != nullptr) {
+    num = __fadd_rn(num, __fmul_rn(p.noise_scale, zj));
+    den = __fadd_rn(den, __fmul_rn(p.noise_scale, zd));
+  }
+  return __fmul_rn(__fdiv_rn(num, den), s);
+}
+
+// The fused mode's end of a step: the block's partial movement^2 and
+// g_out^2 go to the workspace, and the last block to take the integer
+// ticket adds them in block order and writes active, steps and the scaler.
+template <bool kAir>
+__device__ __forceinline__ void finish_fused(const Params& p, float mv, float sq) {
+  __shared__ float2 s_part[kWarps];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long b = blockIdx.x;
+  const long long G = gridDim.x;
+  mv = warp_sum(mv);
+  sq = warp_sum(sq);
+  if (lane == 0) s_part[warp] = make_float2(mv, sq);
+  __syncthreads();
+  if (tid == 0) {
+    float m = 0.0f, q = 0.0f;
+    for (int i = 0; i < kWarps; ++i) {
+      m += s_part[i].x;
+      q += s_part[i].y;
+    }
+    p.red[b] = make_float2(m, q);
+    __threadfence();
+    s_last = atomicAdd(p.ticket, 1) == static_cast<int>(G - 1);
+  }
+  __syncthreads();
+  if (!s_last || warp != 0) return;
+  __threadfence();
+  float m = 0.0f, q = 0.0f;
+  for (long long i = lane; i < G; i += 32) {
+    const float2 v = __ldcg(p.red + i);
+    m += v.x;
+    q += v.y;
+  }
+  m = warp_sum(m);
+  q = warp_sum(q);
+  if (lane == 0) {
+    const float movement = sqrtf(m);
+    *p.steps += 1;
+    *p.active = movement > p.tol ? 1 : 0;  // a NaN movement stops, as in torch
+    if (kAir) *p.scaler = sqrtf(q / static_cast<float>(p.d));
+    *p.ticket = 0;
+  }
+}
+
 template <typename T, bool kAir, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1) step_kernel(const Params p) {
   __shared__ float s_red[kWarps][kRows][2];
@@ -255,7 +341,6 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(const Params p) {
   __shared__ float s_coeff[kRows];
   __shared__ float s_lanes[kThreads];
   __shared__ float s_den;
-  __shared__ int s_last;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -464,18 +549,8 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(const Params p) {
         p.num[jj] = num;
       } else {
         const float gi = base == j0 ? g_pre : p.g_in[jj];
-        float gn;
-        if (kAir) {
-          float nn = num, nd = den;
-          if (p.z != nullptr) {
-            const float zj = base == j0 ? z_pre : p.z[jj];
-            nn = __fadd_rn(num, __fmul_rn(p.noise_scale, zj));
-            nd = __fadd_rn(den, __fmul_rn(p.noise_scale, zd));
-          }
-          gn = __fmul_rn(__fdiv_rn(nn, nd), s);
-        } else {
-          gn = __fdiv_rn(num, den);
-        }
+        const float zj = kAir && p.z != nullptr ? (base == j0 ? z_pre : p.z[jj]) : 0.0f;
+        const float gn = next_guess<kAir>(p, num, den, s, zj, zd);
         const float diff = gi - gn;
         mv = fmaf(diff, diff, mv);
         sq = fmaf(gn, gn, sq);
@@ -484,55 +559,165 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(const Params p) {
     }
     __syncthreads();  // s_lanes is reused
   }
-  if (!kFused) return;
+  if (kFused) finish_fused<kAir>(p, mv, sq);
+}
 
-  // -- the block's partials, then the last block's scalars -----------------
-  mv = warp_sum(mv);
-  sq = warp_sum(sq);
-  if (lane == 0) {
-    s_red[warp][0][0] = mv;
-    s_red[warp][0][1] = sq;
+// The wide plan (C > SMs; see the note at the top): per-(row, tile)
+// partials, row weights, then num by a second read of the stack.
+template <typename T, bool kAir, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1) wide_kernel(const Params p) {
+  __shared__ float s_red[kWarps][kRows][2];
+  __shared__ int s_fin[kWarps][kRows];
+  __shared__ float s_den;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long b = blockIdx.x;
+  const long long G = gridDim.x;
+  const long long k = p.k;
+  const long long d = p.d;
+  const long long C = p.C;
+  const float s = kAir ? *p.scaler : 0.0f;
+  if (kFused && *reinterpret_cast<volatile int*>(p.active) == 0) {
+    for (long long j = b * d / G + tid; j < (b + 1) * d / G; j += kThreads) p.g_out[j] = p.g_in[j];
+    return;  // every block reads the same flag, so none waits at a barrier
   }
-  __syncthreads();
-  if (tid == 0) {
-    float m = 0.0f, q = 0.0f;
-    for (int i = 0; i < kWarps; ++i) {
-      m += s_red[i][0][0];
-      q += s_red[i][0][1];
+  cg::grid_group grid = cg::this_grid();
+  const T* w = static_cast<const T*>(p.w);
+
+  // -- pass 1: the (row, tile) partials ------------------------------------
+  for (long long ct = b; ct < C; ct += G) {
+    const long long c0 = ct * d / C;
+    const int W = static_cast<int>((ct + 1) * d / C - c0);  // <= kTileMax
+    float g[kCols];
+    load_cols(p.g_in + c0, W, g);
+    for (long long rg = 0; rg < k; rg += kRows) {
+      const int nr = static_cast<int>(min(static_cast<long long>(kRows), k - rg));
+      float x[kRows][kCols];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nr) load_cols(w + (rg + r) * d + c0, W, x[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r >= nr) continue;  // nr is the same in every thread
+        float dsq = 0.0f, nsq = 0.0f;
+        int fin = 1;
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) {
+          const float diff = x[r][e] - g[e];
+          dsq = fmaf(diff, diff, dsq);
+          if (kAir) nsq = fmaf(x[r][e], x[r][e], nsq);
+          fin &= isfinite(x[r][e]) ? 1 : 0;
+        }
+        const float a = warp_sum(dsq);
+        const float q = kAir ? warp_sum(nsq) : 0.0f;
+        const int f = __all_sync(kFull, fin);
+        if (lane == 0) {
+          s_red[warp][r][0] = a;
+          s_red[warp][r][1] = q;
+          s_fin[warp][r] = f;
+        }
+      }
+      __syncthreads();
+      if (tid < nr) {
+        float a = 0.0f, q = 0.0f;
+        int f = 1;
+        for (int i = 0; i < kWarps; ++i) {
+          a += s_red[i][tid][0];
+          q += s_red[i][tid][1];
+          f &= s_fin[i][tid];
+        }
+        p.part[(rg + tid) * C + ct] = make_float2(a, q);
+        p.part_fin[(rg + tid) * C + ct] = f;
+      }
+      __syncthreads();  // s_red is reused by the next group
     }
-    p.red[b] = make_float2(m, q);
-    __threadfence();
-    s_last = atomicAdd(p.ticket, 1) == static_cast<int>(G - 1);
+  }
+  grid.sync();
+
+  // -- pass 2: one warp per row sums its C partials, then its weight -------
+  for (long long row = b * kWarps + warp; row < k; row += G * kWarps) {
+    const float* pr = reinterpret_cast<const float*>(p.part + row * C);
+    const float a = warp_sum(strided_sum(pr, 2, lane, 32, static_cast<int>(C)));
+    const float q = kAir ? warp_sum(strided_sum(pr + 1, 2, lane, 32, static_cast<int>(C))) : 0.0f;
+    int f = 1;
+    for (long long c = lane; c < C; c += 32) f &= __ldcg(p.part_fin + row * C + c);
+    f = __all_sync(kFull, f);
+    if (lane == 0) {
+      float ha, hb;
+      load_channel<kAir>(p, row, ha, hb);
+      p.coeff[row] = row_coeff<kAir>(p, ha, hb, a, q, f, s);
+    }
+  }
+  grid.sync();
+
+  // -- pass 3: den, then num by a second read and the guess update ---------
+  if (warp == 0) {
+    const float v = warp_sum(strided_sum(p.coeff, 1, lane, 32, static_cast<int>(k)));
+    if (lane == 0) s_den = kAir ? v * s : v;
   }
   __syncthreads();
-  if (!s_last || warp != 0) return;
-  __threadfence();
-  float m = 0.0f, q = 0.0f;
-  for (long long i = lane; i < G; i += 32) {
-    const float2 v = __ldcg(p.red + i);
-    m += v.x;
-    q += v.y;
+  const float den = s_den;
+  if (!kFused && b == 0 && tid == 0) *p.den = den;
+  const float zd = kFused && kAir && p.z != nullptr ? p.z[d] : 0.0f;
+  float mv = 0.0f, sq = 0.0f;
+  for (long long ct = b; ct < C; ct += G) {
+    const long long c0 = ct * d / C;
+    const int W = static_cast<int>((ct + 1) * d / C - c0);
+    float acc[kCols];
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) acc[e] = 0.0f;
+    for (long long rg = 0; rg < k; rg += kRows) {
+      const int nr = static_cast<int>(min(static_cast<long long>(kRows), k - rg));
+      float c[kRows], x[kRows][kCols];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        c[r] = r < nr ? __ldcg(p.coeff + rg + r) : 0.0f;
+        // a row of weight 0 is neither read nor added, so a non-finite
+        // row never reaches the sum
+        if (c[r] != 0.0f) load_cols(w + (rg + r) * d + c0, W, x[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (c[r] != 0.0f) {
+#pragma unroll
+          for (int e = 0; e < kCols; ++e) acc[e] = fmaf(c[r], x[r][e], acc[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) {
+      const int j = 2 * (tid + kThreads * (e / 2)) + (e % 2);
+      if (j >= W) continue;
+      const long long jj = c0 + j;
+      if (!kFused) {
+        p.num[jj] = acc[e];
+      } else {
+        const float zj = kAir && p.z != nullptr ? p.z[jj] : 0.0f;
+        const float gn = next_guess<kAir>(p, acc[e], den, s, zj, zd);
+        const float diff = p.g_in[jj] - gn;
+        mv = fmaf(diff, diff, mv);
+        sq = fmaf(gn, gn, sq);
+        p.g_out[jj] = gn;
+      }
+    }
   }
-  m = warp_sum(m);
-  q = warp_sum(q);
-  if (lane == 0) {
-    const float movement = sqrtf(m);
-    *p.steps += 1;
-    *p.active = movement > p.tol ? 1 : 0;  // a NaN movement stops, as in torch
-    if (kAir) *p.scaler = sqrtf(q / static_cast<float>(d));
-    *p.ticket = 0;
-  }
+  if (kFused) finish_fused<kAir>(p, mv, sq);
 }
 
 // The grid and tiling of a step for a [k, d] stack on the current device.
 struct Plan {
-  int grid, S, C;
-  size_t off_red, off_den, off_part, off_fin, off_num, bytes;
+  int grid, S, C, wide;
+  size_t off_red, off_den, off_part, off_fin, off_num, off_coeff, bytes;
 };
 
 inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
 
-// Rows split into column tiles only where they are wider than kTileMax.
+// Rows split into column tiles only where they are wider than kTileMax;
+// past SMs tiles the wide plan takes the step, with C rounded up to a
+// multiple of the grid.
 inline cudaError_t make_plan(long long k, long long d, Plan* pl) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -541,21 +726,24 @@ inline cudaError_t make_plan(long long k, long long d, Plan* pl) {
   if (err != cudaSuccess) return err;
   if (k < 1 || d < 1) return cudaErrorInvalidValue;
   const long long c = (d + kTileMax - 1) / kTileMax;
-  if (c > sms) return cudaErrorInvalidValue;  // d too large for one pass
   pl->grid = sms;
-  pl->C = static_cast<int>(c);
-  pl->S = static_cast<int>(std::min(k, sms / c));
+  pl->wide = c > sms ? 1 : 0;
+  pl->C = static_cast<int>(pl->wide ? (c + sms - 1) / sms * sms : c);
+  pl->S = pl->wide ? 1 : static_cast<int>(std::min(k, sms / c));
+  const bool split = pl->C > 1;
   size_t off = 16;  // the ticket
   pl->off_red = off;
   off = align16(off + sizeof(float2) * pl->grid);
   pl->off_den = off;
   off = align16(off + sizeof(float) * pl->S);
   pl->off_part = off;
-  off = align16(off + (pl->C > 1 ? sizeof(float2) * k * pl->C : 0));
+  off = align16(off + (split ? sizeof(float2) * k * pl->C : 0));
   pl->off_fin = off;
-  off = align16(off + (pl->C > 1 ? sizeof(int) * k * pl->C : 0));
+  off = align16(off + (split ? sizeof(int) * k * pl->C : 0));
   pl->off_num = off;
-  off = align16(off + sizeof(float) * pl->S * d);
+  off = align16(off + (pl->wide ? 0 : sizeof(float) * pl->S * d));
+  pl->off_coeff = off;
+  off = align16(off + (pl->wide ? sizeof(float) * k : 0));
   pl->bytes = off;
   return cudaSuccess;
 }
@@ -570,6 +758,7 @@ inline void bind_workspace(const Plan& pl, void* workspace, Params* p) {
   p->part = reinterpret_cast<float2*>(base + pl.off_part);
   p->part_fin = reinterpret_cast<int*>(base + pl.off_fin);
   p->numpart = reinterpret_cast<float*>(base + pl.off_num);
+  p->coeff = reinterpret_cast<float*>(base + pl.off_coeff);
 }
 
 template <typename T, bool kAir, bool kFused>
@@ -579,8 +768,9 @@ cudaError_t launch_one(Params p, void* workspace, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   bind_workspace(pl, workspace, &p);
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(step_kernel<T, kAir, kFused>),
-                                    dim3(pl.grid), dim3(kThreads), args, 0, stream);
+  const void* kernel = pl.wide ? reinterpret_cast<const void*>(wide_kernel<T, kAir, kFused>)
+                               : reinterpret_cast<const void*>(step_kernel<T, kAir, kFused>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(pl.grid), dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -13,7 +13,9 @@
 // g_out), at the H100's 3.35 TB/s: 9.4 us at K=1000, d=7850, f32.  The TPU
 // kernel carried num/den across a sequential grid; here one cooperative
 // launch tiles the stack over every SM and meets at grid barriers, reading
-// the stack once and summing in fixed orders (weiszfeld_common.cuh).
+// the stack once and summing in fixed orders (weiszfeld_common.cuh); past
+// SMs x 8192 columns (the CNN, ResNet-18) it reads the stack twice, the
+// least traffic where the stack cannot stay on chip.
 #include "weiszfeld_common.cuh"
 
 // num/den mode.  workspace: weiszfeld_workspace_bytes(k, d) bytes, ticket

@@ -34,7 +34,8 @@ def _stack(k, d, dtype, cuda, bad=float("nan")):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,d", [(13, 300), (1000, 7850), (1, 1), (50, 16500)])
+@pytest.mark.parametrize("k,d", [(13, 300), (1000, 7850), (1, 1), (50, 16500),
+                                 (13, 1081345), (50, 3274634)])
 def test_kernels_match_plain_versions(cuda, k, d, dtype):
     w, guess, h_sq, s = _stack(k, d, dtype, cuda, bad=float("inf"))
     before = dict(kernels.LAUNCHES)
@@ -54,6 +55,19 @@ def test_kernels_match_plain_versions(cuda, k, d, dtype):
         assert kernels.LAUNCHES[n] == before[n] + 2
 
 
+def test_wide_plan_reads_twice_with_a_small_workspace(cuda):
+    """Past SMs x 8192 columns the step takes the wide plan: two reads of
+    the stack, and a workspace of K x tiles partials, not slices x d."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edge = sms * kernels.WEISZFELD_TILE_MAX
+    assert kernels.weiszfeld_stack_reads(edge, sms) == 1
+    assert kernels.weiszfeld_stack_reads(edge + 1, sms) == 2
+    lib = kernels._LIBS["weiszfeld_step"]
+    for k, d in ((50, 3274634), (50, 11173962), (1000, 11173962)):
+        tiles = -(-(-(-d // kernels.WEISZFELD_TILE_MAX)) // sms) * sms
+        assert 0 < lib.weiszfeld_workspace_bytes(k, d) <= 12 * k * tiles + 4 * k + 16 * sms + 64
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w, guess, h_sq, s = _stack(8, 64, torch.float32, cuda)
     with pytest.raises(TypeError):
@@ -66,8 +80,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.aircomp_weiszfeld_step(w, guess, h_sq[:-1], s)
 
 
-def test_chunked_solve_equals_per_step_on_the_card(cuda):
-    w, guess, _, _ = _stack(60, 7850, torch.float32, cuda)
+@pytest.mark.parametrize("d", [7850, 1081345])
+def test_chunked_solve_equals_per_step_on_the_card(cuda, d):
+    w, guess, _, _ = _stack(60, d, torch.float32, cuda)
     before = kernels.LAUNCHES["weiszfeld_step"]
     out_1, n_1 = aggregators.gm2_solve(w, guess=guess, maxiter=300, tol=1e-6, chunk=1)
     assert kernels.LAUNCHES["weiszfeld_step"] - before == n_1  # one launch per step
@@ -128,6 +143,7 @@ def _fused_ref(air, w, g_in, active, steps, tol, draws):
     (13, 301, torch.bfloat16), (2000, 7850, torch.float32), (1, 1, torch.float32),
     (1000, 7850, torch.bfloat16), (13, 9001, torch.bfloat16),
     (50, 16500, torch.float32), (300, 9001, torch.float32),
+    (13, 1081345, torch.bfloat16), (50, 3274634, torch.float32),
 ])
 def test_fused_step_matches_plain_version(cuda, k, d, dtype, air):
     w, guess, (active, steps), draws = _fused_args(k, d, dtype, cuda, air)

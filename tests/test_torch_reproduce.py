@@ -24,23 +24,31 @@ def test_gate_configs_are_the_jax_parity_gates():
                                     agg="gm2"), 0.9),
         "gm_var_classflip_b10": (dict(honest_size=40, byz_size=10, attack="classflip",
                                       agg="gm", noise_var=1e-2), 0.8),
+        # tests/test_parity.py::test_mid_schedule_parity_cnn
+        "cnn_gm2_classflip_b1": (dict(model="CNN", fc_width=32, honest_size=5, byz_size=1,
+                                      attack="classflip", agg="gm2", rounds=45,
+                                      batch_size=16, agg_maxiter=100), 0.889),
     }
     assert [g.name for g in reproduce.GATES] == list(want)
     assert reproduce.GATE_DATA == dict(dataset="mnist_hard", synthetic_train=20000,
                                        synthetic_val=10000)
+    assert reproduce.GATES[3].data == dict(dataset="mnist_hard", synthetic_train=6000,
+                                           synthetic_val=3000)
     assert reproduce.GATE_SEEDS == (2021, 2022, 2023, 2024) and reproduce.TAIL == 5
     for gate in reproduce.GATES:
         fields, floor = want[gate.name]
-        assert gate.floor == floor
+        assert gate.floor == pytest.approx(floor, abs=1e-12)
         cfg = reproduce.gate_config(gate, 2023)
-        jcfg = JaxFedConfig(dataset="mnist_hard", seed=2023, **common, **fields)
+        jcfg = JaxFedConfig(dataset="mnist_hard", seed=2023, **dict(common, **fields))
         for name in list(common) + list(fields) + ["seed", "dataset", "gamma"]:
             assert getattr(cfg, name) == getattr(jcfg, name), (gate.name, name)
         assert cfg.validate() is cfg
-    # the AirComp target is the JAX seed-mean recorded in the repo
-    with open(Path(__file__).resolve().parents[1] / "docs" / "aircomp_parity_r04.json") as f:
-        rec = json.load(f)
-    assert reproduce.GATES[2].jax_mean == pytest.approx(rec["seed_mean"]["jax"], abs=1e-9)
+    # the AirComp and CNN targets are the JAX seed-means recorded in the repo
+    docs = Path(__file__).resolve().parents[1] / "docs"
+    for i, name in ((2, "aircomp_parity_r04.json"), (3, "cnn_parity_r04.json")):
+        rec = json.loads((docs / name).read_text())
+        assert reproduce.GATES[i].jax_mean == pytest.approx(rec["seed_mean"]["jax"], abs=1e-9)
+    assert reproduce.GATES[3].per_seed_abs == rec["gate"]["per_seed_abs"] == 0.03
 
 
 @pytest.mark.parametrize("per_seed,ok,tight", [
@@ -53,6 +61,16 @@ def test_judge_applies_the_bar(per_seed, ok, tight):
     res = reproduce.judge(reproduce.GATES[0], per_seed)
     assert res["pass"] is ok and res["within_0.005"] is tight
     assert res["delta"] == pytest.approx(res["mean"] - reproduce.GATES[0].jax_mean)
+
+
+@pytest.mark.parametrize("per_seed,ok", [
+    ({1: 0.917, 2: 0.921, 3: 0.915, 4: 0.919}, True),
+    ({1: 0.887, 2: 0.930, 3: 0.925, 4: 0.925}, False),   # a seed 0.032 low
+    ({1: 0.950, 2: 0.915, 3: 0.915, 4: 0.915}, False),   # a seed 0.031 high
+])
+def test_judge_holds_each_cnn_seed_within_its_bar(per_seed, ok):
+    res = reproduce.judge(reproduce.GATES[3], per_seed)
+    assert res["pass"] is ok and res["per_seed_abs"] == 0.03
 
 
 def test_gate_cli_runs_cut_on_the_cpu(tmp_path):
@@ -68,6 +86,19 @@ def test_gate_cli_runs_cut_on_the_cpu(tmp_path):
     for r in res["configs"].values():
         assert set(r["per_seed"]) == {"2021"} and 0.0 < r["per_seed"]["2021"] <= 1.0
         assert r["seconds"]["2021"] > 0 and {"mean", "delta", "jax_mean", "floor"} <= set(r)
+
+
+def test_gate_cli_runs_one_config(tmp_path):
+    out = tmp_path / "gate.json"
+    rc = reproduce.main([
+        "--gate", "--device", "cpu", "--config", "cnn_gm2_classflip_b1", "--rounds", "1",
+        "--interval", "2", "--seeds", "2021,2022", "--out", str(out)])
+    res = json.loads(out.read_text())
+    assert rc == 1 and res["pass"] is False  # a subset is never a pass
+    assert list(res["configs"]) == ["cnn_gm2_classflip_b1"]
+    cnn = res["configs"]["cnn_gm2_classflip_b1"]
+    assert cnn["data"] == dict(dataset="mnist_hard", synthetic_train=6000, synthetic_val=3000)
+    assert set(cnn["per_seed"]) == {"2021", "2022"}
 
 
 def test_paper_configs_are_the_eight_runs():
