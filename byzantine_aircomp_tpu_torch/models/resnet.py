@@ -110,7 +110,10 @@ class _Remat(torch.autograd.Function):
 
         with torch.enable_grad():
             _, pullback = vjp(run, x, *params)
-            grads = pullback(grad_out)
+            # the trainer's torch.func.grad runs its backward with
+            # create_graph=True; the graph of the recompute would keep every
+            # recomputed activation alive to its end, so it is cut here
+            grads = [g.detach() for g in pullback(grad_out)]
         return (None, None, *grads)
 
 

@@ -50,7 +50,6 @@ from .channel import OmaTerms, floored_hsq, oma_residual
 # shared Weiszfeld constants (the kernels' sources hold the same values)
 DIST_CLAMP = 1e-4  # divide-by-zero guard, MNIST_Air_weight.py:151,:178
 GM_THRESHOLD_FACTOR = 500.0  # gm power-control threshold = 500*scaler^2, :152
-WEISZFELD_TILE_MAX = 16 * 512  # columns one 512-thread block holds (kTileMax)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -457,15 +456,6 @@ def packed_vote_counts_ref(words: torch.Tensor, d: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # wrappers
-
-
-def weiszfeld_stack_reads(d: int, sms: int) -> int:
-    """How often a Weiszfeld step reads a [K, d] stack from device memory
-    on a card with ``sms`` SMs (``weiszfeld_common.cuh``'s ``make_plan``):
-    once while a row's ``ceil(d / 8192)`` column tiles fit one block each,
-    twice past that (the wide plan, whose weighted sum needs every row's
-    weight, and the stack is too large to stay on chip in between)."""
-    return 1 if -(-d // WEISZFELD_TILE_MAX) <= sms else 2
 
 
 def _check_stack(w: torch.Tensor, guess: torch.Tensor):

@@ -171,8 +171,8 @@ def run_gate(
     """Every gate config at every seed through :class:`..fed.train.Trainer`
     (``overrides``: FedConfig fields that cut the schedule; the data sizes,
     when given, replace every gate's own); returns the JSON-ready result
-    (per config: its data, per-seed accuracies, seconds, mean, delta and
-    verdict)."""
+    (per config: its data, per-seed accuracies, val accuracy paths and
+    seconds, mean, delta and verdict)."""
     from ..data import datasets as data_lib
     from ..fed.train import Trainer
 
@@ -190,17 +190,19 @@ def run_gate(
             kw = dict(data)
             loaded[key] = data_lib.load(kw.pop("dataset"), **kw)
         ds = loaded[key]
-        per_seed, secs = {}, {}
+        per_seed, secs, acc_paths = {}, {}, {}
         for seed in seeds:
             cfg = gate_config(gate, seed, **overrides)
             t0 = time.perf_counter()
             paths = Trainer(cfg, dataset=ds, device=device).train()
             secs[str(seed)] = time.perf_counter() - t0
+            acc_paths[str(seed)] = paths["valAccPath"]
             per_seed[seed] = tail_accuracy(paths)
             log_fn(f"[gate] {gate.name} seed={seed} acc={per_seed[seed]:.5f} "
                    f"({secs[str(seed)]:.1f} s)")
         res = judge(gate, per_seed)
         res["seconds"] = secs
+        res["valAccPath"] = acc_paths
         res["data"] = data
         out["configs"][gate.name] = res
         log_fn(f"[gate] {gate.name} mean={res['mean']:.5f} jax={gate.jax_mean:.5f} "

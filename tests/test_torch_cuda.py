@@ -56,15 +56,18 @@ def test_kernels_match_plain_versions(cuda, k, d, dtype):
 
 
 def test_wide_plan_reads_twice_with_a_small_workspace(cuda):
-    """Past SMs x 8192 columns the step takes the wide plan: two reads of
-    the stack, and a workspace of K x tiles partials, not slices x d."""
+    """Past SMs x 8192 columns (kTileMax in weiszfeld_common.cuh) the step
+    takes the wide plan, which reads the stack twice: its workspace holds
+    K x tiles partials, where the one-pass plan holds a slice's num, d
+    floats, per slice."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    edge = sms * kernels.WEISZFELD_TILE_MAX
-    assert kernels.weiszfeld_stack_reads(edge, sms) == 1
-    assert kernels.weiszfeld_stack_reads(edge + 1, sms) == 2
+    tile_max = 16 * 512
+    edge = sms * tile_max
     lib = kernels._LIBS["weiszfeld_step"]
+    assert lib.weiszfeld_workspace_bytes(1, edge) >= 4 * edge  # one pass
+    assert 0 < lib.weiszfeld_workspace_bytes(1, edge + 1) < 4 * edge  # wide
     for k, d in ((50, 3274634), (50, 11173962), (1000, 11173962)):
-        tiles = -(-(-(-d // kernels.WEISZFELD_TILE_MAX)) // sms) * sms
+        tiles = -(-(-(-d // tile_max)) // sms) * sms
         assert 0 < lib.weiszfeld_workspace_bytes(k, d) <= 12 * k * tiles + 4 * k + 16 * sms + 64
 
 

@@ -19,8 +19,8 @@ def test_noisy_gm_diverges_on_the_full_cnn_in_both_packages():
     receiver noise on the guess has a norm ~ sqrt(d) sqrt(var/2) s / den,
     which outgrows the clients' spread, and every step then feeds it back
     through the scaler s.  (At the MLP's d = 7,850 it does not.)  So
-    ``chip_smoke.py``'s run (r) holds the card's steps against the plain
-    version instead of requiring finite params."""
+    ``chip_smoke.py``'s run (r) holds the kernel against the plain version
+    on the run's first stack instead of requiring finite params."""
     ds = tdata.load("mnist", synthetic_train=600, synthetic_val=50)
     cfg = FedConfig(model="CNN", agg="gm", noise_var=1e-2, honest_size=8, byz_size=2,
                     attack="classflip", batch_size=8, seed=3)

@@ -196,6 +196,45 @@ def test_remat_gives_the_same_per_client_grads():
     torch.testing.assert_close(remat, plain, rtol=1e-6, atol=1e-7)
 
 
+def _peak_allocated_bytes(fn, trace_path):
+    """The most CPU memory held at once while ``fn()`` runs, from the
+    profiler's memory events."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        fn()
+    prof.export_chrome_trace(str(trace_path))
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return max(e["args"]["Total Allocated"] for e in events if e.get("name") == "[memory]")
+
+
+def test_remat_lowers_the_peak_memory_of_the_per_client_grads(tmp_path):
+    """Under the trainer's vmap(grad), remat=True holds less memory at its
+    peak than remat=False: each block's activations are recomputed in the
+    backward pass and dropped with it."""
+    module = ResNet18((32, 32, 3), 10, 8, generator=torch.Generator().manual_seed(3))
+    spec = tflatten.make_flat_spec(module)
+    flat = tflatten.flatten(dict(module.named_parameters()), spec).detach()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 16, 32 * 32 * 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (3, 16))).long()
+
+    def loss(fp, xb, yb):
+        logits = functional_call(module, tflatten.unflatten(fp, spec), (xb,))
+        return torch.mean(F.cross_entropy(logits, yb, reduction="none"))
+
+    per_client = vmap(grad(loss), in_dims=(None, 0, 0))
+    peaks = {}
+    for remat in (False, True):
+        module.remat = remat
+        peaks[remat] = _peak_allocated_bytes(lambda: per_client(flat, x, y),
+                                             tmp_path / f"{remat}.json")
+    assert peaks[True] < 0.6 * peaks[False], peaks
+
+
 @pytest.mark.parametrize("shape,fans", [
     ((10, 784), (784, 10)),
     ((32, 1, 5, 5), (25, 800)),
