@@ -16,6 +16,14 @@ failures, and the rule runs in its degraded mode.
 ``--partition dirichlet --dirichlet-alpha A`` splits the data label-skewed
 and ``--size-skew zipf:S`` skews the shard sizes.
 
+The training options: ``--local-steps E`` (FedAvg), ``--fedprox-mu``,
+``--server-opt momentum|adam`` with ``--server-lr`` and
+``--server-momentum`` (FedAvgM, FedAdam), ``--client-momentum``,
+``--participation`` and ``--bucket-size``; the online defense:
+``--defense monitor|adaptive`` with its ``--defense-*`` knobs, which also
+enables the defense-aware attacks ``mimic``, ``under_radar`` and
+``duty_cycle``.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -54,6 +62,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=50)
     p.add_argument("--gamma", type=float, default=1e-2)
     p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--local-steps", type=int, default=1,
+                   help="local SGD steps per client per iteration (1 = reference FedSGD)")
+    p.add_argument("--fedprox-mu", type=float, default=0.0,
+                   help="FedProx proximal coefficient (anchors client drift when "
+                        "--local-steps > 1; 0 = plain FedAvg/FedSGD)")
+    p.add_argument("--server-opt", choices=["none", "momentum", "adam"], default="none",
+                   help="server optimizer over the pseudo-gradient (FedAvgM / FedAdam)")
+    p.add_argument("--server-lr", type=float, default=1.0)
+    p.add_argument("--server-momentum", type=float, default=0.9)
+    p.add_argument("--participation", type=float, default=1.0,
+                   help="fraction of clients active per iteration (stratified "
+                        "honest/Byzantine draw; 1.0 = all, the reference's behavior)")
+    p.add_argument("--client-momentum", type=float, default=0.0,
+                   help="client-side momentum beta (needs --local-steps 1); 0 = off")
+    p.add_argument("--bucket-size", type=int, default=1,
+                   help="server-side bucketing: aggregate the means of random "
+                        "s-client buckets; 1 = off")
     p.add_argument("--attack-param", type=float, default=None,
                    help="scalar attack magnitude (alie z / ipm eps / gaussian "
                         "sigma / minmax+minsum fixed gamma)")
@@ -127,12 +152,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corrupt-size", type=int, default=None,
                    help="number of corruption-eligible (honest) clients; "
                         "overrides the --fault scenario")
+    # the online defense; its knob flags require --defense monitor|adaptive
+    p.add_argument("--defense", choices=["off", "monitor", "adaptive"], default="off",
+                   help="anomaly detection: monitor = score and report only, "
+                        "adaptive = escalate the aggregator through "
+                        "--defense-ladder (off runs no defense code)")
+    p.add_argument("--defense-ladder", type=str, default="mean,trimmed_mean,multi_krum",
+                   help="comma-separated aggregator escalation ladder; under "
+                        "adaptive the first rung must equal --agg")
+    p.add_argument("--defense-warmup", type=int, default=5,
+                   help="iterations of baseline building before any flag")
+    p.add_argument("--defense-alpha", type=float, default=0.1,
+                   help="EMA rate of the per-client score baseline")
+    p.add_argument("--defense-drift", type=float, default=0.5,
+                   help="CUSUM drift allowance (in robust z-units)")
+    p.add_argument("--defense-cusum", type=float, default=8.0,
+                   help="CUSUM change-point alarm threshold")
+    p.add_argument("--defense-z", type=float, default=4.0,
+                   help="instantaneous robust z-score alarm threshold")
+    p.add_argument("--defense-up", type=int, default=3,
+                   help="consecutive suspicious iterations per escalation")
+    p.add_argument("--defense-down", type=int, default=20,
+                   help="consecutive clean iterations per de-escalation")
+    p.add_argument("--defense-min-flagged", type=int, default=1,
+                   help="flagged clients that make an iteration suspicious")
+    p.add_argument("--defense-floor", type=float, default=1.5,
+                   help="escalation-budget threshold above which the rung floor "
+                        "pins at 1 (0 disables the floor)")
+    p.add_argument("--defense-leak", type=float, default=0.005,
+                   help="per-iteration decay rate of the escalation budget")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
     return p
 
 
 _TRUE, _FALSE = ("true", "1", "yes", "on"), ("false", "0", "no", "off")
+
+# the --defense flags, as suffixes of their FedConfig fields
+_DEFENSE_SUFFIXES = ("", "_ladder", "_warmup", "_alpha", "_drift", "_cusum", "_z", "_up",
+                     "_down", "_min_flagged", "_floor", "_leak")
 
 
 def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:
@@ -190,6 +248,15 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
         mark=args.mark,
         use_gpu=device == "cuda",
         weight_decay=args.weight_decay,
+        local_steps=args.local_steps,
+        fedprox_mu=args.fedprox_mu,
+        server_opt=args.server_opt,
+        server_lr=args.server_lr,
+        server_momentum=args.server_momentum,
+        client_momentum=args.client_momentum,
+        participation=args.participation,
+        bucket_size=args.bucket_size,
+        **{f"defense{name}": getattr(args, f"defense{name}") for name in _DEFENSE_SUFFIXES},
         attack_param=args.attack_param,
         cache_dir=args.cache_dir,
         eval_train=args.eval_train,

@@ -1,8 +1,9 @@
 """Run configuration of the port.
 
 A subset of ``byzantine_aircomp_tpu/fed/config.py`` (the main path, every
-aggregation rule's knobs, the fault channel's, the models' widths and the
-client partition): the same field names
+aggregation rule's knobs, the fault channel's, the models' widths, the
+client partition, the training options and the online defense): the same
+field names
 and defaults, which mirror the reference's ``optConfig`` / CLI
 surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
 rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
@@ -13,7 +14,7 @@ versions.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 
@@ -31,6 +32,22 @@ class FedConfig:
     gamma: float = 1e-2
     weight_decay: float = 0.0
     batch_size: int = 50
+    # local SGD steps per client per global iteration: 1 = the reference's
+    # FedSGD (:296-303); >1 = FedAvg, each step on a fresh batch
+    local_steps: int = 1
+    # FedProx (Li et al., MLSys 2020): mu*(w - w_round_start) added to each
+    # local step's gradient; 0 disables (with one local step it is 0 anyway)
+    fedprox_mu: float = 0.0
+    # server optimizer over the pseudo-gradient (flat - aggregated): "none"
+    # takes the aggregate (reference :354-358), "momentum" FedAvgM, "adam"
+    # FedAdam, with optax's formulas (fed/server_opt.py)
+    server_opt: str = "none"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    # client momentum (Karimireddy, He & Jaggi, ICML 2021): each client keeps
+    # m <- beta*m + (1-beta)*g across iterations and sends w - gamma*m; a
+    # [K, d] buffer carried on the trainer.  0 = off; needs local_steps == 1
+    client_momentum: float = 0.0
 
     # dispatch
     agg: str = "gm"
@@ -51,6 +68,33 @@ class FedConfig:
     ge_p_gb: Optional[float] = None
     ge_p_bg: Optional[float] = None
     ge_bad_mult: Optional[float] = None
+
+    # online defense (defense/): "off" runs no defense code; "monitor" scores
+    # every client and tracks the rung that would run, the aggregation
+    # untouched (the trajectory is bitwise that of "off"); "adaptive" lets
+    # the rung pick the aggregator from the ladder.  The knobs below must
+    # stay at their defaults when the defense is off
+    defense: str = "off"
+    # escalation ladder, cheapest rung first; in adaptive mode rung 0 must be
+    # `agg`, and no rung may own its channel (gm, signmv)
+    defense_ladder: str = "mean,trimmed_mean,multi_krum"
+    # detector: iterations before flags arm, EMA rate, CUSUM allowance and
+    # threshold (robust sigmas), instantaneous z threshold
+    defense_warmup: int = 5
+    defense_alpha: float = 0.1
+    defense_drift: float = 0.5
+    defense_cusum: float = 8.0
+    defense_z: float = 4.0
+    # hysteresis: escalate after `up` suspicious iterations in a row,
+    # de-escalate after `down` clean ones; an iteration is suspicious when
+    # at least `min_flagged` clients flag
+    defense_up: int = 3
+    defense_down: int = 20
+    defense_min_flagged: int = 1
+    # leaky escalation budget: +1 per escalation, x(1 - leak) per iteration;
+    # at or above `floor` the rung cannot fall below 1.  floor 0 disables
+    defense_floor: float = 1.5
+    defense_leak: float = 0.005
 
     # aggregator options (reference options dict, :350)
     agg_maxiter: int = 1000
@@ -100,6 +144,13 @@ class FedConfig:
     # quantity skew on top of the partition: "none" (equal cut) or
     # "zipf:<s>" (client i owns ~ i^-s of the samples; zipf:0 = equal cut)
     size_skew: str = "none"
+    # partial participation: every iteration draws half-up(participation *
+    # honest_size) honest and floor(participation * byz_size) Byzantine
+    # clients (participant_counts); 1.0 = every client, the reference
+    participation: float = 1.0
+    # bucketing (Karimireddy, He & Jaggi, ICLR 2022): the rule aggregates the
+    # means of random disjoint buckets of this many messages; 1 = off
+    bucket_size: int = 1
 
     # eval
     eval_batch: int = 2000
@@ -127,9 +178,35 @@ class FedConfig:
         "corrupt_mode", "corrupt_size", "ge_p_gb", "ge_p_bg", "ge_bad_mult",
     )
 
+    # defense knobs that must stay at their defaults with the defense off;
+    # harness.config_hash skips them then, as it skips `defense`
+    _DEFENSE_KNOBS = (
+        "defense_ladder", "defense_warmup", "defense_alpha", "defense_drift",
+        "defense_cusum", "defense_z", "defense_up", "defense_down",
+        "defense_min_flagged", "defense_floor", "defense_leak",
+    )
+
     @property
     def node_size(self) -> int:
         return self.honest_size + self.byz_size
+
+    def participant_counts(self) -> tuple:
+        """(honest, Byzantine) rows per iteration (JAX ``fed/config.py:337``).
+        The honest count rounds half up and the Byzantine count is floored,
+        so rounding never adds an attacker beyond participation * byz_size;
+        the 1e-9 guards keep binary-float products that land just under an
+        integer or a .5 tie (0.29 * 100 = 28.999999999999996) on the
+        mathematical side."""
+        if self.participation < 1.0:
+            return (
+                int(self.participation * self.honest_size + 0.5 + 1e-9),
+                int(self.participation * self.byz_size + 1e-9),
+            )
+        return self.honest_size, self.byz_size
+
+    def defense_ladder_names(self) -> tuple:
+        """The escalation ladder as a tuple of aggregator names."""
+        return tuple(n for n in self.defense_ladder.split(",") if n)
 
     def fault_overrides(self) -> dict:
         """The non-None fault knobs, as overrides of the named fault."""
@@ -207,9 +284,14 @@ class FedConfig:
                 raise ValueError(f"size_skew exponent must be >= 0, got {skew}")
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
-        k = self.node_size
+        self._validate_training_options()
+        # the rule sees the drawn clients, or their bucket means
+        part_h, part_b = self.participant_counts()
+        k = (part_h + part_b) // self.bucket_size
         if self.krum_m is not None and not 1 <= self.krum_m <= k:
-            raise ValueError(f"krum_m must be in [1, {k}] (the clients), got {self.krum_m}")
+            raise ValueError(
+                f"krum_m must be in [1, {k}] (participating clients), got {self.krum_m}"
+            )
         if not (self.clip_tau is None or self.clip_tau > 0) or self.clip_iters < 1:
             raise ValueError(
                 f"clip_tau must be > 0 (or None = adaptive) and clip_iters >= 1, "
@@ -222,9 +304,9 @@ class FedConfig:
             )
         # the rules' own size bounds, up front rather than mid-run
         if self.agg == "bulyan":
-            agg_lib.bulyan_sizes(k, self.byz_size)
+            agg_lib.bulyan_sizes(k, part_b)
         if self.agg == "dnc":
-            agg_lib.dnc_removals(k, self.honest_size, self.dnc_iters, self.dnc_c)
+            agg_lib.dnc_removals(k, k - part_b, self.dnc_iters, self.dnc_c)
         # a knob without a fault, an unknown fault or a knob out of range
         # raises here
         spec = fault_lib.resolve(self.fault, self.fault_overrides())
@@ -234,10 +316,24 @@ class FedConfig:
                 "honest clients (corruption models crashed honest senders; "
                 "Byzantine rows are the attack's)"
             )
+        if spec is not None and self.participation != 1.0:
+            raise ValueError(
+                "fault injection requires full participation: the stale-replay "
+                "buffer and Gilbert-Elliott state are [K]-indexed by the full "
+                "client stack"
+            )
+        self._validate_defense()
         # unknown names fail here, not mid-run (KeyError lists known names)
         agg_lib.resolve(self.agg)
         # an unknown name, or a malformed "name@R", raises here
         attack = attack_lib.resolve(self.attack)
+        if attack is not None and attack.defense_aware and self.defense == "off":
+            raise ValueError(
+                f"attack {self.attack!r} is defense-aware (it reads the published "
+                "detector EMA/CUSUM state inside the round) and requires --defense "
+                "adaptive|monitor; with --defense off there is no detector state "
+                "to observe"
+            )
         if self.attack_param is not None and (attack is None or attack.param_name is None):
             raise ValueError(
                 f"attack {self.attack!r} takes no scalar parameter "
@@ -247,3 +343,128 @@ class FedConfig:
         DATASETS.get(self.dataset)
         MODELS.get(self.model)
         return self
+
+    def _validate_training_options(self):
+        """Participation, bucketing, local steps, FedProx, the server
+        optimizer and client momentum (JAX ``fed/config.py:529-601, :647-663``)."""
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError(f"participation must be in (0, 1], got {self.participation}")
+        part_h, part_b = self.participant_counts()
+        if self.participation < 1.0:
+            if part_h < 1:
+                raise ValueError(
+                    f"participation {self.participation} rounds to zero honest "
+                    f"participants of {self.honest_size}"
+                )
+            if self.byz_size and part_b < 1:
+                raise ValueError(
+                    f"participation {self.participation} would silently drop all "
+                    f"{self.byz_size} Byzantine clients (rounds to 0); raise the "
+                    "fraction or set byz_size=0 explicitly"
+                )
+        if self.bucket_size < 1:
+            raise ValueError(f"bucket_size must be >= 1, got {self.bucket_size}")
+        if self.bucket_size > 1:
+            m = part_h + part_b
+            if m % self.bucket_size:
+                raise ValueError(
+                    f"bucket_size {self.bucket_size} must divide the {m} "
+                    "participating clients"
+                )
+            n_buckets = m // self.bucket_size
+            clean = n_buckets - part_b  # worst case: one Byzantine row per bucket
+            if clean < 2:
+                raise ValueError(
+                    f"bucketing leaves {n_buckets} buckets of which {part_b} may be "
+                    f"Byzantine-contaminated: {clean} worst-case clean buckets is "
+                    "degenerate; use a smaller bucket_size or fewer Byzantine clients"
+                )
+            if self.agg in ("krum", "Krum", "multi_krum") and clean < 3:
+                raise ValueError(
+                    f"krum needs >= 3 worst-case clean buckets to score neighbors "
+                    f"(got {clean}); smaller bucket_size required"
+                )
+            if self.agg in ("gm", "signmv"):
+                raise ValueError(
+                    f"bucketing is undefined for agg={self.agg!r}: its over-the-air "
+                    "transmission happens inside aggregation; use gm2 (ideal) or a "
+                    "prepass aggregator"
+                )
+            if self.sign_bits == 1:
+                raise ValueError(
+                    "sign_bits=1 packs each client's ballots into uint32 words; "
+                    "bucket means over packed words are undefined (a mean of sign "
+                    "words is not a sign word); use --bucket-size 1"
+                )
+        if self.fedprox_mu < 0:
+            raise ValueError(f"fedprox_mu must be >= 0, got {self.fedprox_mu}")
+        if not 0.0 <= self.client_momentum < 1.0:
+            raise ValueError(
+                f"client_momentum must be in [0, 1), got {self.client_momentum}"
+            )
+        if self.client_momentum and self.local_steps != 1:
+            raise ValueError(
+                "client_momentum requires local_steps == 1 (the FedSGD regime the "
+                "momentum analysis covers); use server_opt for FedAvg"
+            )
+        if self.local_steps < 1:
+            raise ValueError(f"local_steps must be >= 1, got {self.local_steps}")
+        if self.server_opt not in ("none", "momentum", "adam"):
+            raise ValueError(
+                f"server_opt must be none|momentum|adam, got {self.server_opt!r}"
+            )
+
+    def _validate_defense(self):
+        """The defense mode and knobs (JAX ``fed/config.py:723-795``)."""
+        from ..defense.policy import validate_ladder
+
+        if self.defense not in ("off", "monitor", "adaptive"):
+            raise ValueError(
+                f"defense must be off|monitor|adaptive, got {self.defense!r}"
+            )
+        if self.defense == "off":
+            defaults = {f.name: f.default for f in fields(self)}
+            touched = sorted(
+                k for k in self._DEFENSE_KNOBS if getattr(self, k) != defaults[k]
+            )
+            if touched:
+                raise ValueError(
+                    f"defense knobs {touched} require --defense monitor|adaptive "
+                    "(they configure the detector/ladder and would otherwise "
+                    "silently do nothing)"
+                )
+            return
+        if self.participation != 1.0:
+            raise ValueError(
+                "defense requires full participation: the detector EMA/CUSUM "
+                "state is [K]-indexed by the full client stack"
+            )
+        if self.defense_warmup < 1:
+            raise ValueError(f"defense_warmup must be >= 1, got {self.defense_warmup}")
+        if not 0.0 < self.defense_alpha <= 1.0:
+            raise ValueError(f"defense_alpha must be in (0, 1], got {self.defense_alpha}")
+        if not (self.defense_drift > 0 and self.defense_z > 0 and self.defense_cusum > 0):
+            raise ValueError(
+                f"defense drift/z/cusum thresholds must be positive, got "
+                f"{self.defense_drift}, {self.defense_z}, {self.defense_cusum}"
+            )
+        if not (self.defense_up >= 1 and self.defense_down >= 1
+                and self.defense_min_flagged >= 1):
+            raise ValueError(
+                f"defense hysteresis knobs must be >= 1, got up={self.defense_up}, "
+                f"down={self.defense_down}, min_flagged={self.defense_min_flagged}"
+            )
+        if self.defense_floor < 0.0:
+            raise ValueError(
+                "defense_floor must be >= 0 (0 disables the escalation-budget "
+                f"rung floor), got {self.defense_floor}"
+            )
+        if not 0.0 <= self.defense_leak < 1.0:
+            raise ValueError(
+                "defense_leak must be in [0, 1) (per-iteration budget decay), "
+                f"got {self.defense_leak}"
+            )
+        validate_ladder(
+            self.defense_ladder_names(),
+            self.agg if self.defense == "adaptive" else None,
+        )

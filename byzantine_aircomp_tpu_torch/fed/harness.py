@@ -29,6 +29,7 @@ import torch
 from ..utils import io as io_lib
 from . import checkpoint
 from .config import FedConfig
+from ..defense import events as defense_events
 from .train import FAULT_PATHS, Trainer
 
 
@@ -54,6 +55,16 @@ def run_title(cfg: FedConfig) -> str:
     title = f"{cfg.model}_{cfg.opt}_{attack_name}_{cfg.agg}"
     if cfg.noise_var is not None:
         title += f"_{cfg.noise_var}"
+    if _non_default(cfg, "local_steps"):
+        title += f"_E{cfg.local_steps}"
+    if cfg.fedprox_mu:
+        title += f"_prox{cfg.fedprox_mu}"
+    if cfg.server_opt == "momentum":
+        title += f"_momentum{cfg.server_lr}m{cfg.server_momentum}"
+    elif cfg.server_opt != "none":
+        title += f"_{cfg.server_opt}{cfg.server_lr}"
+    if cfg.client_momentum:
+        title += f"_cm{cfg.client_momentum}"
     if cfg.attack_param is not None:
         title += f"_ap{cfg.attack_param}"
     if cfg.krum_m is not None:
@@ -76,10 +87,22 @@ def run_title(cfg: FedConfig) -> str:
         title += f"_dir{cfg.dirichlet_alpha}"
     if cfg.size_skew != "none":
         title += f"_skew{cfg.size_skew.replace(':', '')}"
+    if cfg.participation < 1.0:
+        title += f"_part{cfg.participation}"
+    if cfg.bucket_size > 1:
+        title += f"_bkt{cfg.bucket_size}"
     if cfg.fault is not None:
         title += f"_fault{cfg.fault}"
         for knob, val in sorted(cfg.fault_overrides().items()):
             title += f"_{knob.replace('_', '')}{val}"
+    if cfg.defense != "off":
+        # the mode and its non-default knobs (JAX fed/harness.py:189-195);
+        # an off run keeps the title it had before the defense was ported
+        title += f"_def{cfg.defense}"
+        for knob in FedConfig._DEFENSE_KNOBS:
+            if _non_default(cfg, knob):
+                val = str(getattr(cfg, knob)).replace(",", "-")
+                title += f"_{knob.replace('_', '')}{val}"
     if cfg.mark:
         title += f"_{cfg.mark}"
     return title
@@ -91,6 +114,14 @@ def run_title(cfg: FedConfig) -> str:
 # ``inherit`` exists to extend
 _HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds")
 
+# fields skipped while at their default, so that a config that leaves them
+# there hashes as it did before the field was ported: the sign channel's
+# width, the size skew, and the training options
+_HASH_SKIP_AT_DEFAULT = (
+    "sign_bits", "size_skew", "local_steps", "fedprox_mu", "server_opt", "server_lr",
+    "server_momentum", "client_momentum", "participation", "bucket_size",
+)
+
 
 def config_hash(cfg: FedConfig) -> str:
     """Short stable digest of every result-affecting config field: sha256
@@ -98,12 +129,16 @@ def config_hash(cfg: FedConfig) -> str:
     skip list, the JAX harness's scheme (``fed/harness.py:205-300``).
     ``run_title`` leaves out the seed, the sizes, the data set and more, so
     two cells that share a title could otherwise resume each other's state.
-    As in the JAX package, ``sign_bits`` is skipped at its default 32 and
-    ``size_skew`` at its default "none".  The
+    As in the JAX package, ``sign_bits`` is skipped at its default 32,
+    ``size_skew`` at its default "none", and the defense's fields while it
+    is off (``fed/harness.py:248-253``); the training options are skipped
+    at their defaults too (:data:`_HASH_SKIP_AT_DEFAULT`), so a default run
+    keeps the hash it had before they were ported.  The
     digest is NOT the JAX package's for the same run: the two FedConfigs
     hold different field sets, so their pairs differ."""
-    skip = (_HASH_SKIP + (("sign_bits",) if cfg.sign_bits == 32 else ())
-            + (("size_skew",) if cfg.size_skew == "none" else ()))
+    skip = _HASH_SKIP + tuple(k for k in _HASH_SKIP_AT_DEFAULT if not _non_default(cfg, k))
+    if cfg.defense == "off":
+        skip += ("defense",) + FedConfig._DEFENSE_KNOBS
     items = sorted(
         (f.name, repr(getattr(cfg, f.name)))
         for f in dataclasses.fields(cfg)
@@ -201,23 +236,37 @@ def build_record(
         record["faultOverrides"] = cfg.fault_overrides()
         for key in FAULT_PATHS:
             record[key] = paths[key]
+    if cfg.defense != "off":
+        record["defense"] = cfg.defense
+        record["defenseLadder"] = list(cfg.defense_ladder_names())
+        for key in defense_events.PATH_KEYS.values():
+            record[key] = paths[key]
     return record
 
 
 def extra_state(t: Trainer) -> list:
     """Everything beyond the flat params that a resume needs, as a flat
     list of leaves in the JAX harness's order (``fed/harness.py:407``):
-    ``(server_opt (), client_m (), fault_state, defense (), attack_iter,
-    service (), epoch ())``.  The port has the fault state (its stale
-    buffer and Gilbert-Elliott states, each only where the fault uses it)
-    and the onset counter; the slots of state it does not have yet are
-    empty, so state added later (a server optimizer, client momentum)
-    slots into place.  The order is the
+    ``(server_opt, client_m, fault_state, defense, attack_iter, service (),
+    epoch ())``: the server optimizer's state in optax's leaf order
+    (``[trace]`` or ``[count, mu, nu]``), the [K, d] client momentum, the
+    fault state (its stale buffer and Gilbert-Elliott states, each only
+    where the fault uses it), the detector's (step, ema, dev, cusum) and the
+    policy's (rung, up, down, budget), and the onset counter, each only when
+    its feature is on.  The service slots are empty: the port has no
+    service mode yet.  The order is the
     checkpoint contract: the JAX package reads a port checkpoint of the
     same config leaf for leaf, and the reverse."""
     leaves = []
+    if t.server_opt_state is not None:
+        leaves += list(t.server_opt_state)
+    if t.client_m is not None:
+        leaves.append(t.client_m)
     if t.fault_state is not None:
         leaves += [x for x in t.fault_state if x is not None]
+    if t.defense_state is not None:
+        det, pol = t.defense_state
+        leaves += list(det) + list(pol)
     if t.attack_iter is not None:
         leaves.append(t.attack_iter)
     return leaves
@@ -240,17 +289,25 @@ def restore_trainer(trainer: Trainer, restored, log_fn=None) -> int:
             torch.from_numpy(np.array(leaf)).to(dev).to(o.dtype).reshape(o.shape)
             for leaf, o in zip(extra_leaves, own)
         )
+        if trainer.server_opt_state is not None:
+            trainer.server_opt_state = tuple(next(leaves) for _ in trainer.server_opt_state)
+        if trainer.client_m is not None:
+            trainer.client_m = next(leaves)
         if trainer.fault_state is not None:
             trainer.fault_state = fault_lib.FaultState(
                 *(None if x is None else next(leaves) for x in trainer.fault_state)
             )
+        if trainer.defense_state is not None:
+            det, pol = trainer.defense_state
+            trainer.defense_state = (tuple(next(leaves) for _ in det),
+                                     tuple(next(leaves) for _ in pol))
         if trainer.attack_iter is not None:
             trainer.attack_iter = next(leaves)
     elif len(extra_leaves) != len(own):
         log_fn(
             f"WARNING: checkpoint extra state ({len(extra_leaves)} leaves) does "
-            f"not match this config ({len(own)}); starting the fault and "
-            "attack-onset state fresh"
+            f"not match this config ({len(own)}); starting the server-opt, "
+            "client-momentum, fault, defense and attack-onset state fresh"
         )
     return start_round
 

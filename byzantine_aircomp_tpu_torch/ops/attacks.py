@@ -20,16 +20,24 @@ attack is an :class:`AttackSpec` with three surfaces:
 Byzantine clients occupy the LAST ``byz_size`` rows (``:291-341``).
 ``resolve("name@R")`` delays the onset to round R: the trainer gates every
 surface on a device iteration counter, so before the onset the Byzantine
-rows are bitwise what honest clients would send.  The defense-aware
-attacks of the JAX package (``mimic``, ``under_radar``, ``duty_cycle``)
-need its online defense, which the port does not have yet.
+rows are bitwise what honest clients would send.
+
+Knowledge tiers: *data-only* attacks corrupt their own batches or
+gradients; *omniscient* attacks read the honest rows of the stack;
+*defense-aware* attacks also read the defense's published state, a
+:class:`DefenseView` of the detector's baselines and CUSUMs after the
+previous iteration: ``mimic`` replays the honest client the detector
+trusts most, ``under_radar`` bisects its perturbation so that every
+Byzantine row's next z-score and CUSUM stay under ``margin`` times their
+thresholds, and ``duty_cycle`` bursts and sleeps against the policy's
+hysteresis (JAX ``ops/attacks.py:299-410``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +46,23 @@ from ..registry import ATTACKS
 # bisection steps of the AGR-agnostic attacks' gamma search (JAX
 # ``_agr_message``)
 AGR_STEPS = 25
+
+
+class DefenseView(NamedTuple):
+    """What a defense-aware attacker sees at the message boundary: the
+    detector state the server published after the PREVIOUS iteration (the
+    attack runs before this iteration's scoring), with the per-client rows
+    aligned to the stack, and the detector's and policy's knobs (run
+    configuration, which a strong adversary is assumed to know)."""
+
+    step: torch.Tensor    # i32 scalar: detector iteration counter
+    ema: torch.Tensor     # [K] f32: robust-EMA score baselines
+    dev: torch.Tensor     # [K] f32: robust deviation baselines
+    cusum: torch.Tensor   # [K] f32: one-sided CUSUMs
+    rung: torch.Tensor    # i32 scalar: the ladder rung in force
+    detector: object      # defense.scores.DetectorParams
+    policy: object        # defense.policy.PolicyParams
+    guess: torch.Tensor   # [d] f32: the pre-iteration params (score reference)
 
 
 @dataclass(frozen=True)
@@ -59,25 +84,51 @@ class AttackSpec:
     message_fn: Optional[Callable] = None
     param_name: Optional[str] = None
     onset_round: Optional[int] = None
+    # knowledge tiers: an omniscient message attack reads the honest rows;
+    # a defense-aware one also takes a DefenseView (needs a defense running)
+    omniscient: bool = False
+    defense_aware: bool = False
+
+    def meta(self) -> dict:
+        """Static capability metadata (JAX ``AttackSpec.meta``): ``data_level``
+        (no message rewrite), ``omniscient``, ``defense_aware``, and
+        ``streamable`` (data-level, or a row-local message attack)."""
+        return {
+            "data_level": self.message_fn is None,
+            "omniscient": self.omniscient,
+            "defense_aware": self.defense_aware,
+            "streamable": self.message_fn is None or not self.omniscient,
+        }
 
     def apply_data(self, x, y, num_classes: int):
         if self.data_fn is None:
             return x, y
         return self.data_fn(x, y, num_classes)
 
-    def apply_message(self, wmatrix, byz_size: int, generator=None, param=None, noise=None):
+    def apply_message(self, wmatrix, byz_size: int, generator=None, param=None, noise=None,
+                      defense: Optional[DefenseView] = None):
         """The attacked stack.  ``param`` binds to ``param_name``;
         ``noise`` [byz_size, d] replaces the gaussian attack's draws (the
-        tests feed it the JAX package's)."""
+        tests feed it the JAX package's); ``defense`` is the published
+        detector state a defense-aware attack reads."""
         # checked before the no-op returns, so a knob on a knob-less attack
-        # fails even where the message pass does nothing
+        # (or a defense-aware attack without a view) fails even where the
+        # message pass does nothing
         if param is not None and self.param_name is None:
             raise ValueError(f"attack {self.name!r} takes no scalar parameter")
+        if self.defense_aware and defense is None:
+            raise ValueError(
+                f"attack {self.name!r} is defense-aware: apply_message needs the "
+                "published detector state (defense=DefenseView), which only "
+                "exists under --defense monitor|adaptive"
+            )
         if self.message_fn is None or byz_size == 0:
             return wmatrix
         kw = {self.param_name: param} if param is not None else {}
         if noise is not None:
             kw["noise"] = noise
+        if self.defense_aware:
+            kw["defense"] = defense
         return self.message_fn(wmatrix, byz_size, generator, **kw)
 
 
@@ -209,21 +260,109 @@ def _minsum_message(wmatrix, byz_size, generator, gamma: Optional[float] = None)
     return _agr_message(wmatrix, byz_size, gamma, _minsum_pred)
 
 
+def _mimic_message(wmatrix, byz_size, generator, defense=None):
+    # every Byzantine row replays the honest client the defense trusts most:
+    # the smallest published CUSUM, the EMA baseline as tie-break.  The row
+    # is a genuine honest update; the damage is over-representation
+    honest = wmatrix[:-byz_size]
+    h = honest.shape[0]
+    trust = defense.cusum[:h] + 1e-3 * defense.ema[:h]
+    tgt = torch.argmin(trust)
+    return _with_byz(wmatrix, byz_size, torch.index_select(honest, 0, tgt.reshape(1))[0])
+
+
+def _under_radar_message(wmatrix, byz_size, generator, defense=None, margin: float = 0.9):
+    # Byzantine rows at mu + gamma*u, u blending IPM's anti-mean push with
+    # ALIE's per-coordinate honest-sigma disguise, gamma the largest value
+    # (25 bisection steps) whose predicted detector step keeps every
+    # Byzantine row's z and CUSUM under margin x their thresholds.  Before
+    # the warm-up ends no flag is possible and the bracket's top is taken.
+    # Every step stays on the device: no host sync
+    from ..defense import scores as scores_lib  # defense imports ops
+
+    honest = wmatrix[:-byz_size]
+    mu = honest_mean(honest)
+    sig = torch.std(honest, dim=0, correction=0)
+    mu_n = torch.clamp(torch.linalg.vector_norm(mu), min=1e-12)
+    sig_n = torch.clamp(torch.linalg.vector_norm(sig), min=1e-12)
+    u = -(mu / mu_n + sig / sig_n)
+    u = u / torch.clamp(torch.linalg.vector_norm(u), min=1e-12)
+    dp = defense.detector
+    warm = defense.step >= dp.warmup
+
+    def stack_at(gamma):
+        return _with_byz(wmatrix, byz_size, mu + gamma * u)
+
+    def ok(gamma):
+        score, _ = scores_lib.client_scores(stack_at(gamma), defense.guess)
+        z = (score - defense.ema) / (defense.dev + dp.eps)
+        cus = torch.clamp(
+            torch.clamp(defense.cusum + torch.clamp(z, -dp.clip, dp.clip) - dp.drift, min=0.0),
+            max=2.0 * dp.cusum_thresh,
+        )
+        under = ((z[-byz_size:] <= margin * dp.z_thresh)
+                 & (cus[-byz_size:] <= margin * dp.cusum_thresh))
+        return torch.all(under) | ~warm
+
+    # the bracket's top: twice the honest mean and sigma scale plus the
+    # honest spread; gamma = 0 (the honest mean) is feasible
+    hi = 2.0 * (mu_n + sig_n) + torch.sqrt(torch.max(pairwise_sq_dists(honest)))
+    lo = torch.zeros((), dtype=torch.float32, device=wmatrix.device)
+    for _ in range(AGR_STEPS):
+        mid = 0.5 * (lo + hi)
+        good = ok(mid)
+        lo, hi = torch.where(good, mid, lo), torch.where(good, hi, mid)
+    return stack_at(lo)
+
+
+def duty_cycle_schedule(policy) -> tuple:
+    """``(on_p, period)`` of ``duty_cycle`` from the policy's constants: a
+    burst long enough to climb the whole ladder, then a sleep long enough
+    for the seed hysteresis to come all the way down."""
+    on_p = policy.up_n * policy.n_rungs + 2
+    return on_p, on_p + policy.down_m * policy.n_rungs + 2
+
+
+def _duty_cycle_message(wmatrix, byz_size, generator, defense=None):
+    # signflip for on_p iterations of each period, honest otherwise, keyed
+    # on the detector's step counter (a device scalar)
+    on_p, period = duty_cycle_schedule(defense.policy)
+    active = torch.remainder(defense.step, period) < on_p
+    byz = wmatrix[-byz_size:]
+    return _with_byz(wmatrix, byz_size, torch.where(active, -byz, byz))
+
+
 ATTACKS.register("classflip")(AttackSpec("classflip", data_fn=_classflip_data))
 ATTACKS.register("dataflip")(AttackSpec("dataflip", data_fn=_dataflip_data))
-ATTACKS.register("weightflip")(AttackSpec("weightflip", message_fn=_weightflip_message))
+ATTACKS.register("weightflip")(
+    AttackSpec("weightflip", message_fn=_weightflip_message, omniscient=True)
+)
 ATTACKS.register("signflip")(AttackSpec("signflip", message_fn=_signflip_message))
 ATTACKS.register("gradascent")(AttackSpec("gradascent", grad_scale=-1.0))
-ATTACKS.register("alie")(AttackSpec("alie", message_fn=_alie_message, param_name="z"))
-ATTACKS.register("ipm")(AttackSpec("ipm", message_fn=_ipm_message, param_name="eps"))
+ATTACKS.register("alie")(
+    AttackSpec("alie", message_fn=_alie_message, param_name="z", omniscient=True)
+)
+ATTACKS.register("ipm")(
+    AttackSpec("ipm", message_fn=_ipm_message, param_name="eps", omniscient=True)
+)
 ATTACKS.register("gaussian")(
     AttackSpec("gaussian", message_fn=_gaussian_message, param_name="sigma")
 )
 ATTACKS.register("minmax")(
-    AttackSpec("minmax", message_fn=_minmax_message, param_name="gamma")
+    AttackSpec("minmax", message_fn=_minmax_message, param_name="gamma", omniscient=True)
 )
 ATTACKS.register("minsum")(
-    AttackSpec("minsum", message_fn=_minsum_message, param_name="gamma")
+    AttackSpec("minsum", message_fn=_minsum_message, param_name="gamma", omniscient=True)
+)
+ATTACKS.register("mimic")(
+    AttackSpec("mimic", message_fn=_mimic_message, omniscient=True, defense_aware=True)
+)
+ATTACKS.register("under_radar")(
+    AttackSpec("under_radar", message_fn=_under_radar_message, param_name="margin",
+               omniscient=True, defense_aware=True)
+)
+ATTACKS.register("duty_cycle")(
+    AttackSpec("duty_cycle", message_fn=_duty_cycle_message, defense_aware=True)
 )
 
 

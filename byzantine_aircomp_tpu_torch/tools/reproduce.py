@@ -3,9 +3,8 @@
     python -m byzantine_aircomp_tpu_torch.tools.reproduce --gate
 
 runs four gates of the JAX package's ``tests/test_parity.py`` through the
-port on the GPU, each at four seeds, and holds every config's seed-mean
-final accuracy against the JAX package's own seed-mean (:data:`GATES`,
-each target with its source).  Three are its full-schedule MLP gates
+port on the GPU (:data:`GATES`, each target with its source).  Three are
+its full-schedule MLP gates
 (``test_full_schedule_parity_north_star``, ``..._weightflip_b10``,
 ``..._aircomp``): mnist_hard 20000/10000, K=50, 100 rounds x 10
 iterations, batch 50, ``agg_maxiter=1000``, ``agg_tol=1e-5``.  The fourth
@@ -13,13 +12,23 @@ is its CNN trajectory (``test_mid_schedule_parity_cnn``,
 ``docs/cnn_parity_r04.json``): mnist_hard 6000/3000, the CNN at fc_width
 32, K=6 (B=1) classflip gm2, 45 rounds x 10, batch 16, ``agg_maxiter=100``.
 No run evaluates the train set, and a run's final accuracy is the mean of
-its last 5 val evals.  The bar: every seed above the JAX gate's own floor
-(for the CNN, within 0.03 of the JAX seed-mean, that file's own per-seed
-bar), and the 4-seed mean within :data:`MEAN_BAR` of the JAX seed-mean
-(also reported: whether it is within :data:`MEAN_BAR_TIGHT`).  The two
-packages' random streams (threefry, Philox) are unpaired, so the per-seed
-accuracies differ by seed luck alone; the JAX package's own two ``gm``
-seeds are 0.021 apart.  The result goes to
+its last 5 val evals.  The MLP bar, at seeds 2021-2024: every seed above
+the JAX gate's own floor, and the 4-seed mean within :data:`MEAN_BAR` of
+the JAX seed-mean (also reported: whether it is within
+:data:`MEAN_BAR_TIGHT`).  The two packages' random streams (threefry,
+Philox) are unpaired, so the per-seed accuracies differ by seed luck
+alone; the JAX package's own two ``gm`` seeds are 0.021 apart.
+
+The CNN's runs take off at different rounds from seed to seed: a late
+take-off ends a run below the bar in either package (the JAX package on
+the CPU: 1 seed of 20; the port on the card: 5 of 60), so a bar on each
+of 4 seeds fails about a fifth of honest runs.  Its bar is a distribution
+over seeds 2021-2040 held against the JAX package's own 20 runs of the
+same config (:data:`JAX_CNN_SEEDS`, from ``benchmarks/jax_gate_targets.py``):
+the median of the port's 20 accuracies within :data:`MEAN_BAR` of the JAX
+median, and at most :data:`CNN_MAX_LOW` of the 20 below 0.889 (at the JAX
+package's rate of 1 in 20, 5 or more late seeds has a chance under 0.3%).
+The result goes to
 ``chiprun_out/reproduce_gate.json`` (``--out``); the exit code is 0 only
 when every config passes.
 
@@ -46,6 +55,10 @@ import numpy as np
 
 from ..fed.config import FedConfig
 
+#: the JAX package's 20 runs of the CNN gate config (seeds 2021-2040)
+JAX_CNN_SEEDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "jax_cnn_gate_seeds.json")
+
 # every gate run's data set, schedule and aggregator options
 # (tests/test_parity.py::_run_full_schedule and its three callers)
 GATE_DATA = dict(dataset="mnist_hard", synthetic_train=20000, synthetic_val=10000)
@@ -58,18 +71,22 @@ GATE_COMMON = dict(
     agg_tol=1e-5,
 )
 GATE_SEEDS = (2021, 2022, 2023, 2024)
+CNN_SEEDS = tuple(range(2021, 2041))
 TAIL = 5  # final accuracy = mean of the last TAIL val evals
 MEAN_BAR = 0.01
 MEAN_BAR_TIGHT = 0.005
+# the CNN's distributional bar: at most this many of its 20 seeds below its
+# floor
+CNN_MAX_LOW = 4
 
 
 @dataclass(frozen=True)
 class Gate:
     """One gated config: its FedConfig fields beyond (or over)
     :data:`GATE_COMMON`, the JAX gate's per-seed floor, the JAX seed-mean
-    it is held to, its data (:data:`GATE_DATA` unless stated) and, where
-    the JAX gate bounds each seed on both sides, that bound around the
-    JAX seed-mean."""
+    it is held to, its data (:data:`GATE_DATA` unless stated), its seeds,
+    and, for a distributional bar, the file of the JAX package's per-seed
+    accuracies at the same seeds."""
 
     name: str
     fields: Dict
@@ -77,7 +94,12 @@ class Gate:
     jax_mean: float
     jax_source: str
     data: Dict = field(default_factory=lambda: dict(GATE_DATA))
-    per_seed_abs: Optional[float] = None
+    seeds: tuple = GATE_SEEDS
+    jax_per_seed_file: Optional[str] = None
+
+    def jax_per_seed(self) -> Dict[str, float]:
+        with open(self.jax_per_seed_file) as f:
+            return json.load(f)["per_seed"]
 
 
 GATES = (
@@ -110,11 +132,12 @@ GATES = (
         dict(model="CNN", fc_width=32, honest_size=5, byz_size=1, attack="classflip",
              agg="gm2", rounds=45, batch_size=16, agg_maxiter=100),
         0.91900 - 0.03,
-        0.91900,
-        "docs/cnn_parity_r04.json seed_mean.jax (seeds 2021/2022: "
-        "0.91913/0.91887)",
+        0.91487,
+        "JAX FedTrainer on the CPU, seeds 2021-2040, median 0.91853, 1 of 20 below "
+        "0.889 (tools/jax_cnn_gate_seeds.json, benchmarks/jax_gate_targets.py)",
         data=dict(dataset="mnist_hard", synthetic_train=6000, synthetic_val=3000),
-        per_seed_abs=0.03,
+        seeds=CNN_SEEDS,
+        jax_per_seed_file=JAX_CNN_SEEDS,
     ),
 )
 
@@ -134,16 +157,14 @@ def tail_accuracy(paths: Dict[str, list], tail: int = TAIL) -> float:
 
 
 def judge(gate: Gate, per_seed: Dict[int, float]) -> Dict:
-    """The bar for one config: every seed above the floor (and within
-    ``per_seed_abs`` of the JAX seed-mean where the gate sets it), the
-    seed-mean within :data:`MEAN_BAR` of the JAX seed-mean."""
+    """The bar for one config: every seed above the floor and the seed-mean
+    within :data:`MEAN_BAR` of the JAX seed-mean; or, for a gate with the
+    JAX package's per-seed file, :func:`judge_distribution`."""
+    if gate.jax_per_seed_file is not None:
+        return judge_distribution(gate, per_seed)
     mean = float(np.mean(list(per_seed.values())))
     delta = mean - gate.jax_mean
-    floors_ok = all(
-        a > gate.floor
-        and (gate.per_seed_abs is None or abs(a - gate.jax_mean) <= gate.per_seed_abs)
-        for a in per_seed.values()
-    )
+    floors_ok = all(a > gate.floor for a in per_seed.values())
     return {
         "per_seed": {str(s): a for s, a in per_seed.items()},
         "mean": mean,
@@ -151,7 +172,6 @@ def judge(gate: Gate, per_seed: Dict[int, float]) -> Dict:
         "jax_source": gate.jax_source,
         "delta": delta,
         "floor": gate.floor,
-        "per_seed_abs": gate.per_seed_abs,
         "floors_ok": floors_ok,
         "within_0.01": abs(delta) <= MEAN_BAR,
         "within_0.005": abs(delta) <= MEAN_BAR_TIGHT,
@@ -159,25 +179,57 @@ def judge(gate: Gate, per_seed: Dict[int, float]) -> Dict:
     }
 
 
+def judge_distribution(gate: Gate, per_seed: Dict[int, float]) -> Dict:
+    """The CNN's bar over its 20 seeds: the median accuracy within
+    :data:`MEAN_BAR` of the JAX package's median over the same seeds, and
+    at most :data:`CNN_MAX_LOW` seeds below the floor.  Only the gate's own
+    seeds can pass."""
+    jax = gate.jax_per_seed()
+    accs = list(per_seed.values())
+    median, jax_median = float(np.median(accs)), float(np.median(list(jax.values())))
+    low = sorted(int(s) for s, a in per_seed.items() if not a > gate.floor)
+    mean = float(np.mean(accs))
+    all_seeds = sorted(int(s) for s in per_seed) == list(gate.seeds)
+    return {
+        "per_seed": {str(s): a for s, a in per_seed.items()},
+        "jax_per_seed": jax,
+        "median": median,
+        "jax_median": jax_median,
+        "median_delta": median - jax_median,
+        "seeds_below_floor": low,
+        "jax_seeds_below_floor": sorted(int(s) for s, a in jax.items() if not a > gate.floor),
+        "max_below_floor": CNN_MAX_LOW,
+        "mean": mean,
+        "jax_mean": gate.jax_mean,
+        "jax_source": gate.jax_source,
+        "delta": mean - gate.jax_mean,
+        "floor": gate.floor,
+        "all_seeds": all_seeds,
+        "pass": (all_seeds and abs(median - jax_median) <= MEAN_BAR
+                 and len(low) <= CNN_MAX_LOW),
+    }
+
+
 def run_gate(
     device: str = "cuda",
-    seeds: Sequence[int] = GATE_SEEDS,
+    seeds: Optional[Sequence[int]] = None,
     overrides: Optional[Dict] = None,
     synthetic_train: Optional[int] = None,
     synthetic_val: Optional[int] = None,
     gates: Sequence[Gate] = GATES,
     log_fn=print,
 ) -> Dict:
-    """Every gate config at every seed through :class:`..fed.train.Trainer`
-    (``overrides``: FedConfig fields that cut the schedule; the data sizes,
-    when given, replace every gate's own); returns the JSON-ready result
-    (per config: its data, per-seed accuracies, val accuracy paths and
-    seconds, mean, delta and verdict)."""
+    """Every gate config at each of its seeds (or ``seeds``, for every
+    gate) through :class:`..fed.train.Trainer` (``overrides``: FedConfig
+    fields that cut the schedule; the data sizes, when given, replace every
+    gate's own); returns the JSON-ready result (per config: its data,
+    per-seed accuracies, val accuracy paths and seconds, and the verdict)."""
     from ..data import datasets as data_lib
     from ..fed.train import Trainer
 
     overrides = overrides or {}
-    out = {"configs": {}, "seeds": list(seeds), "overrides": overrides}
+    out = {"configs": {}, "seeds": None if seeds is None else list(seeds),
+           "overrides": overrides}
     loaded = {}
     for gate in gates:
         data = dict(gate.data)
@@ -191,7 +243,7 @@ def run_gate(
             loaded[key] = data_lib.load(kw.pop("dataset"), **kw)
         ds = loaded[key]
         per_seed, secs, acc_paths = {}, {}, {}
-        for seed in seeds:
+        for seed in (gate.seeds if seeds is None else seeds):
             cfg = gate_config(gate, seed, **overrides)
             t0 = time.perf_counter()
             paths = Trainer(cfg, dataset=ds, device=device).train()
@@ -206,9 +258,13 @@ def run_gate(
         res["data"] = data
         out["configs"][gate.name] = res
         log_fn(f"[gate] {gate.name} mean={res['mean']:.5f} jax={gate.jax_mean:.5f} "
-               f"delta={res['delta']:+.5f} pass={res['pass']}")
-    # a cut schedule or a subset of the configs is no pass
-    out["pass"] = (not overrides and set(out["configs"]) == {g.name for g in GATES}
+               f"delta={res['delta']:+.5f}"
+               + (f" median={res['median']:.5f} jax_median={res['jax_median']:.5f} "
+                  f"below {gate.floor:.3f}: {res['seeds_below_floor']}" if "median" in res
+                  else "") + f" pass={res['pass']}")
+    # a cut schedule, other seeds or a subset of the configs is no pass
+    out["pass"] = (not overrides and seeds is None
+                   and set(out["configs"]) == {g.name for g in GATES}
                    and all(r["pass"] for r in out["configs"].values()))
     return out
 
@@ -249,7 +305,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="cut every round's iterations (default: 10)")
     ap.add_argument("--agg-maxiter", type=int, default=None,
                     help="cut the Weiszfeld steps per aggregation (default: 1000)")
-    ap.add_argument("--seeds", type=str, default=",".join(map(str, GATE_SEEDS)))
+    ap.add_argument("--seeds", type=str, default=None,
+                    help="comma-separated seeds for every config (default: each "
+                         "gate's own; other seeds never pass)")
     ap.add_argument("--config", action="append", choices=[g.name for g in GATES],
                     help="run only this gate config (repeatable; default: all)")
     ap.add_argument("--synthetic-train", type=int, default=None,
@@ -279,7 +337,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "agg_maxiter": args.agg_maxiter}
     res = run_gate(
         device=args.device,
-        seeds=[int(s) for s in args.seeds.split(",")],
+        seeds=None if args.seeds is None else [int(s) for s in args.seeds.split(",")],
         overrides={k: v for k, v in cuts.items() if v is not None},
         synthetic_train=args.synthetic_train,
         synthetic_val=args.synthetic_val,

@@ -115,6 +115,24 @@
    CPU for the CNN (gm2) and ResNet-18 (median --var), K=4, within 1e-4;
    and a CNN resume at K=10, 2 rounds straight against 1 round plus
    ``inherit``, bitwise;
+   (u) the CNN, gm2, K=50 (B=10), 5 local steps (FedAvg), FedProx 0.01,
+       server Adam 0.01: ``weiszfeld_step`` at [50, 3,274,634];
+   (v) median --var, signflip, K=1000 (B=100), participation 0.5 (450 +
+       50 drawn), buckets of 2: ``select_columns`` at [250, 7850];
+   (w) cclip against alie, K=50 (B=10), client momentum 0.9, FedAvgM;
+   (x) mean, --defense adaptive (the default ladder), signflip@1, K=50
+       (B=10), 3 rounds: the rung must leave 0 and the trimmed_mean rung
+       launch ``select_columns``; then duty_cycle and mimic 1 round each,
+       finite params;
+   (y) the CNN, median --var, under_radar, --defense monitor, K=50
+       (B=10); under_radar needs a defense to read, so its twin against
+       alie runs under monitor and under off, which must be bitwise equal;
+   run (j) also resumes a second config (MLP K=50, client momentum, server
+   Adam, buckets of 2, trimmed_mean, --defense adaptive with the ladder
+   trimmed_mean,multi_krum), bitwise; and one iteration card vs CPU for
+   the configs of (u) (the CNN at full width, K=4; under Adam the
+   pseudo-gradient, see ``iteration_card_vs_cpu``), (v), (w) and (x) (at
+   rung 1) at small K, within 1e-4;
 
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
@@ -166,9 +184,10 @@ RESNET_D = 11173962
 WIDE_D = 1081345
 # the select_columns shapes timed: the main path's, with bulyan's median of
 # its theta = 30 rows at K=50 and cclip's median of the K=50 delta norms,
-# the EMNIST width's and ResNet-18's
+# the EMNIST width's and ResNet-18's, run (v)'s 250 bucket means and run
+# (y)'s CNN width
 SELECT_TIMED = ((50, 7850), (1000, 7850), (30, 7850), (50, 1), (50, EMNIST_D),
-                (1000, EMNIST_D), (50, RESNET_D))
+                (1000, EMNIST_D), (50, RESNET_D), (250, 7850), (50, CNN_D))
 # (K, d) at which the Weiszfeld steps' fused mode and the popcount are timed
 TIMED = ((50, 7850), (1000, 7850), (50, EMNIST_D), (1000, EMNIST_D), (13, WIDE_D),
          (50, CNN_D), (50, RESNET_D), (200, CIFAR_CNN_D))
@@ -535,7 +554,8 @@ def check_select_and_popcount(torch, kernels, card):
              (50, 1, "adversarial"), (50, 1, "plain"), (1000, 1, "ties"),
              (50, EMNIST_D, "adversarial"), (50, EMNIST_D, "plain"),
              (1000, EMNIST_D, "adversarial"), (1000, EMNIST_D, "plain"),
-             (50, RESNET_D, "adversarial"), (50, RESNET_D, "plain")]
+             (50, RESNET_D, "adversarial"), (50, RESNET_D, "plain"),
+             (250, 7850, "adversarial"), (250, 7850, "plain"), (50, CNN_D, "plain")]
     for k, d, stack in cases:
         timed = (k, d) in SELECT_TIMED and stack == "plain"
         adversarial = stack == "adversarial"
@@ -547,7 +567,7 @@ def check_select_and_popcount(torch, kernels, card):
         b = int(0.1 * k)
         modes = (("median", None), ("median", terms),
                  ("trimmed_mean", None), ("trimmed_mean", terms))
-        if d == RESNET_D:  # run (s)'s rule: the median, with and without the fold
+        if d in (RESNET_D, CNN_D):  # runs (s), (y): the median, with and without the fold
             modes = modes[:2]
         for mode, ch in modes:
             if mode == "median":
@@ -686,21 +706,94 @@ def check_solver_and_iteration(torch):
     return errs
 
 
-def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True):
+class _DeltaTap:
+    """Records the pseudo-gradient ``flat - aggregated`` each trainer hands
+    its server optimizer (``fed.server_opt.step``), per device."""
+
+    def __init__(self):
+        from byzantine_aircomp_tpu_torch.fed import train
+
+        self.module, self.seen = train.server_opt_lib, {}
+
+    def __enter__(self):
+        self.step = self.module.step
+        tap = self
+
+        def step(kind, flat, aggregated, state, lr, momentum):
+            tap.seen[flat.device.type] = (flat - aggregated, state)
+            return tap.step(kind, flat, aggregated, state, lr, momentum)
+
+        self.module.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.module.step = self.step
+
+
+def check_option_iterations(torch, FedConfig):
+    """One iteration card vs CPU for the configs of runs (u)-(x), at
+    small K: (u) the CNN at full width (K=4), 5 local steps, FedProx,
+    server Adam, gm2; (v) median --var under participation 0.5 of 36 + 4
+    and buckets of 2; (w) cclip against alie with client momentum and
+    FedAvgM; (x) the adaptive defense on mean, its policy set to rung 1, so
+    that the trimmed_mean rung aggregates (select_columns on the card)."""
+    from byzantine_aircomp_tpu_torch.data import datasets
+
+    ds = datasets.load("mnist", synthetic_train=3000, synthetic_val=500)
+
+    def rung_one(t):
+        det, (rung, up, down, budget) = t.defense_state
+        t.defense_state = (det, (torch.ones_like(rung), up, down, budget))
+
+    cases = (
+        ("u_cnn_fedavg_prox_adam_gm2", dict(
+            model="CNN", agg="gm2", attack="classflip", honest_size=3, byz_size=1,
+            batch_size=16, agg_maxiter=100, local_steps=5, fedprox_mu=0.01,
+            server_opt="adam", server_lr=0.01), None),
+        ("v_participation_bucketing_median_var", dict(
+            agg="median", attack="signflip", noise_var=1e-2, honest_size=36, byz_size=4,
+            participation=0.5, bucket_size=2), None),
+        ("w_client_momentum_cclip_alie", dict(
+            agg="cclip", attack="alie", honest_size=8, byz_size=2, client_momentum=0.9,
+            server_opt="momentum"), None),
+        ("x_defense_adaptive_rung1_signflip", dict(
+            agg="mean", attack="signflip", defense="adaptive", honest_size=8, byz_size=2),
+         rung_one),
+    )
+    return {label: iteration_card_vs_cpu(torch, FedConfig(**kw), ds, label, prepare=prep)
+            for label, kw, prep in cases}
+
+
+def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True, prepare=None):
     """One iteration of ``cfg`` on the card against the same iteration on
     the CPU (plain versions), from the same params and draws; the new
     params within ``ITER_ATOL`` (where ``hold``), the honest variance
-    within 1e-4 relative, the fault counts equal."""
+    within 1e-4 relative, the fault counts equal.  ``prepare(trainer)``
+    sets both trainers' carried state first.
+
+    Under server Adam the pseudo-gradients are held within ``ITER_ATOL``
+    instead of the params everywhere: Adam's first step sends each
+    coordinate about ``-lr * sign(delta)``, so where the aggregate sits
+    within float rounding of the params a last-bit difference flips the
+    step.  There the card's optimizer on the CPU's pseudo-gradient must
+    give the CPU's params, and the card's own params must match wherever
+    |delta| > 1e-5 (there a 1e-7 error in delta moves Adam's first step by
+    at most ~1e-7)."""
+    from byzantine_aircomp_tpu_torch.fed import server_opt
     from byzantine_aircomp_tpu_torch.fed.train import Trainer
     from byzantine_aircomp_tpu_torch.ops import channel
 
     cpu = Trainer(cfg, dataset=ds, device="cpu")
     gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
+    if prepare is not None:
+        prepare(cpu)
+        prepare(gpu)
     g = torch.Generator().manual_seed(3)
-    k, d = cfg.node_size, cpu.dim
+    m_h, m_b = cfg.participant_counts()
+    k, d = m_h + m_b, cpu.dim
     gm = cfg.agg == "gm"
     draws = {
-        "u": torch.rand(k, cfg.batch_size, generator=g),
+        "u": torch.rand(k, cfg.local_steps * cfg.batch_size, generator=g),
         "fades": (torch.randn(cfg.agg_maxiter, k, generator=g) / 2**0.5,
                   torch.randn(cfg.agg_maxiter, k, generator=g) / 2**0.5) if gm else None,
         "noise": torch.randn(cfg.agg_maxiter, d + 1, generator=g) if gm else None,
@@ -711,14 +804,42 @@ def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True):
         "message": (torch.randn(cfg.byz_size, d, generator=g)
                     if cfg.attack == "gaussian" else None),
     }
-    new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
-    new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=_to(draws, "cuda"),
-                                     want_variance=True)
+    if cfg.participation < 1.0:
+        draws["part"] = cpu.draw_participants(g)
+    if cfg.bucket_size > 1:
+        draws["bucket"] = torch.randperm(k, generator=g)
+    with _DeltaTap() as tap:
+        new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
+        new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=_to(draws, "cuda"),
+                                         want_variance=True)
     diff = (new_gpu.cpu() - new_cpu).abs()
+    out = {}
+    if cfg.server_opt == "adam":
+        (delta_cpu, state_cpu), (delta_gpu, _) = tap.seen["cpu"], tap.seen["cuda"]
+        delta_err = float((delta_gpu.cpu() - delta_cpu).abs().max())
+        upd, _ = server_opt.update("adam", delta_cpu.to("cuda"), _to(state_cpu, "cuda"),
+                                   cfg.server_lr, cfg.server_momentum)
+        replay_err = float((cpu.flat_params.to("cuda") + upd - new_cpu.to("cuda")).abs().max())
+        sure = delta_cpu.abs() > 1e-5
+        out.update(pseudo_gradient_max_abs_err=delta_err, replay_max_abs_err=replay_err,
+                   share_held=float(sure.float().mean()),
+                   max_abs_err_all_coords=float(diff.max()))
+        print(f"{label}: pseudo-gradient card vs CPU max_abs_err={delta_err:.3e}, the card's "
+              f"Adam on the CPU's pseudo-gradient vs the CPU's params {replay_err:.3e}, "
+              f"params held on the {float(sure.float().mean()):.3f} share with |delta| > 1e-5")
+        if delta_err > ITER_ATOL or replay_err > ITER_ATOL:
+            _fail(f"{label}: the pseudo-gradient or the card's Adam disagrees with the CPU")
+        diff = diff[sure.cpu()]
     err = float(diff.max())
     differ = float((diff > 0).float().mean())
-    out = dict(max_abs_err=err, share_of_coords_differing=differ, d=d,
+    out.update(max_abs_err=err, share_of_coords_differing=differ, d=d,
                variance_card=float(var_gpu), variance_cpu=float(var_cpu))
+    if cfg.defense != "off":
+        got = gpu.iteration_defense_metrics.cpu()
+        want = cpu.iteration_defense_metrics
+        out["defense_metrics_card"] = got.tolist()
+        if not torch.equal(got[:3], want[:3]):
+            _fail(f"{label}: the rung or the flag counts differ card vs CPU: {got} {want}")
     fault_str = ""
     if cfg.fault is not None:
         counts_cpu = cpu.iteration_fault_metrics.tolist()
@@ -888,14 +1009,23 @@ def _short(kernel_name):
     return kernel_name.replace("(anonymous namespace)::", "").split("(")[0][:80]
 
 
+def _ranges():
+    """The profiler ranges the port opens: the Weiszfeld loop, the clients'
+    local steps and the adaptive defense's host read of the rung."""
+    from byzantine_aircomp_tpu_torch.defense.policy import RUNG_READ_RANGE
+    from byzantine_aircomp_tpu_torch.fed.train import CLIENT_STEP_RANGE
+    from byzantine_aircomp_tpu_torch.ops.aggregators import WEISZFELD_LOOP_RANGE
+
+    return WEISZFELD_LOOP_RANGE, CLIENT_STEP_RANGE, RUNG_READ_RANGE
+
+
 def _device_events(torch, prof):
     """The device work of a profile: kernels, copies and memsets, without
     the device-side spans of profiler ranges."""
-    from byzantine_aircomp_tpu_torch.ops.aggregators import WEISZFELD_LOOP_RANGE
-
+    names = _ranges()
     return [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.name != WEISZFELD_LOOP_RANGE]
+            and ev.name not in names]
 
 
 def _device_kernels(torch, prof):
@@ -904,25 +1034,24 @@ def _device_kernels(torch, prof):
             if not ev.name.startswith(("Memcpy", "Memset"))]
 
 
-def _weiszfeld_loop_kernels(torch, prof):
-    """The Weiszfeld loops of a profile (``aggregators.WEISZFELD_LOOP_RANGE``
-    ranges): their number, their host ms, and the device kernels launched
-    inside them (copies and memsets left out).  A kernel belongs to a loop
-    when the runtime call that launched it (``cudaLaunchKernel``,
+def _range_kernels(torch, prof, name):
+    """The ranges ``name`` of a profile: their number, their host ms, and
+    the device kernels launched inside them (copies and memsets left out),
+    with those kernels' device ms.  A kernel belongs to a range when the
+    runtime call that launched it (``cudaLaunchKernel``,
     ``cudaLaunchCooperativeKernel``, ...; the same correlation id) started
-    on the host inside the loop's range."""
-    from byzantine_aircomp_tpu_torch.ops.aggregators import WEISZFELD_LOOP_RANGE
-
+    on the host inside the range."""
     cpu = torch.autograd.DeviceType.CPU
     events = list(prof.events())
-    loops = [(ev.time_range.start, ev.time_range.end) for ev in events
-             if ev.device_type == cpu and ev.name == WEISZFELD_LOOP_RANGE]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.device_type == cpu and ev.name == name]
     launched = {ev.id for ev in events
                 if ev.device_type == cpu and ev.name.startswith("cu")
-                and any(s <= ev.time_range.start <= e for s, e in loops)}
-    inside = [ev.name for ev in _device_kernels(torch, prof) if ev.id in launched]
-    host_ms = sum(e - s for s, e in loops) / 1e3
-    return len(loops), host_ms, inside
+                and any(s <= ev.time_range.start <= e for s, e in spans)}
+    inside = [ev for ev in _device_kernels(torch, prof) if ev.id in launched]
+    host_ms = sum(e - s for s, e in spans) / 1e3
+    device_ms = sum(ev.device_time_total for ev in inside) / 1e3
+    return len(spans), host_ms, [ev.name for ev in inside], device_ms
 
 
 # each wrapper's device kernels, as the profiler names them (the Weiszfeld
@@ -980,7 +1109,16 @@ def profile_iteration(torch, kernels, trainer, kernel):
         device_kernels=len(_device_kernels(torch, prof)),
         top_kernels_ms=top,
     )
-    loops, host_ms, inside = _weiszfeld_loop_kernels(torch, prof)
+    weiszfeld, client, rung = _ranges()
+    for label, name in (("client_step", client), ("rung_read", rung)):
+        n, host, kernels_in, device = _range_kernels(torch, prof, name)
+        if n:
+            # the share of the iteration's device time that the range's
+            # kernels take, and its host ms (the rung read: the wait for
+            # the device to drain up to the read)
+            out[label] = dict(ranges=n, host_ms=host, device_ms=device, kernels=len(kernels_in),
+                              share_of_device_ms=device / max(out["device_summed_ms"], 1e-9))
+    loops, host_ms, inside, _ = _range_kernels(torch, prof, weiszfeld)
     if loops:
         # the step kernel's own launches, found in the profile, must be the
         # ones the counter saw: else the profile missed launches
@@ -1047,12 +1185,30 @@ RUNS = (
         agg="signmv", sign_bits=1, sign_eta=0.01, noise_var=1e-2, model="CNN",
         dataset="cifar10_hard", partition="dirichlet", dirichlet_alpha=0.3,
         eval_train=False, honest_size=160, byz_size=40), 1, "packed_vote_counts", 1),
+    ("u_cnn_fedavg_prox_adam_gm2", dict(
+        agg="gm2", model="CNN", honest_size=40, byz_size=10, local_steps=5, fedprox_mu=0.01,
+        server_opt="adam", server_lr=0.01), 1, "weiszfeld_step", 1),
+    ("v_participation_bucketing_median_var", dict(
+        agg="median", attack="signflip", noise_var=1e-2, honest_size=900, byz_size=100,
+        participation=0.5, bucket_size=2), 1, "select_columns", 1),
+    ("w_client_momentum_cclip_alie", dict(
+        agg="cclip", attack="alie", honest_size=40, byz_size=10, client_momentum=0.9,
+        server_opt="momentum"), 1, "select_columns", 3),
+    # the trimmed_mean rung launches select_columns only from its escalation
+    # on: checked by check_escalation, not per iteration
+    ("x_defense_adaptive_signflip", dict(
+        agg="mean", attack="signflip@1", defense="adaptive", honest_size=40, byz_size=10),
+     3, "select_columns", 0),
+    ("y_cnn_defense_monitor_under_radar", dict(
+        agg="median", attack="under_radar", noise_var=1e-2, model="CNN", defense="monitor",
+        honest_size=40, byz_size=10), 1, "select_columns", 1),
 )
 # each run's flat width where it is not the MNIST MLP's 7,850
 RUN_D = {"n_emnist_gm2": EMNIST_D, "o_emnist_median_var_gaussian": EMNIST_D,
          "p_emnist_signmv1_ipm": EMNIST_D, "q_cnn_gm2": CNN_D, "r_cnn_gm_var": CNN_D,
          "s_resnet18_median_var_signflip": RESNET_D,
-         "t_cifar_cnn_dirichlet_signmv1_var": CIFAR_CNN_D}
+         "t_cifar_cnn_dirichlet_signmv1_var": CIFAR_CNN_D, "u_cnn_fedavg_prox_adam_gm2": CNN_D,
+         "y_cnn_defense_monitor_under_radar": CNN_D}
 # runs whose accuracy after 2 rounds must pass 0.3
 ACCURACY_BAR = ("a_gm_var", "i_gm2_chaos", "j_resume_gm2")
 # runs whose params may end non-finite, a check this slice gives up for
@@ -1066,18 +1222,28 @@ ACCURACY_BAR = ("a_gm_var", "i_gm2_chaos", "j_resume_gm2")
 MAY_DIVERGE = ("r_cnn_gm_var",)
 # the run whose message attack runs under torch.cuda.set_sync_debug_mode("error")
 SYNC_GUARDED = "l_minsum_median_var"
+# run (j)'s second resume config: the carried state of the training options
+# and the adaptive defense (server Adam, client momentum, buckets, detector
+# and policy), MLP K=50, 2 rounds cut after round 1
+RESUME_OPTIONS = dict(agg="trimmed_mean", attack="signflip", honest_size=40, byz_size=10,
+                      client_momentum=0.9, server_opt="adam", bucket_size=2,
+                      defense="adaptive", defense_ladder="trimmed_mean,multi_krum")
 
 
 def _same_record(a, b):
     """Two records equal in every entry but ``roundsPerSec`` (host clock);
-    floats compared as bits, NaN included."""
+    floats compared as bits, NaN included (the defense ladder, a list of
+    names, by value)."""
     for key in a:
         if key == "roundsPerSec":
             continue
         x, y = a[key], b[key]
-        if isinstance(x, list):
+        if isinstance(x, list) and all(isinstance(u, float) for u in x + y):
             if len(x) != len(y) or any(
                     struct.pack("<d", u) != struct.pack("<d", v) for u, v in zip(x, y)):
+                return False
+        elif isinstance(x, list):
+            if x != y:
                 return False
         elif x != y:
             return False
@@ -1165,6 +1331,58 @@ def check_real_stack(torch, kernels, trainer, card, steps=3):
     return dict(d=d, k=k, steps=steps, rel_err=errs, ok=ok)
 
 
+def check_escalation(torch, kernels, harness, cfg, record, launches):
+    """Run (x): the rung leaves 0 by round 3 and select_columns (the
+    trimmed_mean rung) launched; then duty_cycle and mimic, 1 round each
+    under the same defense, must end with finite params."""
+    import dataclasses
+
+    rungs = record["defenseRungPath"]
+    print(f"run x defense: rung per round {rungs}, flagged "
+          f"{record['defenseFlaggedPath']}, suspicious {record['defenseSuspiciousPath']}, "
+          f"transitions {record['defenseTransitionsPath']}; select_columns launches "
+          f"{launches['select_columns']}")
+    if not max(rungs) >= 1:
+        _fail(f"run x: the rung never left 0: {rungs}")
+    if launches["select_columns"] < 1:
+        _fail("run x: the trimmed_mean rung never launched select_columns")
+    out = dict(rungs=rungs, select_columns_launches=launches["select_columns"])
+    for attack in ("duty_cycle", "mimic"):
+        t, rec = harness.run_with_trainer(
+            dataclasses.replace(cfg, attack=attack, rounds=1), device="cuda")
+        finite = bool(torch.isfinite(t.flat_params).all())
+        print(f"run x {attack}: params finite={finite} rung {rec['defenseRungPath']} "
+              f"flagged {rec['defenseFlaggedPath']} val_acc {rec['valAccPath'][-1]:.4f}")
+        if not finite:
+            _fail(f"run x {attack}: non-finite params")
+        out[attack] = dict(rungs=rec["defenseRungPath"], val_acc=rec["valAccPath"][-1])
+    return out
+
+
+def check_monitor_is_off(torch, harness, cfg, record):
+    """Run (y): under_radar needs a defense to read (both packages refuse it
+    under --defense off), so the bitwise twin is the same config against
+    the omniscient alie: its --defense monitor run and its --defense off
+    run must end with bitwise the same params and record paths."""
+    import dataclasses
+
+    twin = dataclasses.replace(cfg, attack="alie")
+    mon_t, mon = harness.run_with_trainer(twin, device="cuda")
+    off_t, off = harness.run_with_trainer(dataclasses.replace(twin, defense="off"),
+                                          device="cuda")
+    torch.cuda.synchronize()
+    same_params = torch.equal(off_t.flat_params, mon_t.flat_params)
+    same_paths = _same_record(off, {key: mon[key] for key in off})
+    print(f"run y: under_radar under monitor: rung {record['defenseRungPath']} flagged "
+          f"{record['defenseFlaggedPath']} score max {record['defenseScorePath']}; its alie "
+          f"twin, --defense monitor vs off on the card: params bitwise equal={same_params}, "
+          f"paths bitwise equal={same_paths} (monitor flagged {mon['defenseFlaggedPath']})")
+    if not (same_params and same_paths):
+        _fail("run y: --defense monitor changed the trajectory")
+    return dict(twin_attack="alie", params_bitwise=same_params, paths_bitwise=same_paths,
+                twin_flagged=mon["defenseFlaggedPath"])
+
+
 def check_onset_rows(torch, trainer):
     """Run (m)'s onset: in round 0 the Byzantine rows under ``gradascent@1``
     are bitwise what the same clients send with no attack set; in round 1
@@ -1243,9 +1461,14 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir, labels=No
         t0 = time.perf_counter()
         guard, extra = None, {}
         if label == "j_resume_gm2":
-            # three runs: straight, one round checkpointed, the resume
+            # three runs: straight, one round checkpointed, the resume; and
+            # the same for the training options' and the defense's state
             trainer, record = run_resume(torch, kernels, harness, cfg)
             iterations = 2 * rounds * cfg.display_interval
+            extra["resume_options"] = run_resume(
+                torch, kernels, harness,
+                FedConfig(**RESUME_OPTIONS, rounds=2, display_interval=10, cache_dir=cache_dir),
+                label="j2")[1]["defenseRungPath"]
         elif label == SYNC_GUARDED:
             with _SyncGuard(torch, attacks) as guard:
                 trainer, record = harness.run_with_trainer(cfg, device="cuda")
@@ -1268,6 +1491,11 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir, labels=No
             extra["sync_guarded_attack_calls"] = guard.calls
         if cfg.attack.startswith("gradascent@"):
             extra["onset"] = check_onset_rows(torch, trainer)
+        if label.startswith("x_"):
+            extra["escalation"] = check_escalation(torch, kernels, harness, cfg, record,
+                                                   launches)
+        if label.startswith("y_"):
+            extra["monitor_vs_off"] = check_monitor_is_off(torch, harness, cfg, record)
         if trainer.dim != RUN_D.get(label, 7850):
             _fail(f"run {label}: d = {trainer.dim}, not {RUN_D.get(label, 7850)}")
         finite = bool(torch.isfinite(trainer.flat_params).all())
@@ -1297,7 +1525,8 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir, labels=No
               f"device busy {prof['device_busy_ms']} ms, idle share "
               f"{prof['idle_share']}, {prof['device_kernels']} device kernels; "
               f"{kernel} {prof['kernel_device_ms']:.4f} device ms in "
-              f"{prof['kernel_device_launches']} launch(es); "
+              f"{prof['kernel_device_launches']} launch(es); client step "
+              f"{prof.get('client_step')}; rung read {prof.get('rung_read')}; "
               f"top kernels {prof['top_kernels_ms'][:4]} [{card}]")
         per_step = prof.pop("weiszfeld_per_step", None)
         if kw["agg"] in ("gm", "gm2"):
@@ -1313,6 +1542,9 @@ def run_main_path(torch, kernels, harness, FedConfig, card, cache_dir, labels=No
             if per_step["kernels_per_step"] > most + 1e-9:
                 _fail(f"run {label}: {per_step['kernels_per_step']} CUDA kernels per "
                       f"Weiszfeld step, more than {most}")
+        if cfg.defense != "off":
+            extra["defense_paths"] = {key: record[key] for key in record
+                                      if key.startswith("defense")}
         runs[label] = dict(
             profiled_iteration=prof, weiszfeld_per_step=per_step, d=trainer.dim, **extra,
             config=dict(dict(attack="classflip"), **kw, rounds=rounds, display_interval=10,
@@ -1455,6 +1687,7 @@ def main():
     rows += check_fused(torch, kernels)
     rows += check_select_and_popcount(torch, kernels, card)
     iter_errs = check_solver_and_iteration(torch)
+    iter_errs.update(check_option_iterations(torch, FedConfig))
     root = os.path.dirname(os.path.abspath(__file__))
     cache_dir = os.path.join(root, "build", "chip_smoke")
     runs = run_main_path(torch, kernels, harness, FedConfig, card, cache_dir)

@@ -59,7 +59,9 @@ def test_registered_static_attacks():
             j.name, j.grad_scale, j.param_name, j.onset_round), name
         assert (t.data_fn is None, t.message_fn is None) == (
             j.data_fn is None, j.message_fn is None), name
-    assert set(ATTACKS.names()) == {"classflip", "dataflip", "weightflip", *STATIC}
+    # and the defense-aware tier (tests/test_torch_defense.py)
+    assert set(ATTACKS.names()) == {"classflip", "dataflip", "weightflip", *STATIC,
+                                    "mimic", "under_radar", "duty_cycle"}
 
 
 @pytest.mark.parametrize("name,param", [

@@ -49,9 +49,32 @@ def test_new_flags_parse_like_the_jax_cli():
     (["--cache-dir", "c"], "cache_dir", "c"),
     (["--checkpoint-dir", "d"], "checkpoint_dir", "d"),
     (["--opt", "SGD"], "opt", "SGD"),
+    (["--local-steps", "5"], "local_steps", 5),
+    (["--fedprox-mu", "0.01"], "fedprox_mu", 0.01),
+    (["--server-opt", "adam"], "server_opt", "adam"),
+    (["--server-lr", "0.01"], "server_lr", 0.01),
+    (["--server-momentum", "0.8"], "server_momentum", 0.8),
+    (["--client-momentum", "0.9"], "client_momentum", 0.9),
+    (["--participation", "0.5"], "participation", 0.5),
+    (["--bucket-size", "2"], "bucket_size", 2),
+    (["--defense", "monitor"], "defense", "monitor"),
+    (["--defense-ladder", "mean,median"], "defense_ladder", "mean,median"),
+    (["--defense-warmup", "3"], "defense_warmup", 3),
+    (["--defense-alpha", "0.2"], "defense_alpha", 0.2),
+    (["--defense-drift", "0.4"], "defense_drift", 0.4),
+    (["--defense-cusum", "6"], "defense_cusum", 6.0),
+    (["--defense-z", "3.5"], "defense_z", 3.5),
+    (["--defense-up", "2"], "defense_up", 2),
+    (["--defense-down", "10"], "defense_down", 10),
+    (["--defense-min-flagged", "2"], "defense_min_flagged", 2),
+    (["--defense-floor", "1.2"], "defense_floor", 1.2),
+    (["--defense-leak", "0.01"], "defense_leak", 0.01),
 ])
 def test_each_flag_reaches_its_field(argv, field, value):
+    """Each flag sets its field, as the JAX CLI's does."""
     assert getattr(_port(argv), field) == value
+    want = jcli.config_from_args(jcli.build_parser().parse_args(argv), argv)
+    assert getattr(want, field) == value
 
 
 @pytest.mark.parametrize("argv,device", [

@@ -487,3 +487,116 @@ def test_message_attacks_need_no_host_sync_on_the_card(cuda):
         want = attacks.resolve(name).apply_message(
             w.cpu(), 10, None, noise=noise.cpu() if name == "gaussian" else None)
         torch.testing.assert_close(out.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,d,path", [(250, 7850, 1), (50, 3274634, 0)])
+def test_select_columns_at_the_option_runs_shapes(cuda, k, d, path):
+    """Run (v)'s 250 bucket means at d = 7850 and run (y)'s CNN width."""
+    w, terms = _select_inputs(k, d, cuda)
+    assert kernels.select_plan(w.device, k, d)["path"] == path
+    for ch in (None, terms):
+        _check_select(w, ch, int(0.1 * k))
+
+
+def _option_iteration(cfg_kw, prepare=None):
+    """One iteration of a training-option or defense config on the card and
+    on the CPU from the same params and draws; returns both new params and
+    the card trainer."""
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+    from byzantine_aircomp_tpu_torch.ops import channel
+
+    ds = datasets.load("mnist", synthetic_train=2000, synthetic_val=200)
+    cfg = FedConfig(**cfg_kw)
+    cpu = Trainer(cfg, dataset=ds, device="cpu")
+    gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
+    for t in (cpu, gpu):
+        if prepare is not None:
+            prepare(t)
+    g = torch.Generator().manual_seed(5)
+    m_h, m_b = cfg.participant_counts()
+    m = m_h + m_b
+    draws = {"u": torch.rand(m, cfg.local_steps * cfg.batch_size, generator=g),
+             "oma": channel.oma_terms(m, cpu.dim, 1e-2, generator=g)}
+    if cfg.participation < 1.0:
+        draws["part"] = cpu.draw_participants(g)
+    if cfg.bucket_size > 1:
+        draws["bucket"] = torch.randperm(m, generator=g)
+    new_cpu, _ = cpu.iteration(cpu.flat_params, draws=draws)
+    on_card = {key: (channel.OmaTerms(*(x.cuda() for x in v)) if key == "oma" else v.cuda())
+               for key, v in draws.items()}
+    new_gpu, _ = gpu.iteration(gpu.flat_params, draws=on_card)
+    torch.cuda.synchronize()
+    return new_cpu, new_gpu.cpu(), gpu
+
+
+def test_participation_buckets_median_var_on_the_card_equal_the_cpu(cuda):
+    before = kernels.LAUNCHES["select_columns"]
+    new_cpu, new_gpu, _ = _option_iteration(dict(
+        agg="median", attack="signflip", noise_var=1e-2, honest_size=36, byz_size=4,
+        participation=0.5, bucket_size=2))
+    assert kernels.LAUNCHES["select_columns"] == before + 1
+    torch.testing.assert_close(new_gpu, new_cpu, rtol=0, atol=1e-4)
+
+
+def test_client_momentum_cclip_on_the_card_equals_the_cpu(cuda):
+    before = kernels.LAUNCHES["select_columns"]
+    new_cpu, new_gpu, gpu = _option_iteration(dict(
+        agg="cclip", attack="alie", honest_size=40, byz_size=10, client_momentum=0.9,
+        server_opt="momentum"))
+    assert kernels.LAUNCHES["select_columns"] == before + 3
+    assert gpu.client_m.shape == (50, 7850) and bool(torch.isfinite(gpu.client_m).all())
+    torch.testing.assert_close(new_gpu, new_cpu, rtol=0, atol=1e-4)
+
+
+def test_adaptive_rung_one_launches_select_columns(cuda):
+    """The adaptive defense at rung 1 aggregates with trimmed_mean:
+    select_columns on the card, within 1e-4 of the CPU."""
+    def rung_one(t):
+        det, (rung, up, down, budget) = t.defense_state
+        t.defense_state = (det, (torch.ones_like(rung), up, down, budget))
+
+    before = kernels.LAUNCHES["select_columns"]
+    new_cpu, new_gpu, gpu = _option_iteration(dict(
+        agg="mean", attack="signflip", defense="adaptive", honest_size=40, byz_size=10),
+        prepare=rung_one)
+    assert kernels.LAUNCHES["select_columns"] == before + 1
+    torch.testing.assert_close(new_gpu, new_cpu, rtol=0, atol=1e-4)
+    assert gpu.iteration_defense_metrics.shape == (5,)
+
+
+def test_defense_aware_attacks_need_no_host_sync_on_the_card(cuda):
+    """under_radar's 25 bisection steps, mimic and duty_cycle read nothing
+    back to the host, and agree with the CPU within 1e-5."""
+    from byzantine_aircomp_tpu_torch import defense
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.ops import attacks
+
+    spec = defense.from_config(FedConfig(defense="adaptive", agg="mean"))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    guess = 0.1 * torch.randn(7850, device=cuda, generator=g)
+    w = guess + 0.01 * torch.randn(50, 7850, device=cuda, generator=g)
+
+    def view(dev):
+        gen = torch.Generator().manual_seed(1)
+        return attacks.DefenseView(
+            step=torch.tensor(9, dtype=torch.int32, device=dev),
+            ema=torch.rand(50, generator=gen).to(dev),
+            dev=(0.1 + torch.rand(50, generator=gen)).to(dev),
+            cusum=(3 * torch.rand(50, generator=gen)).to(dev),
+            rung=torch.tensor(0, dtype=torch.int32, device=dev),
+            detector=spec.detector, policy=spec.policy, guess=guess.to(dev))
+
+    card_view = view(cuda)  # made before the guard: a copy to the card syncs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {name: attacks.resolve(name).apply_message(w, 10, None, defense=card_view)
+                for name in ("mimic", "under_radar", "duty_cycle")}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        want = attacks.resolve(name).apply_message(w.cpu(), 10, None, defense=view("cpu"))
+        torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -125,7 +125,8 @@ def test_config_fields_mirror_jax_fedconfig():
     (dict(byz_size=2), "requires an attack"),
     (dict(honest_size=0), "honest_size"),
     (dict(agg="bulyan", attack="classflip", honest_size=6, byz_size=2), "K > 4B"),
-    (dict(attack="mimic", byz_size=1), "unknown attack"),
+    (dict(attack="mimic", byz_size=1), "defense-aware"),
+    (dict(attack="nope", byz_size=1), "unknown attack"),
     (dict(display_interval=0), "display_interval"),
     (dict(agg="median", sign_bits=1, sign_eta=0.1), "only signmv"),
     (dict(agg="signmv", sign_bits=1), "sign-eta"),
