@@ -24,6 +24,15 @@ The training options: ``--local-steps E`` (FedAvg), ``--fedprox-mu``,
 enables the defense-aware attacks ``mimic``, ``under_radar`` and
 ``duty_cycle``.
 
+Service rounds: ``--service on --population P`` (a multiple of K) with
+``--churn-arrival``, ``--churn-departure``, ``--straggler-prob`` and the
+warm rollback's ``--rollback``, ``--rollback-loss-factor``,
+``--rollback-cusum``, ``--rollback-widen`` and ``--rollback-max``.
+Cohort-streamed rounds: ``--cohort-size C`` (C divides the honest and the
+Byzantine counts; mean, median, trimmed_mean or gm2) with
+``--cohort-quantile exact|sketch`` and ``--cohort-sketch-bins``; the two
+compose.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -181,6 +190,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "pins at 1 (0 disables the floor)")
     p.add_argument("--defense-leak", type=float, default=0.005,
                    help="per-iteration decay rate of the escalation budget")
+    p.add_argument("--cohort-size", type=int, default=0,
+                   help="stream the round over client chunks of this size instead "
+                        "of the resident [K, d] stack (peak memory O(cohort*d)); "
+                        "must divide the honest and Byzantine sizes; 0 = resident")
+    p.add_argument("--cohort-quantile", choices=["exact", "sketch"], default="exact",
+                   help="streamed median/trimmed_mean: exact key bisection (32 "
+                        "counting passes) or a mergeable histogram sketch")
+    p.add_argument("--cohort-sketch-bins", type=int, default=512,
+                   help="histogram resolution of the quantile sketch")
+    # service rounds; the knob flags require --service on
+    p.add_argument("--service", choices=["off", "on"], default="off",
+                   help="service rounds: draw each iteration's K participants from "
+                        "a --population with churn and a deadline, with warm "
+                        "rollback")
+    p.add_argument("--population", type=int, default=0,
+                   help="registered client population, a positive multiple of K")
+    p.add_argument("--churn-arrival", type=float, default=0.02,
+                   help="per-iteration probability an offline client comes back")
+    p.add_argument("--churn-departure", type=float, default=0.01,
+                   help="per-iteration probability an online client leaves")
+    p.add_argument("--straggler-prob", type=float, default=0.0,
+                   help="per-iteration probability a drawn client misses the "
+                        "deadline (its row is erased)")
+    p.add_argument("--rollback", choices=["off", "on"], default="on",
+                   help="warm rollback: on divergence restore the last good round "
+                        "and go on with a widened trim under salted draws")
+    p.add_argument("--rollback-loss-factor", type=float, default=3.0,
+                   help="trip when the val loss exceeds this multiple of the "
+                        "recent median")
+    p.add_argument("--rollback-cusum", type=float, default=0.0,
+                   help="trip when the defense CUSUM peak reaches this (0 = off; "
+                        "requires --defense)")
+    p.add_argument("--rollback-widen", type=float, default=1.5,
+                   help="trim-fraction multiplier of each rollback")
+    p.add_argument("--rollback-max", type=int, default=3,
+                   help="rollbacks per run")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
     return p
@@ -191,6 +236,10 @@ _TRUE, _FALSE = ("true", "1", "yes", "on"), ("false", "0", "no", "off")
 # the --defense flags, as suffixes of their FedConfig fields
 _DEFENSE_SUFFIXES = ("", "_ladder", "_warmup", "_alpha", "_drift", "_cusum", "_z", "_up",
                      "_down", "_min_flagged", "_floor", "_leak")
+
+# the cohort and service flags: their FedConfig fields, as named
+_STREAM_SERVICE_FIELDS = ("cohort_size", "cohort_quantile", "cohort_sketch_bins") + (
+    ("service",) + FedConfig._SERVICE_KNOBS)
 
 
 def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:
@@ -257,6 +306,7 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
         participation=args.participation,
         bucket_size=args.bucket_size,
         **{f"defense{name}": getattr(args, f"defense{name}") for name in _DEFENSE_SUFFIXES},
+        **{name: getattr(args, name) for name in _STREAM_SERVICE_FIELDS},
         attack_param=args.attack_param,
         cache_dir=args.cache_dir,
         eval_train=args.eval_train,

@@ -24,6 +24,7 @@ from .policy import (  # noqa: F401
     aggregate_rung,
     init_policy,
     policy_update,
+    stream_aggregate_rung,
     validate_ladder,
 )
 from .scores import (  # noqa: F401

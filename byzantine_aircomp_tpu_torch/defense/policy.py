@@ -98,11 +98,26 @@ def validate_ladder(names: Sequence[str], base_agg: "str | None") -> None:
 RUNG_READ_RANGE = "defense_rung_read"
 
 
+def _rung_name(rung: torch.Tensor, ladder: Sequence[str]) -> str:
+    with torch.profiler.record_function(RUNG_READ_RANGE):
+        return ladder[int(rung)]
+
+
 def aggregate_rung(rung: torch.Tensor, ladder: Sequence[str], w_agg: torch.Tensor, **kw):
     """The rung's aggregator on ``w_agg`` with the trainer's keyword surface
     (every aggregator takes ``**_``).  The rung is read on the host here
     (inside the profiler range ``RUNG_READ_RANGE``), the one host sync the
-    adaptive defense adds to an iteration."""
-    with torch.profiler.record_function(RUNG_READ_RANGE):
-        name = ladder[int(rung)]
-    return AGGREGATORS.get(name)(w_agg, **kw).to(torch.float32)
+    adaptive defense adds to an iteration.  Under service rounds ``kw``
+    carries the rollback-widened ``trim_ratio`` as a device f32 scalar,
+    which only the degraded trimmed_mean reads (JAX
+    ``_defense_branches(agg_honest, trim_ratio)``)."""
+    return AGGREGATORS.get(_rung_name(rung, ladder))(w_agg, **kw).to(torch.float32)
+
+
+def stream_aggregate_rung(rung: torch.Tensor, ladder: Sequence[str], rebuild, **kw):
+    """:func:`aggregate_rung` for a cohort-streamed round: the rung's
+    streamed rule (``ops.aggregators.stream_aggregate``) over the chunks
+    that ``rebuild`` remakes."""
+    from ..ops import aggregators as agg_lib
+
+    return agg_lib.stream_aggregate(_rung_name(rung, ladder), rebuild, **kw).to(torch.float32)

@@ -20,7 +20,7 @@ the baselines.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -107,17 +107,23 @@ def client_scores(w_stack: torch.Tensor, guess: torch.Tensor):
 
 
 def detector_update(det: DetectorState, score: torch.Tensor, finite: torch.Tensor,
-                    p: DetectorParams):
+                    p: DetectorParams, first: Optional[torch.Tensor] = None):
     """One detector step; returns ``(new state, flags [K] bool)``.
 
     Step 0 seeds the EMA and the deviation from the first score; after that
     the innovation is clipped at ``p.clip`` robust sigmas.  The CUSUM runs
     from the end of the warm-up on the clipped z and saturates at twice its
     threshold, so that it decays in bounded time once an attacker goes
-    quiet.  Non-finite rows keep their state and never flag."""
+    quiet.  Non-finite rows keep their state and never flag.
+
+    ``first`` ([rows] bool) replaces the seeding condition ``step == 0``:
+    under service rounds the rows are those of the drawn population ids,
+    whose first observation can come at any step, and the trainer passes
+    their never-updated marker ``dev == 0``."""
     step, ema, dev, cusum = det
     warm = step >= p.warmup
-    first = step == 0
+    if first is None:
+        first = step == 0
 
     sigma = dev + p.eps
     resid = score - ema

@@ -2,14 +2,16 @@
 
 A subset of ``byzantine_aircomp_tpu/fed/config.py`` (the main path, every
 aggregation rule's knobs, the fault channel's, the models' widths, the
-client partition, the training options and the online defense): the same
-field names
+client partition, the training options, the online defense, cohort
+streaming and service rounds): the same field names
 and defaults, which mirror the reference's ``optConfig`` / CLI
 surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
 rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
 2021, gm/gm2 maxiter 1000 tol 1e-5 (``:350``).  There is no ``agg_impl``:
 on CUDA the hand-written kernels always run, on the CPU their plain
-versions.
+versions.  The JAX package's multi-round dispatch (``rounds_per_dispatch``
+and its knobs) and population sharding (``pop_shards``) are not ported
+yet, nor are its observability, profiling and execution-layout fields.
 """
 
 from __future__ import annotations
@@ -151,6 +153,41 @@ class FedConfig:
     # bucketing (Karimireddy, He & Jaggi, ICLR 2022): the rule aggregates the
     # means of random disjoint buckets of this many messages; 1 = off
     bucket_size: int = 1
+    # cohort streaming: when > 0 the round never holds the [K, d] stack;
+    # every aggregation pass rebuilds one cohort_size-client chunk at a
+    # time (peak memory O(cohort*d)).  0 = the resident path.  Must divide
+    # the participating honest and Byzantine counts, so that every chunk is
+    # purely honest or purely Byzantine; needs a streamable rule (mean,
+    # median, trimmed_mean, gm2), a row-local or data-level attack, and no
+    # stale-replay fault
+    cohort_size: int = 0
+    # the streamed median/trimmed_mean: "exact" (32 counting passes of a
+    # key bisection, the resident ranks) or "sketch" (a mergeable [bins, d]
+    # key histogram, 2 passes, error within one bucket width)
+    cohort_quantile: str = "exact"
+    cohort_sketch_bins: int = 512
+    # service rounds: a population of `population` stable client ids
+    # (honest ids first, in proportion) with Markov churn; every iteration
+    # draws honest_size + byz_size of them from the available ones, and a
+    # deadline erases the absent and late rows to NaN (the rules run
+    # degraded).  "off" draws and hashes exactly as before the fields
+    service: str = "off"
+    population: int = 0
+    # per-iteration probabilities: an offline id comes back, an online one
+    # leaves, an arrived participant misses the deadline
+    churn_arrival: float = 0.02
+    churn_departure: float = 0.01
+    straggler_prob: float = 0.0
+    # warm rollback: on a non-finite loss or variance, a val-loss spike past
+    # rollback_loss_factor x the recent median, or (with a defense and
+    # rollback_cusum > 0) a CUSUM peak past rollback_cusum, restore the last
+    # good round, widen the trim fraction by rollback_widen and go on under
+    # salted draws; at most rollback_max restores per run
+    rollback: str = "on"
+    rollback_loss_factor: float = 3.0
+    rollback_cusum: float = 0.0
+    rollback_widen: float = 1.5
+    rollback_max: int = 3
 
     # eval
     eval_batch: int = 2000
@@ -186,6 +223,18 @@ class FedConfig:
         "defense_min_flagged", "defense_floor", "defense_leak",
     )
 
+    # cohort knobs that need cohort_size > 0; harness.config_hash skips them
+    # (and cohort_size) at 0
+    _COHORT_KNOBS = ("cohort_quantile", "cohort_sketch_bins")
+
+    # service knobs that need --service on; harness.config_hash skips them
+    # (and service) while it is off
+    _SERVICE_KNOBS = (
+        "population", "churn_arrival", "churn_departure", "straggler_prob",
+        "rollback", "rollback_loss_factor", "rollback_cusum",
+        "rollback_widen", "rollback_max",
+    )
+
     @property
     def node_size(self) -> int:
         return self.honest_size + self.byz_size
@@ -203,6 +252,13 @@ class FedConfig:
                 int(self.participation * self.byz_size + 1e-9),
             )
         return self.honest_size, self.byz_size
+
+    def population_counts(self) -> tuple:
+        """(honest, Byzantine) population block sizes under --service on
+        (JAX ``fed/config.py:361``): ids [0, pop_h) are honest, [pop_h,
+        population) Byzantine, in the proportion of the node counts."""
+        per = self.population // self.node_size
+        return per * self.honest_size, per * self.byz_size
 
     def defense_ladder_names(self) -> tuple:
         """The escalation ladder as a tuple of aggregator names."""
@@ -327,6 +383,8 @@ class FedConfig:
         agg_lib.resolve(self.agg)
         # an unknown name, or a malformed "name@R", raises here
         attack = attack_lib.resolve(self.attack)
+        self._validate_cohort(part_h, part_b, attack, spec)
+        self._validate_service()
         if attack is not None and attack.defense_aware and self.defense == "off":
             raise ValueError(
                 f"attack {self.attack!r} is defense-aware (it reads the published "
@@ -468,3 +526,141 @@ class FedConfig:
             self.defense_ladder_names(),
             self.agg if self.defense == "adaptive" else None,
         )
+
+    def _untouched(self, kind: str, knobs, needs: str):
+        """Raise when a knob of ``knobs`` is off its default (it would do
+        nothing without ``needs``)."""
+        defaults = {f.name: f.default for f in fields(self)}
+        touched = sorted(k for k in knobs if getattr(self, k) != defaults[k])
+        if touched:
+            raise ValueError(
+                f"{kind} knobs {touched} require {needs} (they would otherwise "
+                "silently do nothing)"
+            )
+
+    def _validate_cohort(self, part_h: int, part_b: int, attack, fault):
+        """Cohort streaming (JAX ``fed/config.py:839-940``)."""
+        from ..ops import aggregators as agg_lib
+
+        if self.cohort_size < 0:
+            raise ValueError(f"cohort_size must be >= 0, got {self.cohort_size}")
+        if self.cohort_size == 0:
+            self._untouched("cohort", self._COHORT_KNOBS, "--cohort-size > 0")
+            return
+        if self.cohort_quantile not in ("exact", "sketch"):
+            raise ValueError(
+                f"cohort_quantile must be 'exact' or 'sketch', got {self.cohort_quantile!r}"
+            )
+        if self.cohort_sketch_bins < 2:
+            raise ValueError(
+                f"cohort_sketch_bins must be >= 2, got {self.cohort_sketch_bins}"
+            )
+        # under partial participation the chunks walk the drawn clients
+        if part_h % self.cohort_size or part_b % self.cohort_size:
+            raise ValueError(
+                f"cohort_size {self.cohort_size} must divide both the {part_h} "
+                f"participating honest and {part_b} participating Byzantine clients "
+                "(each streamed chunk must be purely honest or purely Byzantine)"
+            )
+        if self.bucket_size != 1:
+            raise ValueError(
+                "bucketing shuffles rows across cohorts before aggregation, which "
+                "needs the resident stack; use --cohort-size 0 with --bucket-size"
+            )
+        if self.client_momentum != 0.0:
+            raise ValueError(
+                "client_momentum carries a resident [K, d] state buffer, exactly "
+                "the allocation the streamed path removes"
+            )
+        rungs = {self.agg}
+        if self.defense == "adaptive":
+            rungs |= set(self.defense_ladder_names())
+        for rung in sorted(rungs):
+            if not agg_lib.streamable(rung):
+                raise ValueError(
+                    f"aggregator {rung!r} has no streaming/mergeable formulation "
+                    "(needs the resident [K, d] stack); streamable: mean, median, "
+                    "trimmed_mean, gm2"
+                )
+        if attack is not None and not attack.meta()["streamable"]:
+            raise ValueError(
+                f"attack {self.attack!r} is omniscient (reads the honest rows of the "
+                "resident stack) and cannot run under cohort streaming; use "
+                "--cohort-size 0 for it"
+            )
+        if fault is not None and fault.needs_stale:
+            raise ValueError(
+                f"fault {self.fault!r} keeps a resident [K, d] stale-replay buffer "
+                "(dropout_prob > 0), exactly the allocation the streamed path "
+                "removes; deep_fade/csi/corrupt stream fine"
+            )
+
+    def _validate_service(self):
+        """Service rounds (JAX ``fed/config.py:942-1040``)."""
+        if self.service not in ("off", "on"):
+            raise ValueError(f"service must be 'off' or 'on', got {self.service!r}")
+        if self.service == "off":
+            self._untouched("service", self._SERVICE_KNOBS, "--service on")
+            return
+        if self.population < self.node_size or self.population % self.node_size:
+            raise ValueError(
+                f"--service on needs --population set to a positive multiple of "
+                f"node_size {self.node_size} (got {self.population}): the "
+                "honest/Byzantine split over stable ids must stay proportional"
+            )
+        if self.participation != 1.0:
+            raise ValueError(
+                "--service on replaces the --participation draw (the per-iteration "
+                "subsample is the participation model); leave participation at 1.0"
+            )
+        if self.fault is not None:
+            raise ValueError(
+                "--service on subsumes fault injection (stragglers and churn are "
+                "its dropout model, and the fault state is [K]-row-indexed); use "
+                "--straggler-prob instead"
+            )
+        if self.bucket_size != 1:
+            raise ValueError(
+                "--service on closes rounds with NaN rows for missed deadlines; a "
+                "bucket mean would spread a NaN over its bucket; use --bucket-size 1"
+            )
+        if self.client_momentum != 0.0:
+            raise ValueError(
+                "client_momentum keeps a [K, d] per-row buffer; under per-iteration "
+                "subsampling it would need one per population id; use server_opt "
+                "momentum instead"
+            )
+        if not (0.0 <= self.churn_arrival <= 1.0 and 0.0 <= self.churn_departure <= 1.0):
+            raise ValueError(
+                f"churn rates are per-iteration probabilities in [0, 1], got "
+                f"arrival={self.churn_arrival}, departure={self.churn_departure}"
+            )
+        if not 0.0 <= self.straggler_prob < 1.0:
+            raise ValueError(
+                f"straggler_prob must be in [0, 1) (at 1.0 every round closes "
+                f"empty), got {self.straggler_prob}"
+            )
+        if self.rollback not in ("off", "on"):
+            raise ValueError(f"rollback must be 'off' or 'on', got {self.rollback!r}")
+        if self.rollback_loss_factor <= 1.0:
+            raise ValueError(
+                f"rollback_loss_factor must be > 1 (a spike factor over the recent "
+                f"val-loss median), got {self.rollback_loss_factor}"
+            )
+        if self.rollback_cusum < 0.0:
+            raise ValueError(
+                f"rollback_cusum must be >= 0 (0 disables the CUSUM guard), got "
+                f"{self.rollback_cusum}"
+            )
+        if self.rollback_cusum > 0.0 and self.defense == "off":
+            raise ValueError(
+                "rollback_cusum reads the defense CUSUM state; it requires "
+                "--defense monitor|adaptive"
+            )
+        if self.rollback_widen < 1.0:
+            raise ValueError(
+                f"rollback_widen must be >= 1 (the trim fraction only widens), got "
+                f"{self.rollback_widen}"
+            )
+        if self.rollback_max < 1:
+            raise ValueError(f"rollback_max must be >= 1, got {self.rollback_max}")

@@ -21,7 +21,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ from ..utils import io as io_lib
 from . import checkpoint
 from .config import FedConfig
 from ..defense import events as defense_events
-from .train import FAULT_PATHS, Trainer
+from .train import FAULT_PATHS, SERVICE_PATHS, Trainer
 
 
 def log(*k, **kw):
@@ -91,6 +91,19 @@ def run_title(cfg: FedConfig) -> str:
         title += f"_part{cfg.participation}"
     if cfg.bucket_size > 1:
         title += f"_bkt{cfg.bucket_size}"
+    if cfg.cohort_size > 0:
+        # the streamed round adds in another order and draws each chunk's
+        # terms apart: its runs never alias resident ones
+        title += f"_cohort{cfg.cohort_size}"
+        for knob in FedConfig._COHORT_KNOBS:
+            if _non_default(cfg, knob):
+                title += f"_{knob.replace('cohort_', '')}{getattr(cfg, knob)}"
+    if cfg.service == "on":
+        # (JAX fed/harness.py:145-160) then the service knobs
+        title += f"_pop{cfg.population}_sub{cfg.node_size}"
+        for knob in FedConfig._SERVICE_KNOBS:
+            if knob != "population" and _non_default(cfg, knob):
+                title += f"_{knob.replace('_', '')}{getattr(cfg, knob)}"
     if cfg.fault is not None:
         title += f"_fault{cfg.fault}"
         for knob, val in sorted(cfg.fault_overrides().items()):
@@ -130,8 +143,9 @@ def config_hash(cfg: FedConfig) -> str:
     ``run_title`` leaves out the seed, the sizes, the data set and more, so
     two cells that share a title could otherwise resume each other's state.
     As in the JAX package, ``sign_bits`` is skipped at its default 32,
-    ``size_skew`` at its default "none", and the defense's fields while it
-    is off (``fed/harness.py:248-253``); the training options are skipped
+    ``size_skew`` at its default "none", the defense's fields while it is
+    off, the cohort fields at ``cohort_size`` 0 and the service fields
+    while it is off (``fed/harness.py:248-264``); the training options are skipped
     at their defaults too (:data:`_HASH_SKIP_AT_DEFAULT`), so a default run
     keeps the hash it had before they were ported.  The
     digest is NOT the JAX package's for the same run: the two FedConfigs
@@ -139,6 +153,12 @@ def config_hash(cfg: FedConfig) -> str:
     skip = _HASH_SKIP + tuple(k for k in _HASH_SKIP_AT_DEFAULT if not _non_default(cfg, k))
     if cfg.defense == "off":
         skip += ("defense",) + FedConfig._DEFENSE_KNOBS
+    # (JAX fed/harness.py:254-264): a config without cohorts or service
+    # hashes as it did before those fields were ported
+    if cfg.cohort_size == 0:
+        skip += ("cohort_size",) + FedConfig._COHORT_KNOBS
+    if cfg.service == "off":
+        skip += ("service",) + FedConfig._SERVICE_KNOBS
     items = sorted(
         (f.name, repr(getattr(cfg, f.name)))
         for f in dataclasses.fields(cfg)
@@ -241,20 +261,25 @@ def build_record(
         record["defenseLadder"] = list(cfg.defense_ladder_names())
         for key in defense_events.PATH_KEYS.values():
             record[key] = paths[key]
+    if cfg.service == "on":
+        record["service"] = cfg.service
+        record["population"] = cfg.population
+        for key in SERVICE_PATHS:
+            record[key] = paths[key]
     return record
 
 
 def extra_state(t: Trainer) -> list:
     """Everything beyond the flat params that a resume needs, as a flat
     list of leaves in the JAX harness's order (``fed/harness.py:407``):
-    ``(server_opt, client_m, fault_state, defense, attack_iter, service (),
-    epoch ())``: the server optimizer's state in optax's leaf order
+    ``(server_opt, client_m, fault_state, defense, attack_iter, service,
+    epoch)``: the server optimizer's state in optax's leaf order
     (``[trace]`` or ``[count, mu, nu]``), the [K, d] client momentum, the
     fault state (its stale buffer and Gilbert-Elliott states, each only
     where the fault uses it), the detector's (step, ema, dev, cusum) and the
-    policy's (rung, up, down, budget), and the onset counter, each only when
-    its feature is on.  The service slots are empty: the port has no
-    service mode yet.  The order is the
+    policy's (rung, up, down, budget), the onset counter, the service state
+    (availability [population] bool, trim widening f32) and the rollback
+    epoch (int32), each only when its feature is on.  The order is the
     checkpoint contract: the JAX package reads a port checkpoint of the
     same config leaf for leaf, and the reverse."""
     leaves = []
@@ -269,6 +294,9 @@ def extra_state(t: Trainer) -> list:
         leaves += list(det) + list(pol)
     if t.attack_iter is not None:
         leaves.append(t.attack_iter)
+    if t.service_state is not None:
+        leaves += list(t.service_state)
+        leaves.append(torch.tensor(t._rollback_epoch, dtype=torch.int32))
     return leaves
 
 
@@ -303,11 +331,16 @@ def restore_trainer(trainer: Trainer, restored, log_fn=None) -> int:
                                      tuple(next(leaves) for _ in pol))
         if trainer.attack_iter is not None:
             trainer.attack_iter = next(leaves)
+        if trainer.service_state is not None:
+            trainer.service_state = (next(leaves), next(leaves))
+            # the epoch is the count of rollbacks so far: one saved scalar
+            # restores both the seeds' salt and the budget
+            trainer._rollback_epoch = trainer._rollbacks_done = int(next(leaves))
     elif len(extra_leaves) != len(own):
         log_fn(
             f"WARNING: checkpoint extra state ({len(extra_leaves)} leaves) does "
             f"not match this config ({len(own)}); starting the server-opt, "
-            "client-momentum, fault, defense and attack-onset state fresh"
+            "client-momentum, fault, defense, attack-onset and service state fresh"
         )
     return start_round
 
@@ -342,10 +375,14 @@ def run(cfg: FedConfig, device: str = "cuda", record_in_file: bool = True) -> Di
 
 def run_with_trainer(
     cfg: FedConfig, device: str = "cuda", record_in_file: bool = True, dataset=None,
+    on_round: Optional[Callable[[int, Trainer], None]] = None,
 ) -> Tuple[Trainer, Dict]:
     """:func:`run`, also returning the finished trainer (its final
     ``flat_params``) for callers that check the trained state.  ``dataset``
     replaces the one ``cfg.dataset`` names at its default size.
+    ``on_round(r, trainer)`` runs after each round's checkpoint, with ``r``
+    the rounds done (the JAX harness's ``on_checkpoint``, here also without
+    a checkpoint directory; a smoke run injects a divergence through it).
 
     With ``cfg.checkpoint_dir`` set, every round ends in a checkpoint under
     :func:`ckpt_title` that also holds the whole run's paths so far as its
@@ -372,6 +409,8 @@ def run_with_trainer(
                 so_far = merge_paths(resume_prefix, so_far)
             checkpoint.save(cfg.checkpoint_dir, title, r, t.flat_params,
                             extra_state(t), meta=json.dumps(so_far))
+            if on_round is not None:
+                on_round(r, t)
 
         if cfg.inherit:
             try:
@@ -387,6 +426,9 @@ def run_with_trainer(
                     resume_prefix = json.loads(meta)
                 start_round = restore_trainer(trainer, restored)
                 log(f"Resumed from checkpoint at round {start_round}")
+    elif on_round is not None:
+        def checkpoint_fn(r, t, so_far):
+            on_round(r, t)
 
     log("Optimization begin")
     t0 = time.perf_counter()

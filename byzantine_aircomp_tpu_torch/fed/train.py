@@ -1,8 +1,10 @@
 """The federated training engine of the main path.
 
-Port of the resident round of ``byzantine_aircomp_tpu/fed/train.py``
-(``_iteration`` :605 with service, streaming and sharding off).  One global
-iteration is
+Port of the rounds of ``byzantine_aircomp_tpu/fed/train.py``: the resident
+``_iteration`` (:605), with or without service rounds, and the
+cohort-streamed ``_iteration_streamed`` (:1103) with the one-device (LOCAL)
+context; population sharding and multi-round dispatch are not ported.  One
+resident global iteration is
 
     flat_params [d] [--participants: m of K drawn-->]
       --per-client local SGD steps (FedAvg, FedProx, client momentum)-->
@@ -15,6 +17,23 @@ iteration is
 With a fault set the rule runs in its degraded mode, and a finite guard
 keeps the previous params wherever the aggregate is not finite.
 
+Service rounds (``--service on``, JAX ``fed/train.py:297-318``, :559-603,
+:690-705, :822-909): a population of stable client ids with Markov churn;
+every iteration draws ``honest_size`` honest and ``byz_size`` Byzantine ids
+from the available ones (each reads its own data shard), the channel links
+are keyed by id (:func:`..ops.channel.oma_by_id`), a deadline erases the
+absent and late rows to NaN, the rules run degraded (trimmed_mean with the
+rollback-widened trim fraction), and the defense's detector is keyed by
+population id.  ``train`` adds warm rollback: a diverged round restores the
+last good round's state and goes on under salted draws.
+
+Cohort-streamed rounds (``--cohort-size > 0``) never hold the [K, d] stack:
+``rebuild(c)`` remakes chunk c (local steps, message attack, fault
+transmission, channel, deadline), one observation pass collects the sums,
+moments, fault counts and detector updates, and the rule's streamed
+realization (:func:`..ops.aggregators.stream_aggregate`) rebuilds the chunks
+once per pass it needs.
+
 with per-client gradients taken with respect to the flat parameter vector
 through ``torch.func`` (``functional_call`` + ``vmap(grad)``), so the
 [K, d] stack is produced with no per-parameter Python plumbing.  The u8
@@ -26,7 +45,13 @@ message), a fifth for the fault channel when a fault is set, and one each
 for the participants' draw and the buckets' permutation when those are on;
 here each is a ``torch.Generator`` seeded from ``(seed, round, iteration,
 stream)``, with a fixed stream number per feature, so a run without a
-feature draws what it drew before the feature was ported.
+feature draws what it drew before the feature was ported.  Service rounds
+add stream 7, split into the churn, the draw and the deadline generators
+and the per-id link's key; a streamed round seeds each chunk's channel,
+message and fault generators from ``(seed, round, iteration,
+channel.cohort_stream(stream), chunk)``.  After a warm rollback the epoch
+extends every seed; at epoch 0 nothing is added, so a run that never rolls
+back draws exactly what it drew before rollback was ported.
 ``iteration`` also takes the draws as inputs (``draws``), so the tests can
 feed it the JAX package's numbers.  No generator carries state from one
 round to the next, so a run resumed at round R draws exactly what the
@@ -42,6 +67,7 @@ counter is never read on the host inside a round.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -80,7 +106,10 @@ class IterationGenerators(NamedTuple):
     """One iteration's random streams, in the JAX package's split order;
     ``fault`` (stream 4), ``participation`` (5) and ``bucket`` (6) exist only
     when their feature is on, so a run without them draws what it drew
-    before they were ported."""
+    before they were ported.  Under service rounds stream 7 gives the
+    ``churn``, ``draw`` and ``deadline`` generators and the per-id link's
+    ``link_key`` (an int); a cohort-streamed round's ``cohort(stream, c)``
+    seeds chunk c's generator of an iteration stream afresh on each call."""
 
     batch: torch.Generator
     channel: torch.Generator
@@ -89,10 +118,20 @@ class IterationGenerators(NamedTuple):
     fault: Optional[torch.Generator] = None
     participation: Optional[torch.Generator] = None
     bucket: Optional[torch.Generator] = None
+    churn: Optional[torch.Generator] = None
+    draw: Optional[torch.Generator] = None
+    deadline: Optional[torch.Generator] = None
+    link_key: Optional[int] = None
+    cohort: Optional[Callable[[int, int], torch.Generator]] = None
 
 
 #: the stream number of each optional generator
 _OPTIONAL_STREAMS = (("fault", 4), ("participation", 5), ("bucket", 6))
+#: service rounds' stream, and its sub-streams
+_SERVICE_STREAM = 7
+_SERVICE_SUBSTREAMS = ("churn", "draw", "deadline", "link_key")
+#: the iteration streams a streamed round draws per chunk
+CHANNEL_STREAM, MESSAGE_STREAM, FAULT_STREAM = 1, 3, 4
 
 # torch.profiler range around the clients' local steps (all E of them)
 CLIENT_STEP_RANGE = "client_step"
@@ -103,6 +142,53 @@ CLIENT_STEP_RANGE = "client_step"
 # JAX package's fault_metrics; the first three are summed over a round, the
 # effective K is the round's minimum
 FAULT_PATHS = ("faultDroppedPath", "faultErasedPath", "faultCorruptPath", "effectiveKPath")
+
+# the record's paths of the service metrics (available ids, absent and late
+# rows, the effective K), the JAX package's serviceAvailPath etc.: the
+# availability is the round's last, the events are summed, the effective K
+# is the round's minimum
+SERVICE_PATHS = ("serviceAvailPath", "serviceAbsentPath", "serviceLatePath", "effectiveKPath")
+
+# the warm rollback's guard: the val losses of the last rounds it keeps
+ROLLBACK_WINDOW = 8
+
+
+def masked_honest_variance(w_h: torch.Tensor) -> torch.Tensor:
+    """The honest dispersion over the finite honest rows (JAX
+    ``_masked_honest_variance``, :593): ``sum ||w||^2 / n - ||mean||^2``,
+    the service round's variant of :func:`honest_variance` (a missed row is
+    NaN and would otherwise NaN the metric and trip the rollback guard)."""
+    fin = agg_lib._finite_rows(w_h)
+    n = torch.clamp(torch.sum(fin).to(torch.float32), min=1.0)
+    w0 = torch.where(fin[:, None], w_h.to(torch.float32), 0.0)
+    mean = torch.sum(w0, dim=0) / n
+    return torch.sum(w0 * w0) / n - torch.sum(mean * mean)
+
+
+def detector_update_by_id(det, score, finite, ids, params):
+    """The population-keyed detector of service rounds (JAX
+    ``fed/train.py:879-909``): gather the drawn ids' rows, update them with
+    their own first-observation marker ``dev == 0`` (the first observation
+    of an id can come at any step), scatter them back; ids not drawn keep
+    their baselines.  Returns ``((ema, dev, cusum), flags)``; the caller
+    advances the step."""
+    step, ema, dev, cus = det
+    ema_g, dev_g, cus_g = ema[ids], dev[ids], cus[ids]
+    (_, ema_r, dev_r, cus_r), flags = defense_lib.detector_update(
+        (step, ema_g, dev_g, cus_g), score, finite, params, first=dev_g == 0.0,
+    )
+    return (ema.index_put((ids,), ema_r), dev.index_put((ids,), dev_r),
+            cus.index_put((ids,), cus_r)), flags
+
+
+def _clone_state(x):
+    """A deep copy of a state tree of tensors, tuples and Nones."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        cloned = [_clone_state(v) for v in x]
+        return type(x)(*cloned) if hasattr(x, "_fields") else tuple(cloned)
+    return x
 
 
 def bucket_means(w_stack: torch.Tensor, perm: torch.Tensor, s: int) -> torch.Tensor:
@@ -256,9 +342,38 @@ class Trainer:
             torch.zeros((cfg.node_size, self.dim), dtype=torch.float32, device=self.device)
             if cfg.client_momentum else None
         )
-        self.defense_state = defense_lib.init_state(self.defense, cfg.node_size, self.device)
+        # under service rounds the detector's rows are keyed by population id
+        # (scores survive non-participation), so it holds `population` rows
+        self.defense_state = defense_lib.init_state(
+            self.defense, cfg.population if cfg.service == "on" else cfg.node_size,
+            self.device)
         self.iteration_defense_metrics: Optional[torch.Tensor] = None
         self.last_defense_metrics: Optional[torch.Tensor] = None
+
+        # service rounds (JAX fed/train.py:297-318): the stable id -> data
+        # shard map (the population oversubscribes the node_size shards
+        # round-robin within each stratum, so honest ids never read
+        # Byzantine shards) and the carried (availability [population] bool,
+        # trim widening f32) state; the [4] metrics of SERVICE_PATHS of the
+        # last iteration and the last round.  None when off
+        self.service_state = None
+        self.iteration_service_metrics: Optional[torch.Tensor] = None
+        self.last_service_metrics: Optional[torch.Tensor] = None
+        if cfg.service == "on":
+            self._pop_h, self._pop_b = cfg.population_counts()
+            pop_shard = np.empty(cfg.population, np.int64)
+            pop_shard[: self._pop_h] = np.arange(self._pop_h) % cfg.honest_size
+            if cfg.byz_size:
+                pop_shard[self._pop_h:] = cfg.honest_size + np.arange(self._pop_b) % cfg.byz_size
+            self._pop_shard = torch.from_numpy(pop_shard).to(self.device)
+            self.service_state = (
+                torch.ones(cfg.population, dtype=torch.bool, device=self.device),
+                torch.ones((), dtype=torch.float32, device=self.device),
+            )
+        # warm rollback (train()): the epoch extends every later round's
+        # seeds once a restore happened (0: never, the unsalted streams)
+        self._rollback_epoch = 0
+        self._rollbacks_done = 0
 
     # ------------------------------------------------------------------
     # one iteration
@@ -335,23 +450,168 @@ class Trainer:
             part = torch.cat([part, cfg.honest_size + byz])
         return part
 
-    def _generator(self, round_idx: int, it: int, stream: int) -> torch.Generator:
-        hi, lo = np.random.SeedSequence(
-            [self.cfg.seed, round_idx, it, stream]
-        ).generate_state(2)
+    def _seed(self, round_idx: int, it: int, stream: int, *sub: int) -> int:
+        """The 63-bit seed of ``(seed, round, iteration, stream, *sub)``,
+        with the rollback epoch appended when it is above 0 (so epoch 0
+        keeps the seeds of runs that predate rollback, bit for bit)."""
+        entropy = [self.cfg.seed, round_idx, it, stream, *sub]
+        if self._rollback_epoch:
+            entropy.append(self._rollback_epoch)
+        hi, lo = np.random.SeedSequence(entropy).generate_state(2)
+        return ((int(hi) << 32) | int(lo)) & (2**63 - 1)
+
+    def _generator(self, round_idx: int, it: int, stream: int, *sub: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
-        g.manual_seed(((int(hi) << 32) | int(lo)) & (2**63 - 1))
+        g.manual_seed(self._seed(round_idx, it, stream, *sub))
         return g
 
     def iteration_generators(self, round_idx: int, it: int) -> IterationGenerators:
         cfg = self.cfg
         on = {"fault": self.fault is not None, "participation": cfg.participation < 1.0,
               "bucket": cfg.bucket_size > 1}
+        extra = {name: self._generator(round_idx, it, s)
+                 for name, s in _OPTIONAL_STREAMS if on[name]}
+        if cfg.service == "on":
+            for sub, name in enumerate(_SERVICE_SUBSTREAMS):
+                extra[name] = (self._seed(round_idx, it, _SERVICE_STREAM, sub)
+                               if name == "link_key"
+                               else self._generator(round_idx, it, _SERVICE_STREAM, sub))
+        if cfg.cohort_size > 0:
+            extra["cohort"] = lambda stream, c: self._generator(
+                round_idx, it, channel_lib.cohort_stream(stream), c)
         return IterationGenerators(
-            *(self._generator(round_idx, it, s) for s in range(4)),
-            **{name: self._generator(round_idx, it, s)
-               for name, s in _OPTIONAL_STREAMS if on[name]},
+            *(self._generator(round_idx, it, s) for s in range(4)), **extra,
         )
+
+    # ------------------------------------------------------------------
+    # service rounds
+
+    def service_draw(self, avail: torch.Tensor, generator=None, u=None):
+        """The stratified draw over stable population ids (JAX
+        ``_service_draw``, :559): ``honest_size`` ids of [0, pop_h) and
+        ``byz_size`` of [pop_h, population), each stratum ranked by the
+        priority ``U(0,1) + 2*offline`` under a stable sort, so every
+        available id outranks every offline one.  A stratum with too few
+        available ids is topped up with offline ones, whose rows then miss
+        the deadline.  ``u`` = (honest [pop_h], Byzantine [pop_b]) f32
+        uniforms may be passed in, else drawn from ``generator``.
+
+        Returns ``(pop_ids [K] int64, arrived [K] bool)``, honest rows
+        first."""
+        cfg, dev = self.cfg, avail.device
+        pop_h = self._pop_h
+        if u is None:
+            u = (torch.rand(pop_h, generator=generator, device=dev),
+                 torch.rand(self._pop_b, generator=generator, device=dev))
+        prio_h = u[0] + torch.where(avail[:pop_h], 0.0, 2.0)
+        ids = torch.argsort(prio_h, stable=True)[: cfg.honest_size]
+        if cfg.byz_size:
+            prio_b = u[1] + torch.where(avail[pop_h:], 0.0, 2.0)
+            ids = torch.cat([ids, pop_h + torch.argsort(prio_b, stable=True)[: cfg.byz_size]])
+        return ids, avail[ids]
+
+    def churn(self, avail: torch.Tensor, generator=None, masks=None) -> torch.Tensor:
+        """One step of the Markov churn (JAX ``fed/train.py:695-705``): an
+        online id leaves with ``churn_departure``, an offline one comes back
+        with ``churn_arrival``.  ``masks`` = (arrive, depart) [population]
+        bool may be passed in, else drawn (uniforms < p) from
+        ``generator``, arrivals first."""
+        cfg = self.cfg
+        if masks is None:
+            n, dev = avail.shape[0], avail.device
+            masks = (torch.rand(n, generator=generator, device=dev) < cfg.churn_arrival,
+                     torch.rand(n, generator=generator, device=dev) < cfg.churn_departure)
+        arrive, depart = masks
+        return torch.where(avail, ~depart, arrive)
+
+    def _service_stage(self, gens, draws):
+        """The iteration's draw and churn: ``(pop_ids, arrived, n_avail)``,
+        with ``service_state`` advanced.  The draw sees the availability
+        from before the churn, so the reported count is what the server
+        drew from."""
+        avail, widen = self.service_state
+        n_avail = torch.sum(avail).to(torch.float32)
+        pop_ids, arrived = self.service_draw(avail, gens.draw, u=draws.get("service_u"))
+        self.service_state = (self.churn(avail, gens.churn, draws.get("churn")), widen)
+        return pop_ids, arrived, n_avail
+
+    def _trim_ratio(self) -> torch.Tensor:
+        """The service round's trim fraction ``min(0.1 * widen, 0.45)``, a
+        device f32 scalar (no host read)."""
+        widen = self.service_state[1]
+        return torch.clamp(torch.tensor(0.1, dtype=torch.float32) * widen, max=0.45)
+
+    def _defense_view(self, flat_params, rows=None):
+        """The detector state published after the previous iteration, as a
+        defense-aware attack reads it: the rows ``rows`` (population ids
+        under service, a chunk's slice) or all of them."""
+        spec = self.defense
+        (step, ema, dev, cusum), pol = self.defense_state
+        if rows is not None:
+            ema, dev, cusum = ema[rows], dev[rows], cusum[rows]
+        return attack_lib.DefenseView(
+            step=step, ema=ema, dev=dev, cusum=cusum, rung=pol[0],
+            detector=spec.detector, policy=spec.policy, guess=flat_params,
+        )
+
+    # ------------------------------------------------------------------
+    # one resident iteration (its helpers serve the streamed one too)
+
+    def _batches(self, idx):
+        """The normalized inputs [m, E, B, ...] (or [m, B, ...] at one local
+        step) and labels of the train rows ``idx`` [m, E*B]."""
+        cfg = self.cfg
+        x = self.x_train[idx]  # [m, E*B, features] on-device gather
+        if self._norm_scale is not None:
+            x = x.to(torch.float32) * self._norm_scale + self._norm_bias
+        y = self.y_train[idx]
+        steps = cfg.local_steps
+        if steps > 1:
+            batch = (idx.shape[0], steps, cfg.batch_size)
+            return x.reshape(batch + self._sample_shape), y.reshape(batch)
+        return x.reshape(x.shape[:2] + self._sample_shape), y
+
+    def _agg_kw(self, flat_params, honest_size, degraded, gens, draws, terms=None):
+        cfg = self.cfg
+        kw = dict(
+            guess=flat_params,
+            honest_size=honest_size,
+            noise_var=cfg.noise_var,
+            channel=terms,
+            maxiter=cfg.agg_maxiter,
+            tol=cfg.agg_tol,
+            p_max=cfg.gm_p_max,
+            m=cfg.krum_m,
+            clip_tau=cfg.clip_tau,
+            clip_iters=cfg.clip_iters,
+            sign_eta=cfg.sign_eta,
+            sign_bits=cfg.sign_bits,
+            dnc_iters=cfg.dnc_iters,
+            dnc_sub_dim=cfg.dnc_sub_dim,
+            dnc_c=cfg.dnc_c,
+            degraded=degraded,
+            generator=gens.aggregation,
+            fades=draws.get("fades"),
+            noise=draws.get("noise"),
+            vote_noise=draws.get("vote_noise"),
+            dnc_draws=draws.get("dnc"),
+        )
+        if cfg.service == "on":
+            # the rollback-widened fraction: only the degraded trimmed_mean
+            # reads it, every other rule swallows it
+            kw["trim_ratio"] = self._trim_ratio()
+        return kw
+
+    def _server_step(self, flat_params, aggregated):
+        if self.server_opt_state is None:
+            return aggregated
+        # FedOpt: the aggregate defines the pseudo-gradient
+        cfg = self.cfg
+        new_flat, self.server_opt_state = server_opt_lib.step(
+            cfg.server_opt, flat_params, aggregated, self.server_opt_state,
+            cfg.server_lr, cfg.server_momentum,
+        )
+        return new_flat
 
     def iteration(
         self,
@@ -360,9 +620,11 @@ class Trainer:
         draws: Optional[dict] = None,
         want_variance: bool = False,
     ):
-        """One global iteration: [participants] -> local steps -> [dropout]
-        -> attack -> [corruption, CSI error, erasure] -> channel ->
-        [defense] -> [buckets] -> agg -> [server optimizer].
+        """One global iteration: [participants or the service draw] -> local
+        steps -> [dropout] -> attack -> [corruption, CSI error, erasure] ->
+        channel -> [deadline] -> [defense] -> [buckets] -> agg -> [server
+        optimizer].  With ``cohort_size > 0`` the streamed iteration runs
+        instead (:meth:`iteration_streamed`).
 
         Returns ``(new flat params, honest variance or None)``.  ``draws``
         may supply any of: ``"u"`` [m, E*B] batch uniforms, ``"oma"`` the
@@ -374,9 +636,12 @@ class Trainer:
         fault channel's draws (``"dropped"`` for
         :func:`..ops.faults.apply_dropout`, the keys of
         :func:`..ops.faults.apply_transmission`), ``"part"`` the [m] drawn
-        clients (:meth:`draw_participants`) and ``"bucket"`` the [m]
-        permutation of :func:`bucket_means`; the rest comes from
-        ``generators``.
+        clients (:meth:`draw_participants`), ``"bucket"`` the [m]
+        permutation of :func:`bucket_means`, and under service
+        ``"service_u"`` the draw's uniforms (:meth:`service_draw`),
+        ``"churn"`` its masks (:meth:`churn`) and ``"late"`` the [K]
+        straggler mask (:func:`..ops.faults.apply_deadline`); the rest
+        comes from ``generators``.
 
         With a fault set, the carried ``fault_state`` advances, the rule
         runs degraded, every non-finite coordinate of the aggregate keeps
@@ -385,28 +650,34 @@ class Trainer:
         carried ``client_m``, ``defense_state`` and ``server_opt_state``
         advance too, and with a defense ``iteration_defense_metrics`` holds
         this iteration's [5] observations (rung, flagged, suspicious, max
-        score, max CUSUM).
+        score, max CUSUM).  Under service the ``service_state`` advances, the
+        rule runs degraded behind the same finite guard, and
+        ``iteration_service_metrics`` holds the [4] of :data:`SERVICE_PATHS`.
 
         With ``--var`` set, median and trimmed_mean take the OMA terms as
         ``channel=`` and fold the corruption into their one read of the
-        stack, except under a fault (their degraded modes take the received
-        stack, as the JAX package's degraded rounds do), with buckets (the
-        means are of received rows) and under the adaptive defense (every
-        rung reads the same received stack, JAX ``fed/train.py:236-241``);
-        the other rules (except gm and signmv, which own their channel) get
-        the corrupted stack.  Either way the terms are the same draws, and
-        the honest variance and the defense's scores are taken on the
-        post-channel stack, as the reference takes the variance
+        stack, except under a fault or service (their degraded modes take
+        the received stack, as the JAX package's degraded rounds do), with
+        buckets (the means are of received rows) and under the adaptive
+        defense (every rung reads the same received stack, JAX
+        ``fed/train.py:236-241``); the other rules (except gm and signmv,
+        which own their channel) get the corrupted stack.  Under service the
+        link is keyed by population id (:func:`..ops.channel.oma_by_id`).
+        Either way the honest variance and the defense's scores are taken
+        on the post-channel stack, as the reference takes the variance
         (``:351-352``, ``:360-361``).  Under ``--defense adaptive`` the rung
         is read on the host once per iteration to call its aggregator
         (:func:`..defense.policy.aggregate_rung`), the one host sync the
         defense adds."""
+        if self.cfg.cohort_size > 0:
+            return self.iteration_streamed(flat_params, generators, draws, want_variance)
         cfg = self.cfg
         draws = draws or {}
         gens = generators or IterationGenerators(None, None, None, None)
         fault = self.fault
         fault_draws = draws.get("fault") or {}
         spec = self.defense
+        service = cfg.service == "on"
         m_h, m_b = self._part_h, self._part_b
 
         part, offsets, sizes = None, self.offsets, self.sizes
@@ -415,22 +686,19 @@ class Trainer:
             if part is None:
                 part = self.draw_participants(gens.participation)
             offsets, sizes = self.offsets[part], self.sizes[part]
+        pop_ids = None
+        if service:
+            pop_ids, arrived, n_avail = self._service_stage(gens, draws)
+            # a drawn id reads its own shard wherever the draw placed it
+            shard = self._pop_shard[pop_ids]
+            offsets, sizes = self.offsets[shard], self.sizes[shard]
         # the [m, E*B] indices in one draw: at E = 1 the stream of the
         # single-step trainer
-        steps = cfg.local_steps
         idx = data_lib.sample_client_batch_indices(
-            offsets, sizes, steps * cfg.batch_size,
+            offsets, sizes, cfg.local_steps * cfg.batch_size,
             generator=gens.batch, u=draws.get("u"),
         )
-        x = self.x_train[idx]  # [m, E*B, features] on-device gather
-        if self._norm_scale is not None:
-            x = x.to(torch.float32) * self._norm_scale + self._norm_bias
-        y = self.y_train[idx]
-        if steps > 1:
-            batch = (idx.shape[0], steps, cfg.batch_size)
-            x, y = x.reshape(batch + self._sample_shape), y.reshape(batch)
-        else:
-            x = x.reshape(x.shape[:2] + self._sample_shape)
+        x, y = self._batches(idx)
         # one device bool gates every Byzantine behavior until the onset
         is_byz, attack_on = self._part_mask, None
         if self._attack_onset is not None:
@@ -455,14 +723,10 @@ class Trainer:
                 dropped=fault_draws.get("dropped"),
             )
         if self.attack is not None:
-            view = None
-            if self.attack.defense_aware:
-                # the detector state published after the previous iteration
-                (step, ema, dev, cusum), pol = self.defense_state
-                view = attack_lib.DefenseView(
-                    step=step, ema=ema, dev=dev, cusum=cusum, rung=pol[0],
-                    detector=spec.detector, policy=spec.policy, guess=flat_params,
-                )
+            # a defense-aware attack reads the detector state published
+            # after the previous iteration (under service, the drawn ids')
+            view = (self._defense_view(flat_params, pop_ids)
+                    if self.attack.defense_aware else None)
             w_att = self.attack.apply_message(
                 w_stack, m_b, gens.message, param=cfg.attack_param,
                 noise=draws.get("message"), defense=view,
@@ -478,16 +742,28 @@ class Trainer:
         terms = None
         if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
             terms = draws.get("oma")
-            if terms is None:
-                k, d = w_stack.shape
-                terms = channel_lib.oma_terms(
-                    k, d, cfg.noise_var, generator=gens.channel,
-                    device=w_stack.device,
-                )
-            if (fault is not None or not agg_lib.supports_fused_epilogue(cfg.agg)
-                    or cfg.bucket_size > 1 or adaptive):
-                w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
+            if service:
+                # each row's link is that of its stable id
+                w_stack = channel_lib.oma_by_id(w_stack, pop_ids, cfg.noise_var,
+                                                key=gens.link_key, terms=terms)
                 terms = None
+            else:
+                if terms is None:
+                    k, d = w_stack.shape
+                    terms = channel_lib.oma_terms(
+                        k, d, cfg.noise_var, generator=gens.channel,
+                        device=w_stack.device,
+                    )
+                if (fault is not None or not agg_lib.supports_fused_epilogue(cfg.agg)
+                        or cfg.bucket_size > 1 or adaptive):
+                    w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
+                    terms = None
+        if service:
+            # the round closes now: absent and late rows are erased to NaN
+            w_stack, n_absent, n_late = fault_lib.apply_deadline(
+                w_stack, arrived, cfg.straggler_prob, generator=gens.deadline,
+                late=draws.get("late"),
+            )
 
         rung = None
         if spec is not None:
@@ -498,7 +774,11 @@ class Trainer:
                 w_stack, cfg.noise_var, terms=terms)
             det, pol = self.defense_state
             score, finite, _ = defense_lib.client_score_components(seen, flat_params)
-            det, flags = defense_lib.detector_update(det, score, finite, spec.detector)
+            if service:
+                rows, flags = detector_update_by_id(det, score, finite, pop_ids, spec.detector)
+                det = (det[0] + 1,) + rows
+            else:
+                det, flags = defense_lib.detector_update(det, score, finite, spec.detector)
             n_flagged = torch.sum(flags)
             pol, suspicious = defense_lib.policy_update(pol, n_flagged, spec.policy)
             rung = pol[0]
@@ -519,48 +799,24 @@ class Trainer:
             w_agg = bucket_means(w_stack, perm, s)
             agg_honest = m // s - m_b
 
-        agg_kw = dict(
-            guess=flat_params,
-            honest_size=agg_honest,
-            noise_var=cfg.noise_var,
-            channel=terms,
-            maxiter=cfg.agg_maxiter,
-            tol=cfg.agg_tol,
-            p_max=cfg.gm_p_max,
-            m=cfg.krum_m,
-            clip_tau=cfg.clip_tau,
-            clip_iters=cfg.clip_iters,
-            sign_eta=cfg.sign_eta,
-            sign_bits=cfg.sign_bits,
-            dnc_iters=cfg.dnc_iters,
-            dnc_sub_dim=cfg.dnc_sub_dim,
-            dnc_c=cfg.dnc_c,
-            degraded=fault is not None,
-            generator=gens.aggregation,
-            fades=draws.get("fades"),
-            noise=draws.get("noise"),
-            vote_noise=draws.get("vote_noise"),
-            dnc_draws=draws.get("dnc"),
-        )
+        degraded = fault is not None or service
+        agg_kw = self._agg_kw(flat_params, agg_honest, degraded, gens, draws, terms)
         if adaptive:
             # rung 0 is cfg.agg, so a quiet run aggregates as --defense off
             aggregated = defense_lib.aggregate_rung(rung, spec.ladder, w_agg, **agg_kw)
         else:
             # reference semantics (:354-358)
             aggregated = self.agg_fn(w_agg, **agg_kw).to(torch.float32)
-        if fault is not None:
+        if degraded:
             # the receiver's finite guard: a coordinate that no finite row
             # reached keeps its previous value
             aggregated = torch.where(torch.isfinite(aggregated), aggregated, flat_params)
             eff_k = torch.sum(agg_lib._finite_rows(w_stack)).to(torch.float32)
+        if fault is not None:
             self.iteration_fault_metrics = torch.stack([n_dropped, n_erased, n_corrupt, eff_k])
-        new_flat = aggregated
-        if self.server_opt_state is not None:
-            # FedOpt: the aggregate defines the pseudo-gradient
-            new_flat, self.server_opt_state = server_opt_lib.step(
-                cfg.server_opt, flat_params, aggregated, self.server_opt_state,
-                cfg.server_lr, cfg.server_momentum,
-            )
+        if service:
+            self.iteration_service_metrics = torch.stack([n_avail, n_absent, n_late, eff_k])
+        new_flat = self._server_step(flat_params, aggregated)
         variance = None
         if want_variance:
             w_h = w_stack[:m_h]
@@ -569,7 +825,240 @@ class Trainer:
                 w_h = w_h + channel_lib.oma_residual(
                     channel_lib.OmaTerms(*(t[:m_h] for t in terms))
                 )
-            variance = honest_variance(w_h, m_h)
+            # under service the missed rows are NaN: the dispersion of what
+            # the round received
+            variance = masked_honest_variance(w_h) if service else honest_variance(w_h, m_h)
+        if self.attack_iter is not None:
+            self.attack_iter = self.attack_iter + 1
+        return new_flat, variance
+
+    # ------------------------------------------------------------------
+    # one cohort-streamed iteration
+
+    def make_rebuild(self, flat_params, gens, idx_all, attack_on=None, pop_ids=None,
+                     missed=None, ge_bad=None, defense_state=None, draws=None):
+        """``rebuild_full(c) -> (chunk [cohort, d], GE slice, n_erased,
+        n_corrupt)``: client chunk c of a streamed iteration end to end
+        (JAX ``rebuild_full``, :1334): local steps on its rows of
+        ``idx_all``, the row-local message attack on a Byzantine chunk, the
+        fault transmission (``row_offset`` = the chunk's first row), the
+        channel (the per-id link under service, else the chunk's own
+        stream) and the deadline erasure last.  It is pure in c: each call
+        seeds the chunk's generators afresh (``gens.cohort``), and a
+        defense-aware attack reads ``defense_state``, the detector snapshot
+        from the start of the iteration, so that every pass sees the same
+        chunk.  ``draws`` may hold ``"message"`` [cohort, d], the gaussian
+        attack's normals (the tests share them)."""
+        cfg = self.cfg
+        draws = draws or {}
+        cohort = cfg.cohort_size
+        n_h_chunks = self._part_h // cohort
+        fault, attack = self.fault, self.attack
+        dev = flat_params.device
+
+        def chunk_gen(stream, c):
+            return None if gens.cohort is None else gens.cohort(stream, c)
+
+        def rebuild_full(c: int):
+            off = c * cohort
+            rows = slice(off, off + cohort)
+            mask_c = self._part_mask[rows]
+            if attack_on is not None:
+                mask_c = mask_c & attack_on
+            x, y = self._batches(idx_all[rows])
+            with torch.profiler.record_function(CLIENT_STEP_RANGE):
+                chunk = self.client_stack(flat_params, x, y, mask_c)
+            # chunks are purely honest or purely Byzantine: only the last
+            # ones are attacked, all of their rows
+            if attack is not None and attack.message_fn is not None and c >= n_h_chunks:
+                view = None
+                if attack.defense_aware:
+                    (step, ema, dv, cus), pol = defense_state
+                    ids = rows if pop_ids is None else pop_ids[rows]
+                    view = attack_lib.DefenseView(
+                        step=step, ema=ema[ids], dev=dv[ids], cusum=cus[ids], rung=pol[0],
+                        detector=self.defense.detector, policy=self.defense.policy,
+                        guess=flat_params)
+                w_att = attack.apply_message(chunk, cohort, chunk_gen(MESSAGE_STREAM, c),
+                                             param=cfg.attack_param,
+                                             noise=draws.get("message"), defense=view)
+                chunk = w_att if attack_on is None else torch.where(attack_on, w_att, chunk)
+            ge_c = None
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            n_erased = n_corrupt = zero
+            if fault is not None:
+                chunk, ge_c, n_erased, n_corrupt = fault_lib.apply_transmission(
+                    fault, chunk, None if ge_bad is None else ge_bad[rows],
+                    generator=chunk_gen(FAULT_STREAM, c), row_offset=off,
+                )
+            if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
+                if pop_ids is not None:
+                    # under the iteration's key: a client's link is that of
+                    # its id in any chunk, bitwise the resident stack's
+                    chunk = channel_lib.oma_by_id(chunk, pop_ids[rows], cfg.noise_var,
+                                                  key=gens.link_key)
+                else:
+                    chunk = channel_lib.oma(chunk, cfg.noise_var,
+                                            generator=chunk_gen(CHANNEL_STREAM, c))
+            if missed is not None:
+                chunk = torch.where(missed[rows][:, None], math.nan, chunk)
+            return chunk, ge_c, n_erased, n_corrupt
+
+        return rebuild_full
+
+    def iteration_streamed(
+        self,
+        flat_params: torch.Tensor,
+        generators: Optional[IterationGenerators] = None,
+        draws: Optional[dict] = None,
+        want_variance: bool = False,
+    ):
+        """One cohort-streamed global iteration (JAX
+        ``_iteration_streamed``, :1103, with the one-device context): the
+        [K, d] stack is never held.  The participants' draw, the service
+        draw, churn and deadline mask, and one [K, E*B] batch-index draw
+        (the resident stream, so with the channel and faults off every chunk
+        is bitwise the resident stack's rows) are made up front; then one
+        observation pass over the chunks collects the sums, the finite
+        count, the honest moments (over the finite rows under service), the
+        fault counts and Gilbert-Elliott states, and the detector's
+        per-chunk updates (scores per cohort, a documented approximation);
+        then the policy, and the rule's streamed realization (or the rung's)
+        rebuilds the chunks once per pass it needs.  Dropout is absent: the
+        stale-replay buffer is refused under streaming.  Same returns and
+        carried state as :meth:`iteration`; ``draws`` takes ``"u"``,
+        ``"part"``, ``"service_u"``, ``"churn"``, ``"late"`` and
+        ``"message"``."""
+        cfg = self.cfg
+        draws = draws or {}
+        gens = generators or IterationGenerators(None, None, None, None)
+        fault, spec = self.fault, self.defense
+        service = cfg.service == "on"
+        m_h, m_b = self._part_h, self._part_b
+        cohort = cfg.cohort_size
+        n_h_chunks, n_chunks = m_h // cohort, (m_h + m_b) // cohort
+        d, dev = self.dim, flat_params.device
+
+        attack_on = None
+        if self._attack_onset is not None:
+            attack_on = self.attack_iter >= self._attack_onset
+        offsets, sizes = self.offsets, self.sizes
+        if cfg.participation < 1.0:
+            # subsample, then stream the participants' index space
+            part = draws.get("part")
+            if part is None:
+                part = self.draw_participants(gens.participation)
+            offsets, sizes = self.offsets[part], self.sizes[part]
+        pop_ids = missed = None
+        if service:
+            pop_ids, arrived, n_avail = self._service_stage(gens, draws)
+            shard = self._pop_shard[pop_ids]
+            offsets, sizes = self.offsets[shard], self.sizes[shard]
+            missed, n_absent, n_late = fault_lib.deadline_misses(
+                arrived, cfg.straggler_prob, generator=gens.deadline, late=draws.get("late"))
+        idx_all = data_lib.sample_client_batch_indices(
+            offsets, sizes, cfg.local_steps * cfg.batch_size,
+            generator=gens.batch, u=draws.get("u"),
+        )
+        ge_bad = self.fault_state.ge_bad if fault is not None else None
+        defense_in = self.defense_state
+        rebuild_full = self.make_rebuild(flat_params, gens, idx_all, attack_on, pop_ids,
+                                         missed, ge_bad, defense_in, draws)
+
+        # the observation pass
+        zeros = torch.zeros(d, dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        s_all = s_fin = s_h = zeros
+        ssq_h = n_h_fin = n_er = n_co = max_sc = zero
+        n_fin = torch.zeros((), dtype=torch.int32, device=dev)
+        n_flag = torch.zeros((), dtype=torch.int64, device=dev)
+        ge_new = None if ge_bad is None else ge_bad.clone()
+        if spec is not None:
+            # copies: rebuild's defense-aware view reads the snapshot
+            det0, pol = defense_in
+            ema, dv, cus = (t.clone() for t in det0[1:])
+        for c in range(n_chunks):
+            chunk, ge_c, er, co = rebuild_full(c)
+            fin = agg_lib._finite_rows(chunk)
+            c32 = chunk.to(torch.float32)
+            c_fin = torch.where(fin[:, None], c32, 0.0)
+            s_all = s_all + torch.sum(c32, dim=0)
+            s_fin = s_fin + torch.sum(c_fin, dim=0)
+            n_fin = n_fin + torch.sum(fin).to(torch.int32)
+            if c < n_h_chunks:
+                # under service the missed honest rows are NaN: the moments
+                # of what the round received
+                rows_h = c_fin if service else c32
+                s_h = s_h + torch.sum(rows_h, dim=0)
+                ssq_h = ssq_h + torch.sum(rows_h * rows_h)
+                if service:
+                    n_h_fin = n_h_fin + torch.sum(fin).to(torch.float32)
+            if fault is not None:
+                n_er, n_co = n_er + er, n_co + co
+                if ge_c is not None:
+                    ge_new[c * cohort:(c + 1) * cohort] = ge_c
+            if spec is not None:
+                # per-client rows updated chunk by chunk under the step of the
+                # iteration's start (advanced once after the pass)
+                score, score_fin, _ = defense_lib.client_score_components(chunk, flat_params)
+                det_c = (det0[0], ema, dv, cus)
+                if service:
+                    (ema, dv, cus), flags = detector_update_by_id(
+                        det_c, score, score_fin, pop_ids[c * cohort:(c + 1) * cohort],
+                        spec.detector)
+                else:
+                    rows = slice(c * cohort, (c + 1) * cohort)
+                    (_, ema[rows], dv[rows], cus[rows]), flags = defense_lib.detector_update(
+                        (det0[0], ema[rows], dv[rows], cus[rows]), score, score_fin,
+                        spec.detector)
+                n_flag = n_flag + torch.sum(flags)
+                max_sc = torch.maximum(max_sc, torch.max(score))
+            del chunk, c32, c_fin
+
+        rung = None
+        if spec is not None:
+            det = (det0[0] + 1, ema, dv, cus)
+            pol, suspicious = defense_lib.policy_update(pol, n_flag, spec.policy)
+            rung = pol[0]
+            self.defense_state = (det, pol)
+            self.iteration_defense_metrics = torch.stack([
+                rung.to(torch.float32), n_flag.to(torch.float32),
+                suspicious.to(torch.float32), max_sc, torch.max(det[3]),
+            ])
+        if fault is not None:
+            self.fault_state = fault_lib.FaultState(None, ge_new)
+
+        def rebuild(c):
+            return rebuild_full(c)[0]
+
+        degraded = fault is not None or service
+        kw = dict(k=m_h + m_b, d=d, n_chunks=n_chunks, device=dev, degraded=degraded,
+                  sum_all=s_all, sum_finite=s_fin, n_finite=n_fin, guess=flat_params,
+                  maxiter=cfg.agg_maxiter, tol=cfg.agg_tol, quantile=cfg.cohort_quantile,
+                  sketch_bins=cfg.cohort_sketch_bins)
+        if service:
+            kw["trim_ratio"] = self._trim_ratio()
+        if spec is not None and spec.mode == "adaptive":
+            aggregated = defense_lib.stream_aggregate_rung(rung, spec.ladder, rebuild, **kw)
+        else:
+            aggregated = agg_lib.stream_aggregate(cfg.agg, rebuild, **kw).to(torch.float32)
+        if degraded:
+            # the receiver's finite guard, as in the resident round
+            aggregated = torch.where(torch.isfinite(aggregated), aggregated, flat_params)
+        eff_k = n_fin.to(torch.float32)
+        if fault is not None:
+            # dropout is absent under streaming: its count is 0
+            self.iteration_fault_metrics = torch.stack([zero, n_er, n_co, eff_k])
+        if service:
+            self.iteration_service_metrics = torch.stack([n_avail, n_absent, n_late, eff_k])
+        new_flat = self._server_step(flat_params, aggregated)
+        variance = None
+        if want_variance:
+            # (1/H) sum ||w_i||^2 - ||mean_h||^2 from the pass's moments
+            n_h = (torch.clamp(n_h_fin, min=1.0) if service
+                   else torch.tensor(float(m_h), dtype=torch.float32))
+            mean_h = s_h / n_h
+            variance = ssq_h / n_h - torch.sum(mean_h * mean_h)
         if self.attack_iter is not None:
             self.attack_iter = self.attack_iter + 1
         return new_flat, variance
@@ -582,10 +1071,13 @@ class Trainer:
         and corrupt rows summed over its iterations, the effective K at its
         minimum (device tensors too).  With a defense,
         ``last_defense_metrics`` becomes the round's [6] vector
-        (:func:`..defense.events.reduce_round`)."""
+        (:func:`..defense.events.reduce_round`).  Under service,
+        ``last_service_metrics`` becomes the round's [4]: the last
+        iteration's available count, the absent and late rows summed, the
+        effective K at its minimum (JAX ``fed/train.py:1773-1782``)."""
         interval = self.cfg.display_interval
         variance = None
-        counts, observed = [], []
+        counts, observed, served = [], [], []
         rung_in = self.defense_state[1][0] if self.defense is not None else None
         for it in range(interval):
             self.flat_params, variance = self.iteration(
@@ -597,6 +1089,8 @@ class Trainer:
                 counts.append(self.iteration_fault_metrics)
             if self.defense is not None:
                 observed.append(self.iteration_defense_metrics)
+            if self.service_state is not None:
+                served.append(self.iteration_service_metrics)
         if counts:
             per_it = torch.stack(counts)
             self.last_fault_metrics = torch.cat(
@@ -604,6 +1098,11 @@ class Trainer:
             )
         if observed:
             self.last_defense_metrics = defense_lib.events.reduce_round(rung_in, observed)
+        if served:
+            per_it = torch.stack(served)
+            self.last_service_metrics = torch.cat([
+                per_it[-1, :1], torch.sum(per_it[:, 1:3], dim=0),
+                torch.amin(per_it[:, 3:], dim=0)])
         return variance
 
     # ------------------------------------------------------------------
@@ -640,6 +1139,29 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _state(self):
+        return (self.flat_params, self.server_opt_state, self.client_m, self.fault_state,
+                self.defense_state, self.attack_iter, self.service_state)
+
+    def _set_state(self, state):
+        (self.flat_params, self.server_opt_state, self.client_m, self.fault_state,
+         self.defense_state, self.attack_iter, self.service_state) = state
+
+    def _divergence(self, tr_loss, va_loss, variance, recent_val) -> Optional[str]:
+        """The warm rollback's guard (JAX ``fed/train.py:2102-2125``): the
+        reason a round diverged, or None."""
+        cfg = self.cfg
+        if not (math.isfinite(tr_loss) and math.isfinite(va_loss) and math.isfinite(variance)):
+            return "non_finite"
+        if (self.defense is not None and cfg.rollback_cusum > 0.0
+                and float(self.last_defense_metrics[4]) >= cfg.rollback_cusum):
+            return "cusum_spike"
+        if len(recent_val) >= 3:
+            med = sorted(recent_val)[len(recent_val) // 2]
+            if va_loss > cfg.rollback_loss_factor * max(med, 1e-3):
+                return "loss_spike"
+        return None
+
     def train(
         self,
         log_fn: Optional[Callable[[str], None]] = None,
@@ -652,7 +1174,19 @@ class Trainer:
         the state first, ``harness.restore_trainer``): the paths start with
         the eval of the restored params.  ``checkpoint_fn(r, trainer, paths)``
         runs after every round, with ``r`` the number of rounds done and
-        ``paths`` those recorded so far."""
+        ``paths`` those recorded so far.
+
+        Under service rounds with ``rollback`` on (JAX ``fed/train.py:
+        2084-2194``, :2310-2328), a guard runs before a round's paths are
+        appended: a non-finite train or val loss or variance, a CUSUM peak
+        at ``rollback_cusum`` (with a defense), or a val loss above
+        ``rollback_loss_factor`` times the median of the last
+        ``ROLLBACK_WINDOW`` ones.  A tripped round appends nothing: the
+        state of the last good round comes back (a copy taken before that
+        round's ``checkpoint_fn``, which cannot reach it), the trim
+        widening is multiplied by ``rollback_widen``, the rollback count
+        (at most ``rollback_max``) becomes the epoch that salts every later
+        round's seeds, and the round runs again."""
         cfg = self.cfg
         log = log_fn or (lambda s: None)
 
@@ -675,24 +1209,49 @@ class Trainer:
         if self.defense is not None:
             for key in defense_lib.events.PATH_KEYS.values():
                 paths[key] = []
+        if self.service_state is not None:
+            for key in SERVICE_PATHS:
+                paths[key] = []
         log(
             f"[{start_round}/{cfg.rounds}](interval: {cfg.display_interval}) "
             f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
             f"val: loss={va_loss:.4f} acc={va_acc:.4f}"
         )
         var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
-        for r in range(start_round, cfg.rounds):
+        rollback_armed = cfg.service == "on" and cfg.rollback == "on"
+        snapshot = None
+        recent_val: List[float] = []
+        r = start_round
+        while r < cfg.rounds:
             self._sync()
             t0 = time.perf_counter()
             variance = self.run_round(r)
             self._sync()
             dt = time.perf_counter() - t0
             (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
+            var_f = float(variance)
+            if rollback_armed:
+                reason = self._divergence(tr_loss, va_loss, var_f, recent_val)
+                if (reason is not None and snapshot is not None
+                        and self._rollbacks_done < cfg.rollback_max):
+                    state, snap_round = snapshot
+                    self._set_state(_clone_state(state))
+                    avail, widen = self.service_state
+                    self.service_state = (
+                        avail, widen * torch.tensor(cfg.rollback_widen, dtype=torch.float32))
+                    self._rollbacks_done += 1
+                    self._rollback_epoch = self._rollbacks_done
+                    log(
+                        f"[rollback {self._rollbacks_done}/{cfg.rollback_max}] round "
+                        f"{r + 1} diverged ({reason}); restored round {snap_round}, "
+                        f"trim widened x{cfg.rollback_widen:.2f}"
+                    )
+                    continue
             paths["trainLossPath"].append(tr_loss)
             paths["trainAccPath"].append(tr_acc)
             paths["valLossPath"].append(va_loss)
             paths["valAccPath"].append(va_acc)
-            paths["variencePath"].append(float(variance))
+            paths["variencePath"].append(var_f)
             paths["roundsPerSec"].append(1.0 / dt)
             fault_str = ""
             if self.fault is not None:
@@ -702,6 +1261,11 @@ class Trainer:
                     paths[key].append(v)
                 fault_str = (f" effK={eff_k:.0f} drop={dropped:.0f} "
                              f"erase={erased:.0f} corrupt={corrupt:.0f}")
+            if self.service_state is not None:
+                avail_m, absent_m, late_m, eff_k = self.last_service_metrics.tolist()
+                for key, v in zip(SERVICE_PATHS, (avail_m, absent_m, late_m, eff_k)):
+                    paths[key].append(v)
+                fault_str += f" avail={avail_m:.0f} effK={eff_k:.0f} late={late_m:.0f}"
             if self.defense is not None:
                 events = defense_lib.events
                 dm = events.round_metrics(self.last_defense_metrics)
@@ -715,6 +1279,12 @@ class Trainer:
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
                 f"val: loss={va_loss:.4f} acc={va_acc:.4f}{var_str}{fault_str}"
             )
+            if rollback_armed:
+                recent_val = (recent_val + [va_loss])[-ROLLBACK_WINDOW:]
+                # a copy, taken before checkpoint_fn: a hook that poisons
+                # the params in place cannot reach the restore point
+                snapshot = (_clone_state(self._state()), r + 1)
             if checkpoint_fn is not None:
                 checkpoint_fn(r + 1, self, paths)
+            r += 1
         return paths

@@ -66,7 +66,15 @@ def _nan_unless(ok: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, out, math.nan)
 
 
-@AGGREGATORS.register("mean")
+def _f32_scalar(x) -> torch.Tensor:
+    """A Python float as a 0-dim f32 CPU tensor (which takes part in a CUDA
+    op with no copy), or a device scalar as it is (no host read)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.tensor(x, dtype=torch.float32)
+
+
+@AGGREGATORS.register("mean", streamable=True)
 def mean(wmatrix: torch.Tensor, *, degraded: bool = False, **_) -> torch.Tensor:
     """Column mean (reference ``mean``, ``:186-187``), accumulated in f32.
     ``degraded``: the mean of the finite rows only, NaN when there is none
@@ -138,7 +146,7 @@ def gm2_solve(
     return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk)
 
 
-@AGGREGATORS.register("gm2")
+@AGGREGATORS.register("gm2", streamable=True)
 def gm2(wmatrix: torch.Tensor, *, guess=None, maxiter: int = 1000,
         tol: float = 1e-5, **_) -> torch.Tensor:
     """Ideal geometric median by Weiszfeld iteration (reference ``gm2``,
@@ -234,7 +242,7 @@ def _sorted_finite_columns(wmatrix: torch.Tensor):
     return kernels.total_order_vals(torch.sort(keys, dim=0).values), torch.sum(finite)
 
 
-@AGGREGATORS.register("median", supports_fused_epilogue=True)
+@AGGREGATORS.register("median", supports_fused_epilogue=True, streamable=True)
 def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
            degraded: bool = False, **_) -> torch.Tensor:
     """Coordinatewise median with torch semantics: the lower-middle order
@@ -255,8 +263,8 @@ def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
     return torch.index_select(srt, 0, idx.reshape(1))[0]
 
 
-@AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True)
-def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio: float = 0.1,
+@AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True, streamable=True)
+def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio=0.1,
                  beta: Optional[int] = None,
                  channel: Optional[channel.OmaTerms] = None,
                  degraded: bool = False, **_) -> torch.Tensor:
@@ -268,7 +276,9 @@ def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio: float = 0.1,
     ``degraded``: over the n finite rows, ``b = int(f32(n) * trim_ratio)``
     (computed in f32 on the device, as JAX does), an explicit ``beta``
     clamped to ``(n-1)//2``; the mean of sorted ranks [b, n - b) with the
-    non-finite rows sorted to +Inf, NaN when n = 0."""
+    non-finite rows sorted to +Inf, NaN when n = 0.  Here ``trim_ratio``
+    may be a device f32 scalar (a service round's rollback-widened
+    fraction), read with no host sync."""
     k = wmatrix.shape[0]
     if not degraded:
         b = int(k * trim_ratio) if beta is None else int(beta)
@@ -277,7 +287,7 @@ def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio: float = 0.1,
         )
     srt, n = _sorted_finite_columns(_received(wmatrix, channel))
     if beta is None:
-        b = (n.to(torch.float32) * torch.tensor(trim_ratio, dtype=torch.float32)).to(n.dtype)
+        b = (n.to(torch.float32) * _f32_scalar(trim_ratio)).to(n.dtype)
     else:
         b = torch.clamp(torch.clamp(n - 1, min=0) // 2, max=int(beta))
     ranks = torch.arange(k, device=srt.device)[:, None]
@@ -735,3 +745,316 @@ def supports_fused_epilogue(name: str) -> bool:
     """Aggregators that take the OMA terms as ``channel=`` and fold the
     corruption into their one read of the stack (median, trimmed_mean)."""
     return bool(AGGREGATORS.meta(name).get("supports_fused_epilogue", False))
+
+
+# ---------------------------------------------------------------------------
+# cohort-streamed rules (JAX ``ops/aggregators.py:1295-1670``)
+#
+# A streamed round never holds the [K, d] stack: ``rebuild(c)`` remakes the
+# [cohort, d] chunk c, and must be pure in c, since every pass below calls it
+# once per chunk and relies on each pass seeing the same chunks.  The JAX
+# package scans the chunks with ``lax.scan``; here a pass is a Python loop
+# over the chunk indices.  Float partial sums add in chunk order; integer
+# counts merge by plain addition, so the exact median is bitwise the
+# resident selection.
+
+
+def streamable(name: str) -> bool:
+    """Whether the rule has a streamed realization (registration metadata,
+    shared by the config's checks and the defense ladder)."""
+    return bool(AGGREGATORS.meta(name).get("streamable", False))
+
+
+def _chunk_pass(rebuild, n_chunks: int, body, carry):
+    """``carry <- body(carry, rebuild(c))`` for c = 0 .. n_chunks - 1."""
+    for c in range(n_chunks):
+        carry = body(carry, rebuild(c))
+    return carry
+
+
+def stream_stats(rebuild, n_chunks: int, d: int, device):
+    """One pass: (sum over all rows [d], sum over the finite rows [d], the
+    finite-row count): what mean and gm2 need, also supplied by the
+    trainer's observation pass so that they cost no extra pass."""
+
+    def acc(carry, chunk):
+        s_all, s_fin, n_fin = carry
+        fin = _finite_rows(chunk)
+        c32 = chunk.to(torch.float32)
+        return (s_all + torch.sum(c32, dim=0),
+                s_fin + torch.sum(torch.where(fin[:, None], c32, 0.0), dim=0),
+                n_fin + torch.sum(fin).to(torch.int32))
+
+    zeros = torch.zeros(d, dtype=torch.float32, device=device)
+    return _chunk_pass(rebuild, n_chunks, acc,
+                       (zeros, zeros, torch.zeros((), dtype=torch.int32, device=device)))
+
+
+def _stream_count_le(rebuild, n_chunks: int, degraded: bool):
+    """``count_le(mids [r, d] int32) -> [r, d]`` int32 counts of the
+    total-order keys <= mid per column (of the finite rows when degraded),
+    one pass over the chunks."""
+
+    def count_le(mids):
+        def acc(cnt, chunk):
+            keys = kernels.total_order_keys(chunk.to(torch.float32))
+            le = keys[None, :, :] <= mids[:, None, :]  # [r, cohort, d]
+            if degraded:
+                le = le & _finite_rows(chunk)[None, :, None]
+            return cnt + torch.sum(le, dim=1, dtype=torch.int32)
+
+        return _chunk_pass(rebuild, n_chunks, acc, torch.zeros_like(mids))
+
+    return count_le
+
+
+def _stream_bisect_keys(count_le, ns: torch.Tensor, r: int, d: int, device) -> torch.Tensor:
+    """The ranks ``ns`` [r] (0-indexed) of every column's keys by 32 steps
+    of a key bisection, each step one counting pass (JAX
+    ``_stream_bisect_keys``)."""
+    lo = torch.full((r, d), kernels.KEY_MIN, dtype=torch.int32, device=device)
+    hi = torch.full((r, d), kernels.KEY_MAX, dtype=torch.int32, device=device)
+    targets = ns.to(torch.int32).reshape(r, 1)
+    for _ in range(32):
+        # floor((lo + hi) / 2) without overflow; >> on int32 is arithmetic
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        above = count_le(mid) <= targets
+        lo, hi = torch.where(above, mid + 1, lo), torch.where(above, hi, mid)
+    return lo
+
+
+def _f32_to_key(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 rounding toward zero and saturating at the int32 range,
+    as XLA converts (a plain cast of an out-of-range float is undefined)."""
+    # 2**31 - 128 is the largest f32 below 2**31
+    inside = torch.clamp(x, -(2.0**31), 2.0**31 - 128.0).to(torch.int32)
+    return torch.where(x >= 2.0**31, kernels.KEY_MAX, inside)
+
+
+def _stream_sketch_keys(rebuild, n_chunks: int, d: int, ns: torch.Tensor, r: int,
+                        bins: int, degraded: bool, device) -> torch.Tensor:
+    """A mergeable quantile sketch over total-order keys (JAX
+    ``_stream_sketch_keys``): a min/max pass, a [bins, d] int32 histogram
+    pass, and the ranks' bucket upper edges from its cumulative sum, each
+    at most one bucket width above the exact key.  The bucket geometry is
+    f32 in JAX's op order."""
+
+    def chunk_keys(chunk):
+        keys = kernels.total_order_keys(chunk.to(torch.float32))
+        return keys, (_finite_rows(chunk)[:, None] if degraded else None)
+
+    def minmax(carry, chunk):
+        kmin, kmax = carry
+        keys, fin = chunk_keys(chunk)
+        lo_keys = keys if fin is None else torch.where(fin, keys, kernels.KEY_MAX)
+        hi_keys = keys if fin is None else torch.where(fin, keys, kernels.KEY_MIN)
+        return (torch.minimum(kmin, torch.amin(lo_keys, dim=0)),
+                torch.maximum(kmax, torch.amax(hi_keys, dim=0)))
+
+    kmin, kmax = _chunk_pass(rebuild, n_chunks, minmax, (
+        torch.full((d,), kernels.KEY_MAX, dtype=torch.int32, device=device),
+        torch.full((d,), kernels.KEY_MIN, dtype=torch.int32, device=device)))
+    kminf = kmin.to(torch.float32)
+    span = torch.clamp(kmax.to(torch.float32) - kminf, min=1.0)
+    col = torch.arange(d, dtype=torch.int64, device=device)
+
+    def hist_pass(hist, chunk):
+        keys, fin = chunk_keys(chunk)
+        t = (keys.to(torch.float32) - kminf[None, :]) / span[None, :]
+        idx = torch.clamp(_f32_to_key(t * bins), 0, bins - 1).to(torch.int64)
+        ones = (fin.to(torch.int32).expand(keys.shape) if fin is not None
+                else torch.ones(keys.shape, dtype=torch.int32, device=device))
+        flat = hist.view(-1)
+        flat.index_add_(0, (idx * d + col[None, :]).reshape(-1), ones.reshape(-1))
+        return hist
+
+    hist = _chunk_pass(rebuild, n_chunks, hist_pass,
+                       torch.zeros((bins, d), dtype=torch.int32, device=device))
+    cum = torch.cumsum(hist, dim=0, dtype=torch.int32)
+    targets = ns.to(torch.int32).reshape(r, 1, 1)
+    # the first bucket whose cumulative count passes the rank (0 if none)
+    bucket = torch.argmax((cum[None, :, :] > targets).to(torch.uint8), dim=1).to(torch.float32)
+    est = kminf[None, :] + (bucket + 1.0) * (span[None, :] / bins)
+    return torch.minimum(_f32_to_key(est), kmax[None, :])
+
+
+def _stream_trimmed_tail(rebuild, n_chunks: int, lo_k, hi_k, n, b,
+                         degraded: bool) -> torch.Tensor:
+    """The trimmed mean's last pass given the kept band's boundary keys
+    [d] (JAX ``_stream_trimmed_tail``): the strict interior's sum plus each
+    boundary value times its kept multiplicity, over the actual kept count
+    (so the same tail serves the exact and the sketched boundaries)."""
+    d = lo_k.shape[0]
+    zero_i = torch.zeros(d, dtype=torch.int32, device=lo_k.device)
+
+    def acc(carry, chunk):
+        total, lt_lo, le_lo, lt_hi, le_hi = carry
+        w32 = chunk.to(torch.float32)
+        keys = kernels.total_order_keys(w32)
+        live = _finite_rows(chunk)[:, None] if degraded else None
+
+        def count(cmp):
+            if live is not None:
+                cmp = cmp & live
+            return torch.sum(cmp, dim=0, dtype=torch.int32)
+
+        interior = (keys > lo_k[None, :]) & (keys < hi_k[None, :])
+        if live is not None:
+            interior = interior & live
+        return (total + torch.sum(torch.where(interior, w32, 0.0), dim=0),
+                lt_lo + count(keys < lo_k[None, :]), le_lo + count(keys <= lo_k[None, :]),
+                lt_hi + count(keys < hi_k[None, :]), le_hi + count(keys <= hi_k[None, :]))
+
+    total, lt_lo, le_lo, lt_hi, le_hi = _chunk_pass(rebuild, n_chunks, acc, (
+        torch.zeros(d, dtype=torch.float32, device=lo_k.device),
+        zero_i, zero_i, zero_i, zero_i))
+    last = n - b - 1  # the highest kept rank
+
+    def kept_copies(n_lt, n_le):
+        run = torch.minimum(n_le - 1, last) - torch.maximum(n_lt, b) + 1
+        return torch.clamp(run, min=0)
+
+    def boundary_sum(boundary, copies):
+        v = kernels.total_order_vals(boundary)
+        return torch.where(copies > 0, copies.to(torch.float32) * v, 0.0)
+
+    copies_lo = kept_copies(lt_lo, le_lo)
+    copies_hi = torch.where(lo_k == hi_k, 0, kept_copies(lt_hi, le_hi))
+    interior_cnt = torch.clamp(lt_hi - le_lo, min=0)
+    total = total + boundary_sum(lo_k, copies_lo)
+    total = total + boundary_sum(hi_k, copies_hi)
+    kept = interior_cnt + copies_lo + copies_hi
+    return total / torch.clamp(kept, min=1).to(torch.float32)
+
+
+def _stream_quantile_keys(rebuild, n_chunks, d, ns, r, *, quantile, sketch_bins,
+                          degraded, device):
+    if quantile == "sketch":
+        return _stream_sketch_keys(rebuild, n_chunks, d, ns, r, sketch_bins, degraded, device)
+    return _stream_bisect_keys(_stream_count_le(rebuild, n_chunks, degraded), ns, r, d, device)
+
+
+def _stats_or(rebuild, n_chunks, d, device, sum_all, sum_finite, n_finite):
+    if sum_all is None or sum_finite is None or n_finite is None:
+        return stream_stats(rebuild, n_chunks, d, device)
+    return sum_all, sum_finite, n_finite
+
+
+def stream_mean(rebuild, *, k, d, n_chunks, device, degraded=False, sum_all=None,
+                sum_finite=None, n_finite=None, **_) -> torch.Tensor:
+    """Streamed :func:`mean`, exact up to the chunk sums' order; the sums
+    normally come from the trainer's observation pass (no extra pass)."""
+    sum_all, sum_finite, n_finite = _stats_or(rebuild, n_chunks, d, device,
+                                              sum_all, sum_finite, n_finite)
+    if degraded:
+        return _nan_unless(n_finite > 0,
+                           sum_finite / torch.clamp(n_finite, min=1).to(torch.float32))
+    return sum_all / torch.tensor(float(k), dtype=torch.float32)
+
+
+def stream_gm2_solve(rebuild, *, k, d, n_chunks, device, guess=None, maxiter=1000,
+                     tol=1e-5, sum_all=None, sum_finite=None, n_finite=None,
+                     **_) -> Tuple[torch.Tensor, int]:
+    """:func:`stream_gm2` returning ``(aggregate, Weiszfeld steps run)``."""
+    if guess is None:
+        _, sum_finite, n_finite = _stats_or(rebuild, n_chunks, d, device,
+                                            sum_all, sum_finite, n_finite)
+        g = sum_finite / torch.clamp(n_finite, min=1).to(torch.float32)
+    else:
+        g = guess.to(torch.float32)
+    steps = 0
+    with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
+        while steps < maxiter:
+            num = torch.zeros(d, dtype=torch.float32, device=device)
+            den = torch.zeros((), dtype=torch.float32, device=device)
+            for c in range(n_chunks):
+                n_c, d_c = kernels.weiszfeld_step(rebuild(c).contiguous(), g)
+                num, den = num + n_c, den + d_c
+            g_next = num / den
+            movement = torch.linalg.vector_norm(g - g_next)
+            g = g_next
+            steps += 1
+            if not bool(movement > tol):  # the one host read per step
+                break
+    return g, steps
+
+
+def stream_gm2(rebuild, **kw) -> torch.Tensor:
+    """Streamed :func:`gm2` (JAX ``stream_gm2``): every Weiszfeld step
+    rebuilds each chunk and runs one num/den launch of the Weiszfeld kernel
+    on it (:func:`.kernels.weiszfeld_step`: ``inv = 1/max(||w_i - g||,
+    DIST_CLAMP)``, 0 for a non-finite row; ``num += sum inv*w``, ``den +=
+    sum inv``), the partials added in chunk order; then ``g <- num/den``.
+    It stops as JAX's ``while_loop`` does: after the step whose movement
+    ``||g - g_next||`` is not above ``tol``, or after ``maxiter`` steps.
+    Since every step rebuilds every chunk anyway, the movement is read on
+    the host once per step.  Starts from ``guess`` (the trainer passes the
+    pre-iteration params), else the finite rows' mean."""
+    return stream_gm2_solve(rebuild, **kw)[0]
+
+
+def stream_median(rebuild, *, k, d, n_chunks, device, degraded=False, n_finite=None,
+                  quantile="exact", sketch_bins=512, **_) -> torch.Tensor:
+    """Streamed :func:`median` (the lower middle): the ``(n-1)//2`` rank key
+    by bisection (exact: bitwise the resident selection) or the sketch, and
+    back to its value; n is the finite-row count when degraded."""
+    if degraded:
+        if n_finite is None:
+            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device)
+        n = n_finite.to(torch.int32)
+    else:
+        n = torch.tensor(k, dtype=torch.int32, device=device)
+    rank = torch.clamp(n - 1, min=0) // 2
+    key = _stream_quantile_keys(rebuild, n_chunks, d, rank.reshape(1), 1, quantile=quantile,
+                                sketch_bins=sketch_bins, degraded=degraded, device=device)
+    return kernels.total_order_vals(key[0])
+
+
+def stream_trimmed_mean(rebuild, *, k, d, n_chunks, device, trim_ratio=0.1, beta=None,
+                        degraded=False, n_finite=None, quantile="exact",
+                        sketch_bins=512, **_) -> torch.Tensor:
+    """Streamed :func:`trimmed_mean`: the kept band's boundary ranks by
+    bisection or sketch, then one pass of the interior and the boundary
+    multiplicities.  Degraded, the trim adapts to the finite-row count as
+    the resident sort path does (``trim_ratio`` may be a device scalar)."""
+    if degraded:
+        if n_finite is None:
+            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device)
+        n = n_finite.to(torch.int32)
+        if beta is None:
+            b = (n.to(torch.float32) * _f32_scalar(trim_ratio)).to(torch.int32)
+        else:
+            b = torch.clamp(torch.clamp(n - 1, min=0) // 2, max=int(beta))
+    else:
+        n = torch.tensor(k, dtype=torch.int32, device=device)
+        b = torch.tensor(int(k * trim_ratio) if beta is None else int(beta),
+                         dtype=torch.int32, device=device)
+    ns = torch.stack([b, torch.clamp(n - b - 1, min=0)])
+    keys = _stream_quantile_keys(rebuild, n_chunks, d, ns, 2, quantile=quantile,
+                                 sketch_bins=sketch_bins, degraded=degraded, device=device)
+    out = _stream_trimmed_tail(rebuild, n_chunks, keys[0], keys[1], n, b, degraded)
+    return _nan_unless(n > 0, out) if degraded else out
+
+
+_STREAM_FNS = {
+    "mean": stream_mean,
+    "median": stream_median,
+    "trimmed_mean": stream_trimmed_mean,
+    "gm2": stream_gm2,
+}
+
+
+def stream_aggregate(name: str, rebuild, **kw) -> torch.Tensor:
+    """The streamed realization of a streamable rule.  ``rebuild(c) ->
+    [cohort, d]`` must be pure in c.  The keywords are the resident rules'
+    (guess, maxiter, tol, trim_ratio, degraded) plus ``k``, ``d``,
+    ``n_chunks``, ``device``, ``quantile``, ``sketch_bins`` and the optional
+    observation-pass stats ``sum_all``, ``sum_finite``, ``n_finite``."""
+    fn = AGGREGATORS.get(name)
+    for stream_name, stream_fn in _STREAM_FNS.items():
+        if fn is AGGREGATORS.get(stream_name):
+            return stream_fn(rebuild, **kw)
+    raise ValueError(
+        f"aggregator {name!r} has no streaming realization (streamable: "
+        f"{sorted(_STREAM_FNS)})"
+    )

@@ -12,6 +12,14 @@ packages the same numbers.
 * ``oma2`` — over-the-air sum with truncated channel-inversion power
   control ``gain_i = sqrt(P_max / max(mean(m_i^2)/|h_i|^2, threshold))``
   and receiver noise ``N(0, noise_var/2)``.
+* ``oma_by_id`` — ``oma`` with each row's link a function of the row's
+  stable client id (service rounds), drawn by a counter-based generator:
+  see :func:`oma_by_id_terms`.
+
+A cohort-streamed round draws each chunk's channel, fault and attack noise
+from a generator of its own, keyed on the chunk's index
+(:func:`cohort_stream`), where the JAX package folds the cohort index into
+the round key (``cohort_key``, :42).
 """
 
 from __future__ import annotations
@@ -26,6 +34,17 @@ import torch
 HSQ_FLOOR = 1e-6
 # std of each fade component: h_r, h_i ~ N(0, 1/2)
 FADE_STD = 1.0 / math.sqrt(2.0)
+
+#: per-chunk streams of a cohort-streamed round are numbered from here
+COHORT_STREAM_BASE = 16
+
+
+def cohort_stream(stream: int) -> int:
+    """The generator stream number of a cohort chunk's draws for the
+    iteration stream ``stream`` (1 channel, 3 message, 4 fault): the chunk
+    index then extends the seed, so every chunk draws its own terms, and
+    none of them shares a seed with the resident stream of that number."""
+    return COHORT_STREAM_BASE + stream
 
 
 class OmaTerms(NamedTuple):
@@ -154,3 +173,90 @@ def oma2(
         torch.tensor(noise_var, dtype=torch.float32, device=message.device) / 2.0
     )
     return air_sum + scale * noise
+
+
+# ---------------------------------------------------------------------------
+# the per-id link: a counter-based draw
+#
+# A client's link under service rounds is a function of the iteration's key
+# and the client's stable population id, whatever stack row the draw placed
+# it in.  The JAX package folds the id into the key (threefry ``fold_in``);
+# here a 32-bit integer hash of (key, id, counter) gives each uniform, in
+# int64 tensor ops that hold values below 2**63 (so no op overflows), and
+# Box-Muller turns pairs of uniforms into normals.  The integer part gives
+# the same bits on the CPU and the card.
+
+_M32 = 0xFFFFFFFF
+# the multiplier of a well-mixing 32-bit hash (xorshift-multiply, 3 rounds);
+# below 2**31, so a product with a 32-bit value fits in int64
+_HASH_MUL = 0x45D9F3B
+# counters: 0, 1 for the fade's two uniforms, 2 + 2j and 3 + 2j for the
+# noise of element j
+_FADE_COUNTERS = 2
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit mixing hash of int64 values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MUL) & _M32
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MUL) & _M32
+    return x ^ (x >> 16)
+
+
+def _unit_interval(h: torch.Tensor, open_at_zero: bool) -> torch.Tensor:
+    """f32 uniforms from 32-bit hashes: the top 24 bits, exact in f32, in
+    (0, 1] (``open_at_zero``, for the logarithm) or [0, 1)."""
+    top = (h >> 8) + (1 if open_at_zero else 0)
+    return top.to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _box_muller(h1: torch.Tensor, h2: torch.Tensor):
+    """Two independent standard normals from two hash words."""
+    u1 = _unit_interval(h1, open_at_zero=True)
+    u2 = _unit_interval(h2, open_at_zero=False)
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    theta = (2.0 * math.pi) * u2
+    return rad * torch.cos(theta), rad * torch.sin(theta)
+
+
+def link_row_words(key: int, ids: torch.Tensor) -> torch.Tensor:
+    """[k] int64 per-row hash words of (key, id): the seed of each row's
+    counters.  ``key`` is a non-negative Python int (64 bits are used)."""
+    lo, hi = key & _M32, (key >> 32) & _M32
+    r = _hash32(ids.to(torch.int64) & _M32)
+    r = _hash32(r ^ lo)
+    return _hash32(r ^ hi)
+
+
+def oma_by_id_terms(key: int, ids: torch.Tensor, d: int, noise_var: float) -> OmaTerms:
+    """The OMA link's terms for the rows of the stable ids ``ids`` [k]:
+    fades h_r, h_i ~ N(0, 1/2) [k] and noise of std ``sqrt(noise_var)``
+    [k, d], each a function of (``key``, the row's id, the element) alone.
+    So the same id at two stack positions gets the same terms, and the terms
+    of a slice of ``ids`` are the slice of the terms."""
+    dev = ids.device
+    rows = link_row_words(key, ids)[:, None]
+    fade_c = _hash32(torch.arange(_FADE_COUNTERS, dtype=torch.int64, device=dev))
+    z_r, z_i = _box_muller(_hash32(rows ^ fade_c[0]), _hash32(rows ^ fade_c[1]))
+    h_r, h_i = FADE_STD * z_r[:, 0], FADE_STD * z_i[:, 0]
+    j = torch.arange(d, dtype=torch.int64, device=dev)
+    c_r = _hash32(_FADE_COUNTERS + 2 * j)
+    c_i = _hash32(_FADE_COUNTERS + 1 + 2 * j)
+    n_r, n_i = _box_muller(_hash32(rows ^ c_r[None, :]), _hash32(rows ^ c_i[None, :]))
+    scale = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32, device=dev))
+    return OmaTerms(h_r, h_i, floored_hsq(h_r, h_i), scale * n_r, scale * n_i)
+
+
+def oma_by_id(message: torch.Tensor, ids: torch.Tensor, noise_var: float, *,
+              key: Optional[int] = None, terms: Optional[OmaTerms] = None) -> torch.Tensor:
+    """OMA corruption of a [k, d] stack whose row i is the message of the
+    stable client id ``ids[i]`` (JAX ``oma_by_id``, :115): each row's link
+    is drawn from (``key``, ``ids[i]``) (:func:`oma_by_id_terms`), so a
+    cohort-streamed round that applies it chunk by chunk with the slice of
+    ``ids`` gets the resident stack's rows bit for bit.  The physics per row
+    is :func:`oma`'s (JAX ``_oma_row``): ``row + (h_r*n_r + h_i*n_i)/h_sq``
+    with ``h_sq`` floored at ``HSQ_FLOOR``.  ``terms`` may be passed in."""
+    if terms is None:
+        terms = oma_by_id_terms(key, ids, message.shape[1], noise_var)
+    return message + oma_residual(terms)

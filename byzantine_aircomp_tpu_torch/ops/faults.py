@@ -1,9 +1,9 @@
 """Non-adversarial fault injection, the imperfect-world counterpart of
 :mod:`.attacks`.
 
-Port of ``byzantine_aircomp_tpu/ops/faults.py`` (service mode's
-``apply_deadline`` excepted).  A :class:`FaultSpec` is a frozen, registered
-bundle of per-round transforms on four axes:
+Port of ``byzantine_aircomp_tpu/ops/faults.py``, with service mode's
+deadline (:func:`apply_deadline`).  A :class:`FaultSpec` is a frozen,
+registered bundle of per-round transforms on four axes:
 
 * **dropout/straggler** (``dropout_prob``): a client fails to deliver with
   probability p, and the server replays its last delivered update from a
@@ -176,7 +176,7 @@ def apply_dropout(spec: FaultSpec, w_stack: torch.Tensor, stale, *,
 
 def apply_transmission(spec: FaultSpec, w_stack: torch.Tensor, ge_bad, *,
                        generator: Optional[torch.Generator] = None,
-                       draws: Optional[dict] = None):
+                       draws: Optional[dict] = None, row_offset: int = 0):
     """Corruption, then the channel's CSI error and deep-fade erasure,
     after the attack (JAX ``apply_transmission``, :214).
 
@@ -187,7 +187,13 @@ def apply_transmission(spec: FaultSpec, w_stack: torch.Tensor, ge_bad, *,
     ``"fade"`` (h_r, h_i) [K] (:func:`.channel.rayleigh_fade`),
     ``"ge_recover"`` and ``"ge_degrade"`` [K] bool (uniform < ge_p_bg and
     < ge_p_gb), ``"csi_z"`` [K] standard normals.  The erasure tests the
-    unfloored ``h_r^2 + h_i^2``."""
+    unfloored ``h_r^2 + h_i^2``.
+
+    ``row_offset`` is the global client index of row 0: a cohort-streamed
+    round passes one [cohort, d] chunk (with its ``ge_bad`` slice and its own
+    generator), and the ``corrupt_size`` eligibility is judged against the
+    global positions, so that the same clients can crash in any chunking
+    (JAX ``row_offset``, :216)."""
     draws = draws or {}
     k = w_stack.shape[0]
     dev = w_stack.device
@@ -199,7 +205,7 @@ def apply_transmission(spec: FaultSpec, w_stack: torch.Tensor, ge_bad, *,
         return make() if got is None else got
 
     if spec.corrupt_prob > 0.0:
-        eligible = torch.arange(k, device=dev) < spec.corrupt_size
+        eligible = row_offset + torch.arange(k, device=dev) < spec.corrupt_size
         crashed = eligible & draw(
             "crash", lambda: _bernoulli(spec.corrupt_prob, k, generator, dev))
         bad = {"nan": float("nan"), "inf": float("inf"),
@@ -229,3 +235,36 @@ def apply_transmission(spec: FaultSpec, w_stack: torch.Tensor, ge_bad, *,
             n_erased = torch.sum(erased).to(torch.float32)
 
     return w_stack, ge_bad, n_erased, n_corrupt
+
+
+def apply_deadline(w_stack: torch.Tensor, arrived: torch.Tensor, straggler_prob: float, *,
+                   generator: Optional[torch.Generator] = None,
+                   late: Optional[torch.Tensor] = None):
+    """The service round's deadline (JAX ``apply_deadline``, :273): the rows
+    of drawn clients that were offline (``arrived`` [k] False) and of
+    arrived ones that miss the deadline (each with ``straggler_prob``:
+    uniform < p from ``generator``, or the [k] bool ``late`` passed in; none
+    at p = 0) are erased to NaN, the fault channel's "nothing received".
+
+    Returns ``(w_stack, n_absent, n_late)``, the counts f32 device scalars."""
+    missed, n_absent, n_late = deadline_misses(arrived, straggler_prob,
+                                               generator=generator, late=late)
+    return torch.where(missed[:, None], float("nan"), w_stack), n_absent, n_late
+
+
+def deadline_misses(arrived: torch.Tensor, straggler_prob: float, *,
+                    generator: Optional[torch.Generator] = None,
+                    late: Optional[torch.Tensor] = None):
+    """``(missed [k] bool, n_absent, n_late)`` of :func:`apply_deadline`,
+    without the stack: a cohort-streamed round draws the [k] mask once and
+    erases each rebuilt chunk's rows with its slice."""
+    k = arrived.shape[0]
+    if late is None:
+        if straggler_prob > 0.0:
+            late = _bernoulli(straggler_prob, k, generator, arrived.device)
+        else:
+            late = torch.zeros(k, dtype=torch.bool, device=arrived.device)
+    late = late & arrived
+    missed = late | ~arrived
+    return (missed, torch.sum(~arrived).to(torch.float32),
+            torch.sum(late).to(torch.float32))

@@ -134,6 +134,23 @@
    pseudo-gradient, see ``iteration_card_vs_cpu``), (v), (w) and (x) (at
    rung 1) at small K, within 1e-4;
 
+   service rounds and cohort streaming: (z1) service gm2, K=50 (B=10),
+   population 500, stragglers 0.1, 3 rounds, the params poisoned after
+   round 1: exactly one warm rollback, ``weiszfeld_step`` every iteration
+   on stacks with NaN rows, the effective K below 50 in every round, full
+   finite paths, val accuracy above 0.3; (z2) streamed service gm2, K=1000
+   (B=100), cohort 100, population 5000, stragglers 0.05, var 1e-2:
+   ``weiszfeld_step`` at [100, 7850] once per chunk per Weiszfeld step, its
+   steps per solve and host ms per step printed, and its resident twin
+   within 1e-4 with equal effective-K and availability paths; (z3) the CNN,
+   one iteration each: the streamed mean's peak memory at K=200 and K=1000
+   (cohort 50) within 10%, beside the resident K=1000 mean's (or its out
+   of memory), the streamed median at K=200 bitwise ``select_columns`` on
+   the same rows, and the streamed gm2 at [50, 3,274,634] per chunk; and
+   one iteration card vs CPU for service gm --var (``aircomp_weiszfeld_step``
+   on NaN rows), service trimmed_mean --var under --defense adaptive at
+   rung 1, and streamed gm2 at cohort 4, with the service draws shared;
+
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
    ``--fault`` round of those rules takes) beside the kernel's.
@@ -304,7 +321,8 @@ WIDE_SHAPES = {"weiszfeld_step": [(13, WIDE_D), (50, CNN_D), (50, RESNET_D)],
 
 def check_kernels(torch, kernels):
     rows = []
-    shapes = [(50, 7850), (60, 7850), (1000, 7850), (13, 300), (50, EMNIST_D),
+    # (100, 7850): run (z2)'s streamed gm2 chunk
+    shapes = [(50, 7850), (60, 7850), (100, 7850), (1000, 7850), (13, 300), (50, EMNIST_D),
               (1000, EMNIST_D)]
     for name, kern, ref in (
         ("weiszfeld_step", kernels.weiszfeld_step, kernels.weiszfeld_step_ref),
@@ -768,7 +786,9 @@ def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True, prepare=None):
     """One iteration of ``cfg`` on the card against the same iteration on
     the CPU (plain versions), from the same params and draws; the new
     params within ``ITER_ATOL`` (where ``hold``), the honest variance
-    within 1e-4 relative, the fault counts equal.  ``prepare(trainer)``
+    within 1e-4 relative (under service or streaming, a difference of
+    moments: within 1e-6 of the squared norm it cancels), the fault and
+    service counts equal.  ``prepare(trainer)``
     sets both trainers' carried state first.
 
     Under server Adam the pseudo-gradients are held within ``ITER_ATOL``
@@ -808,6 +828,14 @@ def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True, prepare=None):
         draws["part"] = cpu.draw_participants(g)
     if cfg.bucket_size > 1:
         draws["bucket"] = torch.randperm(k, generator=g)
+    if cfg.service == "on":
+        # the draw's priorities, the churn's masks and the stragglers
+        pop_h, pop_b = cfg.population_counts()
+        pop = cfg.population
+        draws["service_u"] = (torch.rand(pop_h, generator=g), torch.rand(pop_b, generator=g))
+        draws["churn"] = (torch.rand(pop, generator=g) < cfg.churn_arrival,
+                          torch.rand(pop, generator=g) < cfg.churn_departure)
+        draws["late"] = torch.rand(k, generator=g) < cfg.straggler_prob
     with _DeltaTap() as tap:
         new_cpu, var_cpu = cpu.iteration(cpu.flat_params, draws=draws, want_variance=True)
         new_gpu, var_gpu = gpu.iteration(gpu.flat_params, draws=_to(draws, "cuda"),
@@ -841,6 +869,13 @@ def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True, prepare=None):
         if not torch.equal(got[:3], want[:3]):
             _fail(f"{label}: the rung or the flag counts differ card vs CPU: {got} {want}")
     fault_str = ""
+    if cfg.service == "on":
+        counts_cpu = cpu.iteration_service_metrics.tolist()
+        counts_gpu = gpu.iteration_service_metrics.cpu().tolist()
+        out["service_counts"] = counts_gpu
+        fault_str = f" service counts (avail, absent, late, effK) card {counts_gpu} CPU {counts_cpu}"
+        if counts_gpu != counts_cpu or counts_cpu[3] >= k:
+            _fail(f"{label}: service counts differ or no row missed the deadline: {fault_str}")
     if cfg.fault is not None:
         counts_cpu = cpu.iteration_fault_metrics.tolist()
         counts_gpu = gpu.iteration_fault_metrics.cpu().tolist()
@@ -857,7 +892,13 @@ def iteration_card_vs_cpu(torch, cfg, ds, label, hold=True, prepare=None):
         _fail(f"{label} iteration on the card disagrees with the CPU: {err}")
     # an erased or corrupted honest row makes the variance NaN on both
     same_nan = math.isnan(float(var_gpu)) and math.isnan(float(var_cpu))
-    if not same_nan and not abs(float(var_gpu) - float(var_cpu)) <= 1e-4 * abs(float(var_cpu)):
+    var_tol = 1e-4 * abs(float(var_cpu))
+    if cfg.service == "on" or cfg.cohort_size:
+        # the service and streamed variance is a difference of moments,
+        # sum ||w||^2 / n - ||mean||^2 (the JAX package's formula): it keeps
+        # the f32 rounding of the squared norm it cancels, ~||params||^2
+        var_tol = 1e-6 * float(torch.sum(cpu.flat_params.double() ** 2))
+    if not same_nan and not abs(float(var_gpu) - float(var_cpu)) <= var_tol:
         _fail(f"{label} honest variance on the card disagrees with the CPU")
     return out
 
@@ -1076,13 +1117,13 @@ def profile_iteration(torch, kernels, trainer, kernel):
 
     gens = trainer.iteration_generators(10**6, 0)
     torch.cuda.synchronize()
-    before = kernels.LAUNCHES[kernel]
+    before = kernels.LAUNCHES[kernel] if kernel else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.iteration(trainer.flat_params, gens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = kernels.LAUNCHES[kernel] - before
+    steps = (kernels.LAUNCHES[kernel] - before) if kernel else 0
     per_kernel, spans = {}, []
     for ev in _device_events(torch, prof):
         name = _short(ev.name)
@@ -1098,7 +1139,8 @@ def profile_iteration(torch, kernels, trainer, kernel):
     busy_ms = busy_us / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     # the run's own kernel: its device ms and launches in this iteration
-    own = [ev for ev in _device_kernels(torch, prof) if _is_kernel_of(ev.name, kernel)]
+    own = [ev for ev in _device_kernels(torch, prof)
+           if kernel and _is_kernel_of(ev.name, kernel)]
     out = dict(
         kernel_device_ms=sum(ev.device_time_total for ev in own) / 1e3,
         kernel_device_launches=len(own),
@@ -1119,7 +1161,7 @@ def profile_iteration(torch, kernels, trainer, kernel):
             out[label] = dict(ranges=n, host_ms=host, device_ms=device, kernels=len(kernels_in),
                               share_of_device_ms=device / max(out["device_summed_ms"], 1e-9))
     loops, host_ms, inside, _ = _range_kernels(torch, prof, weiszfeld)
-    if loops:
+    if loops and kernel:
         # the step kernel's own launches, found in the profile, must be the
         # ones the counter saw: else the profile missed launches
         found = sum(_is_kernel_of(name, kernel) for name in inside)
@@ -1631,6 +1673,346 @@ def check_conv_models(torch, kernels, harness, FedConfig, card, cache_dir):
     return out
 
 
+def check_service_iterations(torch, kernels, FedConfig):
+    """One iteration card vs CPU for this slice, at small K, with the
+    service draws shared (the per-id link's key is a seed, the same on both
+    devices): (a) service gm --var: ``aircomp_weiszfeld_step`` on a stack
+    with NaN rows; (b) service trimmed_mean --var under --defense adaptive,
+    ladder trimmed_mean,median,gm2, the rung forced to 1 (the degraded
+    median); (c) streamed gm2 at cohort 4 (the num/den kernel per chunk)."""
+    from byzantine_aircomp_tpu_torch.data import datasets
+
+    ds = datasets.load("mnist", synthetic_train=3000, synthetic_val=500)
+
+    def rung_one(t):
+        det, (rung, up, down, budget) = t.defense_state
+        t.defense_state = (det, (torch.ones_like(rung), up, down, budget))
+
+    service = dict(service="on", population=40, straggler_prob=0.2)
+    # gm at 5 steps, as in check_solver_and_iteration: a noisy solve at a
+    # small K random-walks, and the two devices' last bits part within tens
+    # of steps
+    cases = (
+        ("z_service_gm_var", dict(agg="gm", noise_var=1e-2, attack="classflip",
+                                  honest_size=8, byz_size=2, agg_maxiter=5, **service),
+         None, "aircomp_weiszfeld_step"),
+        ("z_service_trimmed_mean_var_adaptive_rung1", dict(
+            agg="trimmed_mean", noise_var=1e-2, attack="signflip", honest_size=8, byz_size=2,
+            defense="adaptive", defense_ladder="trimmed_mean,median,gm2", **service),
+         rung_one, None),
+        ("z_streamed_gm2_cohort4", dict(agg="gm2", attack="signflip", honest_size=8,
+                                        byz_size=4, cohort_size=4), None, "weiszfeld_step"),
+    )
+    out = {}
+    for label, kw, prep, kernel in cases:
+        before = dict(kernels.LAUNCHES)
+        out[label] = iteration_card_vs_cpu(torch, FedConfig(**kw), ds, label, prepare=prep)
+        if kernel is not None and kernels.LAUNCHES[kernel] <= before[kernel]:
+            _fail(f"{label}: {kernel} was not launched on the card")
+        out[label]["launches"] = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    return out
+
+
+class _StackTap:
+    """Wraps a kernel wrapper of ``kernels`` for one run and records, per
+    call, the stack's shape and (on the device, no host read) its count of
+    non-finite rows.  The wrapper itself, which counts launches, still
+    runs."""
+
+    def __init__(self, torch, kernels, name):
+        self.torch, self.kernels, self.name = torch, kernels, name
+        self.shapes, self.bad_rows = [], []
+
+    def __enter__(self):
+        self.real = getattr(self.kernels, self.name)
+        torch = self.torch
+
+        def tap(w, *args, **kw):
+            self.shapes.append(tuple(w.shape))
+            self.bad_rows.append(torch.sum(~torch.isfinite(w).all(dim=1)))
+            return self.real(w, *args, **kw)
+
+        setattr(self.kernels, self.name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.kernels, self.name, self.real)
+        return False
+
+
+def _run_stats(torch, kernels, record, t0, iterations, display_interval):
+    launches = dict(kernels.LAUNCHES)
+    return dict(
+        launches=launches,
+        launches_per_round={n: c * display_interval / iterations for n, c in launches.items()},
+        wall_seconds=time.perf_counter() - t0, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        val_acc_path=record["valAccPath"], rounds_per_sec=record["roundsPerSec"],
+        effective_k_path=record.get("effectiveKPath"),
+        service_avail_path=record.get("serviceAvailPath"))
+
+
+def _print_profile(label, prof, kernel, card):
+    print(f"run {label} profiled iteration: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']} ms, idle share {prof['idle_share']}, "
+          f"{prof['device_kernels']} device kernels; {kernel} "
+          f"{prof['kernel_device_ms']:.4f} device ms in {prof['kernel_device_launches']} "
+          f"launch(es); client step {prof.get('client_step')}; top kernels "
+          f"{prof['top_kernels_ms'][:4]} [{card}]")
+
+
+def run_z1(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z1) resident service gm2, K=50 (B=10), population 500, stragglers
+    0.1, 3 rounds; the params are poisoned after round 1, so exactly one
+    warm rollback must follow.  The Weiszfeld kernel must run every
+    iteration, every launch on a stack with NaN rows (late clients: with
+    this seed every iteration has some, though one with none of the 50 late
+    has p = 0.9^50), the effective K stay below 50 in every round, the
+    paths be full and finite, and the val accuracy pass 0.3."""
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=40, byz_size=10,
+                    service="on", population=500, straggler_prob=0.1, rounds=3,
+                    display_interval=10, cache_dir=cache_dir)
+    poisoned = []
+
+    def poison(r, t):
+        if r == 1 and not poisoned:
+            poisoned.append(r)
+            t.flat_params.mul_(float("nan"))
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _StackTap(torch, kernels, "weiszfeld_step_fused") as tap:
+        trainer, record = harness.run_with_trainer(cfg, device="cuda", on_round=poison)
+    torch.cuda.synchronize()
+    # 3 rounds and the rolled-back round again
+    iterations = (cfg.rounds + 1) * cfg.display_interval
+    stats = _run_stats(torch, kernels, record, t0, iterations, cfg.display_interval)
+    bad = torch.stack(tap.bad_rows).cpu()
+    calls_with_nan_rows = int((bad > 0).sum())
+    paths_ok = all(len(record[key]) == cfg.rounds + (key == "valLossPath")
+                   and all(math.isfinite(v) for v in record[key])
+                   for key in ("valLossPath", "variencePath", "effectiveKPath",
+                               "serviceAvailPath"))
+    print(f"run z1_service_gm2: {trainer._rollbacks_done} rollback(s) (epoch "
+          f"{trainer._rollback_epoch}, widen {float(trainer.service_state[1])}); "
+          f"weiszfeld_step launches {stats['launches']['weiszfeld_step']} over {iterations} "
+          f"iterations, {calls_with_nan_rows} of {len(bad)} on stacks with NaN rows; "
+          f"effectiveK {record['effectiveKPath']} available {record['serviceAvailPath']} "
+          f"late {record['serviceLatePath']} absent {record['serviceAbsentPath']}; val_acc "
+          f"{record['valAccPath']} wall {stats['wall_seconds']:.1f}s max_memory_allocated "
+          f"{stats['peak_memory_bytes'] / 2**30:.3f} GiB [{card}]")
+    if trainer._rollbacks_done != 1:
+        _fail(f"run z1: {trainer._rollbacks_done} rollbacks, not 1")
+    if stats["launches"]["weiszfeld_step"] < iterations or calls_with_nan_rows != len(bad):
+        _fail("run z1: the Weiszfeld kernel did not run every iteration on stacks with NaN "
+              "rows")
+    if not paths_ok:
+        _fail("run z1: the paths are not full length and finite")
+    if not max(record["effectiveKPath"]) < cfg.node_size:
+        _fail(f"run z1: the effective K reached {cfg.node_size}")
+    if not record["valAccPath"][-1] > 0.3:
+        _fail(f"run z1: val accuracy {record['valAccPath'][-1]} not above 0.3")
+    if not bool(torch.isfinite(trainer.flat_params).all()):
+        _fail("run z1 ended with non-finite params")
+    prof = profile_iteration(torch, kernels, trainer, "weiszfeld_step")
+    _print_profile("z1_service_gm2", prof, "weiszfeld_step", card)
+    return dict(stats, profiled_iteration=prof, rollbacks=trainer._rollbacks_done,
+                launches_on_nan_stacks=calls_with_nan_rows, card=card)
+
+
+def run_z2(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z2) streamed service gm2, K=1000 (B=100), cohort 100, population
+    5000, stragglers 0.05, --var 1e-2, 1 round: ``weiszfeld_step`` at
+    [100, 7850] once per chunk per Weiszfeld step (at least 10 an
+    iteration); its resident twin from the same seed must end within 1e-4
+    with the same effective K and availability paths."""
+    import dataclasses
+
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=900, byz_size=100,
+                    service="on", population=5000, straggler_prob=0.05, noise_var=1e-2,
+                    cohort_size=100, rounds=1, display_interval=10, cache_dir=cache_dir)
+    n_chunks = cfg.node_size // cfg.cohort_size
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _StackTap(torch, kernels, "weiszfeld_step") as tap:
+        streamed, record = harness.run_with_trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    iterations = cfg.rounds * cfg.display_interval
+    stats = _run_stats(torch, kernels, record, t0, iterations, cfg.display_interval)
+    launches = stats["launches"]["weiszfeld_step"]
+    steps_per_solve = launches / (n_chunks * iterations)
+    shapes = sorted(set(tap.shapes))
+    prof = profile_iteration(torch, kernels, streamed, "weiszfeld_step")
+    loop = prof.pop("weiszfeld_per_step", None) or {}
+    # host ms per Weiszfeld step: the loop's host time over its steps (each
+    # step one launch per chunk)
+    host_ms_per_step = (loop.get("loop_host_ms", float("nan"))
+                        / max(loop.get("steps_launched", 0) / n_chunks, 1))
+    _print_profile("z2_streamed_service_gm2", prof, "weiszfeld_step", card)
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    resident, rec_res = harness.run_with_trainer(dataclasses.replace(cfg, cohort_size=0),
+                                                 device="cuda")
+    torch.cuda.synchronize()
+    twin = dict(wall_seconds=time.perf_counter() - t1, launches=dict(kernels.LAUNCHES))
+    err = float((streamed.flat_params - resident.flat_params).abs().max())
+    same_paths = (record["effectiveKPath"] == rec_res["effectiveKPath"]
+                  and record["serviceAvailPath"] == rec_res["serviceAvailPath"])
+    print(f"run z2_streamed_service_gm2: weiszfeld_step launches {launches} over {iterations} "
+          f"iterations at {shapes}, {steps_per_solve:.2f} Weiszfeld steps per solve, host "
+          f"{host_ms_per_step:.3f} ms per step (profiler on; every chunk rebuilt); vs the "
+          f"resident twin max_abs_err={err:.3e} (tolerance 1e-4), effectiveK "
+          f"{record['effectiveKPath']} vs {rec_res['effectiveKPath']}, available "
+          f"{record['serviceAvailPath']} vs {rec_res['serviceAvailPath']}; val_acc "
+          f"{record['valAccPath'][-1]:.4f}; wall {stats['wall_seconds']:.1f}s (twin "
+          f"{twin['wall_seconds']:.1f}s); max_memory_allocated "
+          f"{stats['peak_memory_bytes'] / 2**30:.3f} GiB [{card}]")
+    if shapes != [(cfg.cohort_size, 7850)]:
+        _fail(f"run z2: weiszfeld_step ran at {shapes}, not [(100, 7850)]")
+    if launches < n_chunks * iterations or launches % n_chunks:
+        _fail(f"run z2: {launches} weiszfeld_step launches, not once per chunk per step")
+    if not err <= ITER_ATOL or not same_paths:
+        _fail("run z2: the streamed run disagrees with its resident twin")
+    if not bool(torch.isfinite(streamed.flat_params).all()):
+        _fail("run z2 ended with non-finite params")
+    return dict(stats, profiled_iteration=prof, weiszfeld_loop=loop, shapes=shapes,
+                steps_per_solve=steps_per_solve, host_ms_per_step=host_ms_per_step,
+                resident_twin=dict(twin, max_abs_err=err, same_paths=same_paths), card=card)
+
+
+def run_z3(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z3) streamed rounds on the reference's CNN (d = 3,274,634), one
+    iteration each from the seeded params and the resident batch stream:
+    the streamed mean at K=200 and K=1000, cohort 50 (the peak memory
+    follows the cohort, not K: within 10%), beside the resident mean at
+    K=1000 (its peak, or that it ran out of memory); the streamed exact
+    median at K=200 against the resident median (``select_columns``):
+    bitwise on the same rows (one iteration's chunks: the streamed median
+    over them and ``select_columns`` over their stack), and the two runs
+    bitwise where their rows are (a batched GEMM or convolution may round
+    a 50-client batch otherwise than a 200-client one); and the streamed
+    gm2 at K=200 (``weiszfeld_step`` at [50, 3,274,634] per chunk per
+    step)."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+    from byzantine_aircomp_tpu_torch.ops import aggregators
+
+    def cfg(**kw):
+        return FedConfig(**dict(dict(model="CNN", agg="mean", attack="classflip", rounds=1,
+                                     display_interval=1, eval_train=False,
+                                     cache_dir=cache_dir), **kw))
+
+    def one(label, c, kernel):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer, record = harness.run_with_trainer(c, device="cuda")
+        torch.cuda.synchronize()
+        stats = _run_stats(torch, kernels, record, t0, 1, 1)
+        if trainer.dim != CNN_D or not bool(torch.isfinite(trainer.flat_params).all()):
+            _fail(f"run {label}: d = {trainer.dim} or non-finite params")
+        print(f"run {label}: launches={stats['launches']} max_memory_allocated "
+              f"{stats['peak_memory_bytes'] / 2**30:.3f} GiB wall {stats['wall_seconds']:.1f}s "
+              f"[{card}]")
+        return trainer, dict(stats, kernel=kernel)
+
+    sizes = {200: dict(honest_size=150, byz_size=50), 1000: dict(honest_size=900, byz_size=100)}
+    out = {}
+    for k in (200, 1000):
+        _, out[f"z3_streamed_mean_k{k}"] = one(
+            f"z3_streamed_mean_k{k}", cfg(cohort_size=50, **sizes[k]), None)
+    try:
+        _, out["z3_resident_mean_k1000"] = one("z3_resident_mean_k1000",
+                                               cfg(**sizes[1000]), None)
+    except torch.cuda.OutOfMemoryError as exc:
+        out["z3_resident_mean_k1000"] = dict(out_of_memory=str(exc).splitlines()[0])
+        print(f"run z3_resident_mean_k1000: out of memory ({str(exc).splitlines()[0]}) "
+              f"[{card}]")
+    peaks = [out[f"z3_streamed_mean_k{k}"]["peak_memory_bytes"] for k in (200, 1000)]
+    ratio = peaks[1] / peaks[0]
+    print(f"run z3: streamed mean peak K=1000 / K=200 = {ratio:.4f} (must be within 10%) "
+          f"[{card}]")
+    if not abs(ratio - 1.0) <= 0.10:
+        _fail(f"run z3: the streamed peak grows with K ({peaks})")
+
+    median = dict(agg="median", **sizes[200])
+    t_res, out["z3_resident_median_k200"] = one("z3_resident_median_k200", cfg(**median),
+                                                "select_columns")
+    t_str, out["z3_streamed_median_k200"] = one(
+        "z3_streamed_median_k200", cfg(cohort_size=50, **median), None)
+    if out["z3_resident_median_k200"]["launches"]["select_columns"] < 1:
+        _fail("run z3: the resident median did not launch select_columns")
+    same = torch.equal(t_str.flat_params, t_res.flat_params)
+    params_err = float((t_str.flat_params - t_res.flat_params).abs().max())
+    # the same chunks, held three ways: the streamed median over them
+    # (32 counting passes), select_columns over their stack, and the rows
+    # of one resident client step
+    probe = Trainer(dataclasses.replace(t_str.cfg), dataset=t_str.dataset, device="cuda")
+    gens = probe.iteration_generators(0, 0)
+    from byzantine_aircomp_tpu_torch.data import datasets as data_lib
+
+    idx = data_lib.sample_client_batch_indices(probe.offsets, probe.sizes, probe.cfg.batch_size,
+                                               generator=gens.batch)
+    rebuild = probe.make_rebuild(probe.flat_params, gens, idx)
+    n_chunks = probe.cfg.node_size // probe.cfg.cohort_size
+    chunks = [rebuild(c)[0] for c in range(n_chunks)]
+    stack = torch.cat(chunks)
+    streamed_med = aggregators.stream_median(lambda c: chunks[c], k=probe.cfg.node_size,
+                                             d=probe.dim, n_chunks=n_chunks,
+                                             device=stack.device)
+    select_med = kernels.fused_median(stack)
+    med_same = torch.equal(streamed_med.view(torch.int32), select_med.view(torch.int32))
+    del chunks, stack, streamed_med, select_med
+    x, y = probe._batches(idx)
+    rows = probe.client_stack(probe.flat_params, x, y, probe._part_mask)
+    rows_err = float((rows - torch.cat([rebuild(c)[0] for c in range(n_chunks)])).abs().max())
+    rows_same = rows_err == 0.0
+    del rows
+    print(f"run z3 median K=200: streamed params bitwise the resident run's={same} (max abs "
+          f"diff {params_err:.3e}); on one iteration's chunks the streamed median is bitwise "
+          f"select_columns={med_same}; the chunked client steps (50 clients a batch) against "
+          f"the resident one (200): max abs diff {rows_err:.3e} [{card}]")
+    if not med_same:
+        _fail("run z3: the streamed median differs from select_columns on the same stack")
+    if not same and rows_same:
+        _fail("run z3: the streamed median run differs from the resident one on equal rows")
+    out["z3_median_bitwise"] = dict(params=same, params_max_abs_diff=params_err,
+                                    median_vs_select_columns=med_same,
+                                    chunked_rows_max_abs_diff=rows_err)
+    del probe, rebuild
+
+    t_gm2, out["z3_streamed_gm2_k200"] = one(
+        "z3_streamed_gm2_k200", cfg(agg="gm2", cohort_size=50, **sizes[200]),
+        "weiszfeld_step")
+    launches = out["z3_streamed_gm2_k200"]["launches"]["weiszfeld_step"]
+    if launches < n_chunks or launches % n_chunks:
+        _fail(f"run z3: {launches} weiszfeld_step launches at [50, {CNN_D}], not per chunk")
+    for label, t, kernel in (("z3_streamed_median_k200", t_str, None),
+                             ("z3_streamed_gm2_k200", t_gm2, "weiszfeld_step")):
+        prof = profile_iteration(torch, kernels, t, kernel)
+        prof.pop("weiszfeld_per_step", None)
+        _print_profile(label, prof, kernel, card)
+        out[label]["profiled_iteration"] = prof
+    out["peak_ratio_k1000_over_k200"] = ratio
+    out["card"] = card
+    return out
+
+
+def run_service_and_streams(torch, kernels, harness, FedConfig, card, cache_dir):
+    """This slice's runs (z1)-(z3), with the wall time they add."""
+    t0 = time.perf_counter()
+    out = dict(z1=run_z1(torch, kernels, harness, FedConfig, card, cache_dir),
+               z2=run_z2(torch, kernels, harness, FedConfig, card, cache_dir),
+               z3=run_z3(torch, kernels, harness, FedConfig, card, cache_dir))
+    out["wall_seconds"] = time.perf_counter() - t0
+    print(f"runs z1-z3 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def time_degraded_sort(torch, kernels, card):
     """The degraded median and trimmed mean at [1000, 7850] (a sort of the
     stack's total-order keys and a gather at the device rank (n-1)//2, or a
@@ -1688,10 +2070,12 @@ def main():
     rows += check_select_and_popcount(torch, kernels, card)
     iter_errs = check_solver_and_iteration(torch)
     iter_errs.update(check_option_iterations(torch, FedConfig))
+    iter_errs.update(check_service_iterations(torch, kernels, FedConfig))
     root = os.path.dirname(os.path.abspath(__file__))
     cache_dir = os.path.join(root, "build", "chip_smoke")
     runs = run_main_path(torch, kernels, harness, FedConfig, card, cache_dir)
     conv = check_conv_models(torch, kernels, harness, FedConfig, card, cache_dir)
+    service_runs = run_service_and_streams(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -1732,6 +2116,7 @@ def main():
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_seconds=build_s, kernel_rows=rows,
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
+                       service_and_streamed_runs=service_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

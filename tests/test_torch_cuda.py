@@ -600,3 +600,105 @@ def test_defense_aware_attacks_need_no_host_sync_on_the_card(cuda):
     for name, out in outs.items():
         want = attacks.resolve(name).apply_message(w.cpu(), 10, None, defense=view("cpu"))
         torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_oma_by_id_on_the_card(cuda):
+    """The per-id link's integer draws are the CPU's bit for bit, its normals
+    within a few ULP (log, cos and sin are the card's own), and a chunked
+    application is bitwise the resident one on the card too."""
+    from byzantine_aircomp_tpu_torch.ops import channel
+
+    ids = torch.tensor([3, 40, 7, 3, 11, 12, 0, 47], device=cuda)
+    key = 0x1234_5678_9ABC
+    assert torch.equal(channel.link_row_words(key, ids).cpu(),
+                       channel.link_row_words(key, ids.cpu()))
+    card = channel.oma_by_id_terms(key, ids, 7850, 1e-2)
+    host = channel.oma_by_id_terms(key, ids.cpu(), 7850, 1e-2)
+    for a, b in zip(card, host):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    w = torch.randn(8, 7850, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    full = channel.oma_by_id(w, ids, 1e-2, key=key)
+    chunks = torch.cat([channel.oma_by_id(w[c:c + 2], ids[c:c + 2], 1e-2, key=key)
+                        for c in range(0, 8, 2)])
+    assert torch.equal(full, chunks)
+
+
+def test_degraded_trimmed_mean_reads_the_trim_ratio_on_the_device(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w = torch.randn(50, 7850, device=cuda, generator=g)
+    w[[3, 30]] = float("nan")
+    widen = torch.tensor(2.25, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ratio = torch.clamp(torch.tensor(0.1, dtype=torch.float32) * widen, max=0.45)
+        out = aggregators.trimmed_mean(w, degraded=True, trim_ratio=ratio)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = aggregators.trimmed_mean(w.cpu(), degraded=True, trim_ratio=ratio.cpu())
+    torch.testing.assert_close(out.cpu(), want, rtol=0, atol=1e-6)
+
+
+def test_stream_gm2_launches_the_kernel_per_chunk_per_step(cuda):
+    """The streamed gm2 launches ``weiszfeld_step`` (num/den mode) once per
+    chunk per Weiszfeld step and agrees with its plain version on the CPU
+    and with the resident solve."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = 0.01 * torch.randn(1, 7850, device=cuda, generator=g) + 1e-3 * torch.randn(
+        400, 7850, device=cuda, generator=g)
+    w[[5, 250]] = float("nan")
+    chunks = w.reshape(4, 100, 7850)
+    guess = torch.zeros(7850, device=cuda)
+    before = kernels.LAUNCHES["weiszfeld_step"]
+    got, steps = aggregators.stream_gm2_solve(lambda c: chunks[c], k=400, d=7850, n_chunks=4,
+                                              device=cuda, guess=guess, maxiter=200, tol=1e-6)
+    assert kernels.LAUNCHES["weiszfeld_step"] - before == 4 * steps and steps > 1
+    host = chunks.cpu()
+    want, steps_cpu = aggregators.stream_gm2_solve(lambda c: host[c], k=400, d=7850,
+                                                   n_chunks=4, device="cpu",
+                                                   guess=guess.cpu(), maxiter=200, tol=1e-6)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    resident = aggregators.gm2(w, guess=guess, maxiter=200, tol=1e-6)
+    torch.testing.assert_close(got, resident, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(agg="gm2", cohort_size=5, noise_var=1e-2),
+    dict(agg="median", cohort_size=5),
+    # a few steps: a noisy gm solve at a small K random-walks, and two
+    # devices' last bits part within tens of steps
+    dict(agg="gm", noise_var=1e-2, agg_maxiter=5),
+], ids=["streamed_gm2_var", "streamed_median", "resident_gm_var"])
+def test_service_iteration_on_the_card_equals_the_cpu(cuda, kw):
+    """One service iteration (straggler deadline, per-id link) on the card
+    and on the CPU from the same params and draws (the link's key is a
+    seed, the same on both), within 1e-4."""
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = datasets.load("mnist", synthetic_train=2000, synthetic_val=200)
+    cfg = FedConfig(honest_size=15, byz_size=5, attack="signflip", service="on",
+                    population=100, straggler_prob=0.2, **kw)
+    cpu = Trainer(cfg, dataset=ds, device="cpu")
+    gpu = Trainer(cfg, dataset=ds, device="cuda", params=cpu.flat_params)
+    g = torch.Generator().manual_seed(6)
+    draws = {"u": torch.rand(20, cfg.batch_size, generator=g),
+             "service_u": (torch.rand(75, generator=g), torch.rand(25, generator=g)),
+             "churn": (torch.rand(100, generator=g) < 0.5, torch.rand(100, generator=g) < 0.5),
+             "late": torch.rand(20, generator=g) < 0.2}
+    if cfg.agg == "gm":  # gm's per-step fades and receiver noise
+        draws["fades"] = tuple(0.7071 * torch.randn(5, 20, generator=g) for _ in range(2))
+        draws["noise"] = torch.randn(5, 7851, generator=g)
+    gens = cpu.iteration_generators(0, 0)._replace(batch=None, draw=None, churn=None,
+                                                   deadline=None, cohort=None)
+    new_cpu, _ = cpu.iteration(cpu.flat_params, gens, draws=draws)
+    gens_gpu = gpu.iteration_generators(0, 0)._replace(batch=None, draw=None, churn=None,
+                                                       deadline=None, cohort=None)
+    card = {key: (tuple(x.cuda() for x in v) if isinstance(v, tuple) else v.cuda())
+            for key, v in draws.items()}
+    new_gpu, _ = gpu.iteration(gpu.flat_params, gens_gpu, draws=card)
+    torch.cuda.synchronize()
+    assert gens.link_key == gens_gpu.link_key
+    torch.testing.assert_close(new_gpu.cpu(), new_cpu, rtol=0, atol=1e-4)
+    assert torch.equal(gpu.iteration_service_metrics.cpu(), cpu.iteration_service_metrics)
