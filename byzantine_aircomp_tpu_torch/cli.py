@@ -33,6 +33,13 @@ Byzantine counts; mean, median, trimmed_mean or gm2) with
 ``--cohort-quantile exact|sketch`` and ``--cohort-sketch-bins``; the two
 compose.
 
+Multi-round dispatch: ``--rounds-per-dispatch R`` (R divides ``--rounds``)
+runs R rounds per dispatch, on the card each round one replay of a CUDA
+graph of the round where the configuration allows it (the run's banner says
+whether it does, and why not); ``--eval-interval`` (a multiple of R; 0 =
+every dispatch), ``--dispatch-mode exact|degraded``, ``--dispatch-prefetch
+off|on`` and ``--async-writer auto|on|off`` tune it.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -226,6 +233,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trim-fraction multiplier of each rollback")
     p.add_argument("--rollback-max", type=int, default=3,
                    help="rollbacks per run")
+    # multi-round dispatch; the granularity knobs require
+    # --rounds-per-dispatch > 1
+    p.add_argument("--rounds-per-dispatch", type=int, default=1,
+                   help="run R rounds per dispatch (on the card one CUDA-graph replay "
+                        "per round); the record folds at dispatch ends, eval and "
+                        "checkpoints move to R-round boundaries; 1 = the per-round "
+                        "loop (R must divide --rounds)")
+    p.add_argument("--eval-interval", type=int, default=0,
+                   help="rounds between boundary evals under R>1 (0 = every dispatch "
+                        "boundary; a multiple of R; skipped rounds repeat the last "
+                        "eval in the record)")
+    p.add_argument("--dispatch-mode", choices=["exact", "degraded"], default="exact",
+                   help="R>1 granularity: 'degraded' accepts the warm-rollback guard "
+                        "at dispatch boundaries (needed for R>1 with --service on "
+                        "--rollback on); 'exact' refuses what would coarsen")
+    p.add_argument("--dispatch-prefetch", choices=["off", "on"], default="off",
+                   help="launch dispatch i+1 before folding dispatch i's records "
+                        "(timing only; records bitwise equal)")
+    p.add_argument("--async-writer", choices=["auto", "on", "off"], default="auto",
+                   help="a writer thread for checkpoint writes and the record pickle "
+                        "(auto = on iff --rounds-per-dispatch > 1); output-only")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
     return p
@@ -237,9 +265,11 @@ _TRUE, _FALSE = ("true", "1", "yes", "on"), ("false", "0", "no", "off")
 _DEFENSE_SUFFIXES = ("", "_ladder", "_warmup", "_alpha", "_drift", "_cusum", "_z", "_up",
                      "_down", "_min_flagged", "_floor", "_leak")
 
-# the cohort and service flags: their FedConfig fields, as named
-_STREAM_SERVICE_FIELDS = ("cohort_size", "cohort_quantile", "cohort_sketch_bins") + (
-    ("service",) + FedConfig._SERVICE_KNOBS)
+# the cohort, service and dispatch flags: their FedConfig fields, as named
+_FLAG_FIELDS = ("cohort_size", "cohort_quantile", "cohort_sketch_bins") + (
+    ("service",) + FedConfig._SERVICE_KNOBS) + (
+    "rounds_per_dispatch", "eval_interval", "dispatch_mode", "dispatch_prefetch",
+    "async_writer")
 
 
 def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:
@@ -306,7 +336,7 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
         participation=args.participation,
         bucket_size=args.bucket_size,
         **{f"defense{name}": getattr(args, f"defense{name}") for name in _DEFENSE_SUFFIXES},
-        **{name: getattr(args, name) for name in _STREAM_SERVICE_FIELDS},
+        **{name: getattr(args, name) for name in _FLAG_FIELDS},
         attack_param=args.attack_param,
         cache_dir=args.cache_dir,
         eval_train=args.eval_train,

@@ -41,11 +41,15 @@ def save(
     flat_params,
     opt_leaves=(),
     meta: Optional[str] = None,
+    writer=None,
 ) -> str:
     """Write params (+ extra state leaves, in ``harness.extra_state`` order)
     atomically.  ``meta`` is an opaque string (the harness stores the
     run's metric paths as JSON) that rides the same atomic write, so a
-    crash can never leave params and paths at different rounds."""
+    crash can never leave params and paths at different rounds.  With
+    ``writer`` (:class:`..obs.WriterThread`) the host copies are taken
+    here and the file write is one task on the writer, so a checkpoint is
+    whole before the next one's write starts."""
     path = checkpoint_file(ckpt_dir, title)
     # host copies BEFORE the temp file exists: a device error here must not
     # leave one behind
@@ -53,10 +57,22 @@ def save(
     extras = {f"opt_{i}": _host(leaf) for i, leaf in enumerate(opt_leaves)}
     if meta is not None:
         extras["meta_json"] = np.asarray(meta)
-    return io_lib.atomic_write(
-        path,
-        lambda f: np.savez(f, round_idx=round_idx, flat_params=flat_host, **extras),
-    )
+
+    def write():
+        io_lib.atomic_write(
+            path,
+            lambda f: np.savez(f, round_idx=round_idx, flat_params=flat_host, **extras),
+        )
+
+    if writer is None:
+        write()
+    else:
+        # the trainer goes on writing its buffers (a CPU tensor's array is a
+        # view of them): the task gets arrays of its own
+        flat_host = flat_host.copy()
+        extras = {key: v.copy() for key, v in extras.items()}
+        writer.submit(write)
+    return path
 
 
 def load(ckpt_dir: str, title: str) -> Optional[Tuple[int, np.ndarray, list]]:

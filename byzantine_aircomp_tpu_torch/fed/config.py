@@ -9,8 +9,8 @@ surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
 rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
 2021, gm/gm2 maxiter 1000 tol 1e-5 (``:350``).  There is no ``agg_impl``:
 on CUDA the hand-written kernels always run, on the CPU their plain
-versions.  The JAX package's multi-round dispatch (``rounds_per_dispatch``
-and its knobs) and population sharding (``pop_shards``) are not ported
+versions.  Multi-round dispatch (``rounds_per_dispatch`` and its knobs) is
+here; the JAX package's population sharding (``pop_shards``) is not ported
 yet, nor are its observability, profiling and execution-layout fields.
 """
 
@@ -189,6 +189,32 @@ class FedConfig:
     rollback_widen: float = 1.5
     rollback_max: int = 3
 
+    # multi-round dispatch (fed/train.py Trainer._train_multi): R rounds per
+    # dispatch, on the card one CUDA-graph replay per round (fed/graphs.py)
+    # with no host read between them.  1 (default) drives the per-round
+    # loop bit for bit and is skipped from the config hash; > 1 folds the
+    # stacked per-round outputs into the record at each dispatch's end,
+    # moves eval, checkpoints and the rollback guard to R-round boundaries
+    # and forks the title (_rdN) and hash.  R must divide `rounds`; a
+    # resumed run may open with an alignment dispatch and close with a tail
+    rounds_per_dispatch: int = 1
+    # rounds between boundary evals under R > 1: 0 evaluates at every
+    # boundary; a multiple of R evaluates at those boundaries only, and the
+    # skipped rounds' record entries repeat the last eval
+    eval_interval: int = 0
+    # "exact" refuses combinations that R > 1 would coarsen (service rounds'
+    # warm rollback guards every round); "degraded" accepts the guard at
+    # dispatch boundaries
+    dispatch_mode: str = "exact"
+    # "on" launches dispatch i+1 before folding dispatch i's outputs, so the
+    # host fold overlaps device work; the records are bitwise those of
+    # "off" but for roundsPerSec, so the hash skips it
+    dispatch_prefetch: str = "off"
+    # the writer thread (obs/writer.py) for checkpoint writes and the record
+    # pickle: "auto" = on iff rounds_per_dispatch > 1; output-only, so the
+    # hash skips it
+    async_writer: str = "auto"
+
     # eval
     eval_batch: int = 2000
     eval_train: bool = True
@@ -234,6 +260,12 @@ class FedConfig:
         "rollback", "rollback_loss_factor", "rollback_cusum",
         "rollback_widen", "rollback_max",
     )
+
+    # dispatch knobs that need rounds_per_dispatch > 1 (dispatch_prefetch
+    # too, checked on its own); harness.config_hash skips them (and
+    # rounds_per_dispatch) at R = 1.  async_writer and dispatch_prefetch
+    # are output-only and skipped always
+    _DISPATCH_KNOBS = ("eval_interval", "dispatch_mode")
 
     @property
     def node_size(self) -> int:
@@ -385,6 +417,7 @@ class FedConfig:
         attack = attack_lib.resolve(self.attack)
         self._validate_cohort(part_h, part_b, attack, spec)
         self._validate_service()
+        self._validate_dispatch()
         if attack is not None and attack.defense_aware and self.defense == "off":
             raise ValueError(
                 f"attack {self.attack!r} is defense-aware (it reads the published "
@@ -593,6 +626,53 @@ class FedConfig:
                 f"fault {self.fault!r} keeps a resident [K, d] stale-replay buffer "
                 "(dropout_prob > 0), exactly the allocation the streamed path "
                 "removes; deep_fade/csi/corrupt stream fine"
+            )
+
+    def _validate_dispatch(self):
+        """Multi-round dispatch (JAX ``fed/config.py:1070-1145``)."""
+        if self.rounds_per_dispatch < 1:
+            raise ValueError(
+                f"rounds_per_dispatch must be >= 1, got {self.rounds_per_dispatch}"
+            )
+        if self.async_writer not in ("auto", "on", "off"):
+            raise ValueError(
+                f"async_writer must be auto, on, or off, got {self.async_writer!r}"
+            )
+        if self.dispatch_prefetch not in ("off", "on"):
+            raise ValueError(
+                f"dispatch_prefetch must be off or on, got {self.dispatch_prefetch!r}"
+            )
+        if self.dispatch_mode not in ("exact", "degraded"):
+            raise ValueError(
+                f"dispatch_mode must be exact or degraded, got {self.dispatch_mode!r}"
+            )
+        if self.rounds_per_dispatch == 1:
+            # the R = 1 driver is the per-round loop: nothing to tune
+            self._untouched("dispatch", self._DISPATCH_KNOBS + ("dispatch_prefetch",),
+                            "--rounds-per-dispatch > 1")
+            return
+        if self.rounds % self.rounds_per_dispatch:
+            raise ValueError(
+                f"rounds_per_dispatch {self.rounds_per_dispatch} must divide the round "
+                f"budget {self.rounds}: a fresh run schedules only full R-round "
+                "dispatches (a resumed run may open with an alignment dispatch and "
+                "close with a tail dispatch, but the budget itself must split cleanly)"
+            )
+        if self.eval_interval < 0:
+            raise ValueError(f"eval_interval must be >= 0, got {self.eval_interval}")
+        if self.eval_interval and self.eval_interval % self.rounds_per_dispatch:
+            raise ValueError(
+                f"eval_interval {self.eval_interval} must be 0 (every dispatch "
+                f"boundary) or a multiple of rounds_per_dispatch "
+                f"{self.rounds_per_dispatch}: evals only run between dispatches"
+            )
+        if self.service == "on" and self.rollback == "on" and self.dispatch_mode == "exact":
+            raise ValueError(
+                "--rounds-per-dispatch > 1 with --service on arms the warm-rollback "
+                "divergence guard, which can only fire at dispatch boundaries; opt "
+                "into that coarser granularity with --dispatch-mode degraded, or "
+                "disable the guard with --rollback off, or keep "
+                "--rounds-per-dispatch 1"
             )
 
     def _validate_service(self):

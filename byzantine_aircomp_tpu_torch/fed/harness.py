@@ -9,8 +9,11 @@ reference's analysis reads the port's records unchanged.
 
 Checkpoint and resume follow the JAX harness (``fed/harness.py:407-501``,
 ``:670-742``): with ``checkpoint_dir`` set, the params and the extra state
-(:func:`extra_state`) are written after every round under
-:func:`ckpt_title`, and ``inherit`` resumes from them.
+(:func:`extra_state`) are written after every round (every dispatch under
+``--rounds-per-dispatch``) under :func:`ckpt_title`, and ``inherit``
+resumes from them.  With ``--async-writer`` on (``auto``: iff R > 1) the
+checkpoint writes and the record pickle ride a writer thread
+(:mod:`..obs.writer`), drained before the run returns.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as obs_lib
 from ..utils import io as io_lib
 from . import checkpoint
 from .config import FedConfig
@@ -104,6 +108,14 @@ def run_title(cfg: FedConfig) -> str:
         for knob in FedConfig._SERVICE_KNOBS:
             if knob != "population" and _non_default(cfg, knob):
                 title += f"_{knob.replace('_', '')}{getattr(cfg, knob)}"
+    if cfg.rounds_per_dispatch > 1:
+        # (JAX fed/harness.py:166-175): boundary eval and checkpoints, so
+        # its runs never alias the per-round loop's
+        title += f"_rd{cfg.rounds_per_dispatch}"
+        if _non_default(cfg, "eval_interval"):
+            title += f"_ev{cfg.eval_interval}"
+        if _non_default(cfg, "dispatch_mode"):
+            title += f"_{cfg.dispatch_mode}"
     if cfg.fault is not None:
         title += f"_fault{cfg.fault}"
         for knob, val in sorted(cfg.fault_overrides().items()):
@@ -124,8 +136,10 @@ def run_title(cfg: FedConfig) -> str:
 # fields that never change the trajectory, and so never split a checkpoint's
 # identity: the JAX harness's unconditional skip list (``fed/harness.py:219``)
 # as far as the port has the fields.  ``rounds`` is the horizon that
-# ``inherit`` exists to extend
-_HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds")
+# ``inherit`` exists to extend; the writer thread and the dispatch prefetch
+# change when bytes reach the disk and the host folds, not the records
+_HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds", "async_writer",
+              "dispatch_prefetch")
 
 # fields skipped while at their default, so that a config that leaves them
 # there hashes as it did before the field was ported: the sign channel's
@@ -144,8 +158,10 @@ def config_hash(cfg: FedConfig) -> str:
     two cells that share a title could otherwise resume each other's state.
     As in the JAX package, ``sign_bits`` is skipped at its default 32,
     ``size_skew`` at its default "none", the defense's fields while it is
-    off, the cohort fields at ``cohort_size`` 0 and the service fields
-    while it is off (``fed/harness.py:248-264``); the training options are skipped
+    off, the cohort fields at ``cohort_size`` 0, the service fields
+    while it is off (``fed/harness.py:248-264``), the dispatch fields at
+    ``rounds_per_dispatch`` 1 and the writer and prefetch knobs always
+    (:280-286, :242); the training options are skipped
     at their defaults too (:data:`_HASH_SKIP_AT_DEFAULT`), so a default run
     keeps the hash it had before they were ported.  The
     digest is NOT the JAX package's for the same run: the two FedConfigs
@@ -159,6 +175,10 @@ def config_hash(cfg: FedConfig) -> str:
         skip += ("cohort_size",) + FedConfig._COHORT_KNOBS
     if cfg.service == "off":
         skip += ("service",) + FedConfig._SERVICE_KNOBS
+    if cfg.rounds_per_dispatch == 1:
+        # (JAX fed/harness.py:280-286): an R = 1 config hashes as it did
+        # before the dispatch fields were ported
+        skip += ("rounds_per_dispatch",) + FedConfig._DISPATCH_KNOBS
     items = sorted(
         (f.name, repr(getattr(cfg, f.name)))
         for f in dataclasses.fields(cfg)
@@ -206,8 +226,16 @@ def banner(cfg: FedConfig, trainer: Trainer, path: str):
         f"[running time]   rounds={cfg.rounds}, displayInterval={cfg.display_interval}",
         f"[torch set   ]  device={dev} ({dev_name}) torch={torch.__version__} "
         f"SEED={cfg.seed}, fixSeed={cfg.fix_seed}",
-        "-------------------------------------------",
     ]
+    if cfg.rounds_per_dispatch > 1:
+        graphed, reason = trainer.dispatch_graph
+        lines.append(
+            f"[dispatch    ]   roundsPerDispatch={cfg.rounds_per_dispatch} "
+            f"evalInterval={cfg.eval_interval} mode={cfg.dispatch_mode} "
+            f"prefetch={cfg.dispatch_prefetch} asyncWriter={cfg.async_writer} "
+            f"cudaGraph={'yes' if graphed else 'no'} ({reason})"
+        )
+    lines.append("-------------------------------------------")
     for line in lines:
         print(line)
     sys.stdout.flush()
@@ -380,9 +408,10 @@ def run_with_trainer(
     """:func:`run`, also returning the finished trainer (its final
     ``flat_params``) for callers that check the trained state.  ``dataset``
     replaces the one ``cfg.dataset`` names at its default size.
-    ``on_round(r, trainer)`` runs after each round's checkpoint, with ``r``
-    the rounds done (the JAX harness's ``on_checkpoint``, here also without
-    a checkpoint directory; a smoke run injects a divergence through it).
+    ``on_round(r, trainer)`` runs after each round's checkpoint (each
+    dispatch's under ``--rounds-per-dispatch``), with ``r`` the rounds done
+    (the JAX harness's ``on_checkpoint``, here also without a checkpoint
+    directory; a smoke run injects a divergence through it).
 
     With ``cfg.checkpoint_dir`` set, every round ends in a checkpoint under
     :func:`ckpt_title` that also holds the whole run's paths so far as its
@@ -391,10 +420,25 @@ def run_with_trainer(
     resumes); with ``cfg.inherit`` the run resumes from that checkpoint,
     and the saved paths prefix is joined to the resumed run's
     (:func:`merge_paths`).  A torn or unreadable checkpoint restarts from
-    round 0, with one log line."""
+    round 0, with one log line.
+
+    With the writer thread on (:func:`..obs.resolve_async`) each
+    checkpoint is copied to the host here and written by the writer as one
+    task, the record pickle rides it last, and the writer is drained and
+    closed before this returns, on success or failure (JAX
+    ``fed/harness.py:599-645``, :994-999)."""
     if cfg.attack is None:
         cfg.byz_size = 0
     cfg.validate()
+    writer = obs_lib.WriterThread() if obs_lib.resolve_async(cfg) else None
+    try:
+        return _run_inner(cfg, device, record_in_file, dataset, on_round, writer)
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def _run_inner(cfg, device, record_in_file, dataset, on_round, writer):
     trainer = Trainer(cfg, dataset=dataset, device=device)
     path = cache_path(cfg, trainer.dataset.name)
     banner(cfg, trainer, path)
@@ -408,7 +452,7 @@ def run_with_trainer(
             if resume_prefix:
                 so_far = merge_paths(resume_prefix, so_far)
             checkpoint.save(cfg.checkpoint_dir, title, r, t.flat_params,
-                            extra_state(t), meta=json.dumps(so_far))
+                            extra_state(t), meta=json.dumps(so_far), writer=writer)
             if on_round is not None:
                 on_round(r, t)
 
@@ -450,5 +494,11 @@ def run_with_trainer(
         max_feature=int(trainer.dataset.x_train[0].size),
     )
     if record_in_file:
-        io_lib.atomic_pickle(path, record)
+        if writer is not None:
+            # after every pending checkpoint; drained so that the file is
+            # there when this returns
+            writer.submit(lambda: io_lib.atomic_pickle(path, record))
+            writer.drain()
+        else:
+            io_lib.atomic_pickle(path, record)
     return trainer, record

@@ -3,8 +3,9 @@
 Port of the rounds of ``byzantine_aircomp_tpu/fed/train.py``: the resident
 ``_iteration`` (:605), with or without service rounds, and the
 cohort-streamed ``_iteration_streamed`` (:1103) with the one-device (LOCAL)
-context; population sharding and multi-round dispatch are not ported.  One
-resident global iteration is
+context, and the multi-round dispatch driver ``_train_multi`` (:2337), whose
+rounds on the card replay one CUDA graph of a round (:mod:`.graphs`);
+population sharding is not ported.  One resident global iteration is
 
     flat_params [d] [--participants: m of K drawn-->]
       --per-client local SGD steps (FedAvg, FedProx, client momentum)-->
@@ -53,9 +54,11 @@ channel.cohort_stream(stream), chunk)``.  After a warm rollback the epoch
 extends every seed; at epoch 0 nothing is added, so a run that never rolls
 back draws exactly what it drew before rollback was ported.
 ``iteration`` also takes the draws as inputs (``draws``), so the tests can
-feed it the JAX package's numbers.  No generator carries state from one
-round to the next, so a run resumed at round R draws exactly what the
-uninterrupted run drew from round R on.
+feed it the JAX package's numbers.  ``run_round`` keeps one generator per
+(iteration slot, stream) and seeds it afresh for every round, so no
+generator carries state from one round to the next: a run resumed at round
+R draws exactly what the uninterrupted run drew from round R on, and a
+CUDA graph of the round replays with those generators re-seeded.
 
 A delayed attack (``name@R``) counts global iterations in ``attack_iter``,
 a device int32 scalar, and one device bool, ``attack_iter >= R *
@@ -85,6 +88,7 @@ from ..ops import channel as channel_lib
 from ..ops import faults as fault_lib
 from ..ops import flatten as flatten_lib
 from ..registry import MODELS
+from . import graphs as graphs_lib
 from . import server_opt as server_opt_lib
 from .config import FedConfig
 
@@ -181,6 +185,43 @@ def detector_update_by_id(det, score, finite, ids, params):
             cus.index_put((ids,), cus_r)), flags
 
 
+class DispatchOutputs(NamedTuple):
+    """A dispatch's per-round outputs, stacked on the device with a leading
+    dim of the rounds run: the honest variance [n] and the round rows of
+    :data:`FAULT_PATHS` [n, 4], of the defense [n, 6] and of
+    :data:`SERVICE_PATHS` [n, 4], each None when its feature is off."""
+
+    variances: torch.Tensor
+    fault: Optional[torch.Tensor]
+    defense: Optional[torch.Tensor]
+    service: Optional[torch.Tensor]
+
+
+class _HostRows:
+    """Host copies of a dispatch's outputs, started with no wait: on the
+    card into pinned buffers behind one event, so that ``get()`` waits for
+    this dispatch's work alone, not for a dispatch queued after it."""
+
+    def __init__(self, outs: DispatchOutputs):
+        self._event = None
+        self._host = []
+        for t in outs:
+            if t is not None and t.device.type == "cuda":
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+                if self._event is None:
+                    self._event = torch.cuda.Event()
+            self._host.append(t)
+        if self._event is not None:
+            self._event.record()
+
+    def get(self) -> List[Optional[list]]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [None if h is None else h.tolist() for h in self._host]
+
+
 def _clone_state(x):
     """A deep copy of a state tree of tensors, tuples and Nones."""
     if isinstance(x, torch.Tensor):
@@ -208,7 +249,10 @@ class Trainer:
     """Drives the main path on one device (``"cuda"`` unless the caller
     passes ``device="cpu"``).  ``params`` (flat [d], JAX layout) replaces
     the seeded initialization, e.g. with weights carried over from the JAX
-    package (:mod:`..interop`)."""
+    package (:mod:`..interop`).  Under ``rounds_per_dispatch > 1`` a
+    configuration that :func:`.graphs.dispatch_graph` admits replays one
+    CUDA graph per round; ``graphs=False`` runs its dispatches eagerly
+    instead, the referee the graphed rounds are held against."""
 
     def __init__(
         self,
@@ -216,9 +260,19 @@ class Trainer:
         dataset: Optional[data_lib.Dataset] = None,
         device: str = "cuda",
         params: Optional[torch.Tensor] = None,
+        graphs: bool = True,
     ):
         self.cfg = cfg.validate()
         self.device = resolve_device(device)
+        # (graphed, reason), printed in the run's banner under R > 1; the
+        # graph of a round is captured at the first dispatch
+        self.dispatch_graph = (
+            graphs_lib.dispatch_graph(cfg, self.device) if graphs
+            else (False, "graphs=False: the eager dispatch, the graphed round's referee"))
+        self.round_graph: Optional[graphs_lib.RoundGraph] = None
+        # run_round's generators, one per (iteration slot, stream, *sub),
+        # seeded afresh for every round
+        self._slot_generators: Dict[tuple, torch.Generator] = {}
         self.dataset = dataset or data_lib.load(cfg.dataset)
         self.attack = attack_lib.resolve(cfg.attack)
         self.agg_fn = agg_lib.resolve(cfg.agg)
@@ -460,27 +514,49 @@ class Trainer:
         hi, lo = np.random.SeedSequence(entropy).generate_state(2)
         return ((int(hi) << 32) | int(lo)) & (2**63 - 1)
 
-    def _generator(self, round_idx: int, it: int, stream: int, *sub: int) -> torch.Generator:
-        g = torch.Generator(device=self.device)
+    def _generator(self, round_idx: int, it: int, stream: int, *sub: int,
+                   persistent: bool = False) -> torch.Generator:
+        """The generator of ``(seed, round, iteration, stream, *sub)``: a
+        new one, or with ``persistent`` the one kept for the iteration slot
+        ``it`` and the stream, seeded afresh (the same draws either way)."""
+        if not persistent:
+            g = torch.Generator(device=self.device)
+        else:
+            g = self._slot_generators.get((it, stream) + sub)
+            if g is None:
+                g = self._slot_generators[(it, stream) + sub] = torch.Generator(
+                    device=self.device)
         g.manual_seed(self._seed(round_idx, it, stream, *sub))
         return g
 
-    def iteration_generators(self, round_idx: int, it: int) -> IterationGenerators:
+    def reseed_slot_generators(self, round_idx: int):
+        """Seed every kept generator for ``round_idx``, as ``run_round``
+        would: what a CUDA-graph replay of a round draws from."""
+        for (it, stream, *sub), g in self._slot_generators.items():
+            g.manual_seed(self._seed(round_idx, it, stream, *sub))
+
+    def iteration_generators(self, round_idx: int, it: int,
+                             persistent: bool = False) -> IterationGenerators:
+        """Iteration ``it`` of round ``round_idx``'s generators: new ones,
+        or with ``persistent`` the ones kept for the slot (``run_round``;
+        a chunk's cohort generators are new on every call either way)."""
         cfg = self.cfg
         on = {"fault": self.fault is not None, "participation": cfg.participation < 1.0,
               "bucket": cfg.bucket_size > 1}
-        extra = {name: self._generator(round_idx, it, s)
+        extra = {name: self._generator(round_idx, it, s, persistent=persistent)
                  for name, s in _OPTIONAL_STREAMS if on[name]}
         if cfg.service == "on":
             for sub, name in enumerate(_SERVICE_SUBSTREAMS):
                 extra[name] = (self._seed(round_idx, it, _SERVICE_STREAM, sub)
                                if name == "link_key"
-                               else self._generator(round_idx, it, _SERVICE_STREAM, sub))
+                               else self._generator(round_idx, it, _SERVICE_STREAM, sub,
+                                                    persistent=persistent))
         if cfg.cohort_size > 0:
             extra["cohort"] = lambda stream, c: self._generator(
                 round_idx, it, channel_lib.cohort_stream(stream), c)
         return IterationGenerators(
-            *(self._generator(round_idx, it, s) for s in range(4)), **extra,
+            *(self._generator(round_idx, it, s, persistent=persistent) for s in range(4)),
+            **extra,
         )
 
     # ------------------------------------------------------------------
@@ -1082,7 +1158,7 @@ class Trainer:
         for it in range(interval):
             self.flat_params, variance = self.iteration(
                 self.flat_params,
-                self.iteration_generators(round_idx, it),
+                self.iteration_generators(round_idx, it, persistent=True),
                 want_variance=it == interval - 1,
             )
             if self.fault is not None:
@@ -1104,6 +1180,40 @@ class Trainer:
                 per_it[-1, :1], torch.sum(per_it[:, 1:3], dim=0),
                 torch.amin(per_it[:, 3:], dim=0)])
         return variance
+
+    def run_rounds_stacked(self, start_round: int, num_rounds: int) -> DispatchOutputs:
+        """Rounds ``start_round .. start_round + num_rounds - 1`` as one
+        dispatch (JAX ``run_rounds_stacked``, :1945): on the card, where
+        :func:`.graphs.dispatch_graph` admits the configuration, one replay
+        of the round's CUDA graph per round (captured at the first
+        dispatch); else the rounds run eagerly.  Returns the stacked
+        per-round outputs (:class:`DispatchOutputs`) as device tensors,
+        with no host read; ``last_*_metrics`` become the last round's
+        rows, as after :meth:`run_round`."""
+        if self.dispatch_graph[0]:
+            if self.round_graph is None:
+                self.round_graph = graphs_lib.RoundGraph(self)
+            outs = self.round_graph.run(start_round, num_rounds)
+        else:
+            rows = []
+            for i in range(num_rounds):
+                variance = self.run_round(start_round + i)
+                rows.append((variance, self.last_fault_metrics,
+                             self.last_defense_metrics, self.last_service_metrics))
+            outs = DispatchOutputs(*(
+                None if col[0] is None else torch.stack(col) for col in zip(*rows)))
+        if outs.fault is not None:
+            self.last_fault_metrics = outs.fault[-1]
+        if outs.defense is not None:
+            self.last_defense_metrics = outs.defense[-1]
+        if outs.service is not None:
+            self.last_service_metrics = outs.service[-1]
+        return outs
+
+    def run_rounds(self, start_round: int, num_rounds: int) -> torch.Tensor:
+        """:meth:`run_rounds_stacked`'s per-round honest variance [n], a
+        device tensor (JAX ``run_rounds``, :1979)."""
+        return self.run_rounds_stacked(start_round, num_rounds).variances
 
     # ------------------------------------------------------------------
     # eval and the host-side training loop
@@ -1217,6 +1327,10 @@ class Trainer:
             f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
             f"val: loss={va_loss:.4f} acc={va_acc:.4f}"
         )
+        if cfg.rounds_per_dispatch > 1:
+            # the R = 1 loop below stays as it was, bit for bit
+            return self._train_multi(paths, (tr_loss, tr_acc, va_loss, va_acc), eval_pair,
+                                     log, checkpoint_fn, start_round)
         var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
         rollback_armed = cfg.service == "on" and cfg.rollback == "on"
         snapshot = None
@@ -1230,50 +1344,17 @@ class Trainer:
             dt = time.perf_counter() - t0
             (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
             var_f = float(variance)
-            if rollback_armed:
-                reason = self._divergence(tr_loss, va_loss, var_f, recent_val)
-                if (reason is not None and snapshot is not None
-                        and self._rollbacks_done < cfg.rollback_max):
-                    state, snap_round = snapshot
-                    self._set_state(_clone_state(state))
-                    avail, widen = self.service_state
-                    self.service_state = (
-                        avail, widen * torch.tensor(cfg.rollback_widen, dtype=torch.float32))
-                    self._rollbacks_done += 1
-                    self._rollback_epoch = self._rollbacks_done
-                    log(
-                        f"[rollback {self._rollbacks_done}/{cfg.rollback_max}] round "
-                        f"{r + 1} diverged ({reason}); restored round {snap_round}, "
-                        f"trim widened x{cfg.rollback_widen:.2f}"
-                    )
-                    continue
-            paths["trainLossPath"].append(tr_loss)
-            paths["trainAccPath"].append(tr_acc)
-            paths["valLossPath"].append(va_loss)
-            paths["valAccPath"].append(va_acc)
-            paths["variencePath"].append(var_f)
-            paths["roundsPerSec"].append(1.0 / dt)
-            fault_str = ""
-            if self.fault is not None:
-                # the round's counts, read with the eval: one host read
-                dropped, erased, corrupt, eff_k = self.last_fault_metrics.tolist()
-                for key, v in zip(FAULT_PATHS, (dropped, erased, corrupt, eff_k)):
-                    paths[key].append(v)
-                fault_str = (f" effK={eff_k:.0f} drop={dropped:.0f} "
-                             f"erase={erased:.0f} corrupt={corrupt:.0f}")
-            if self.service_state is not None:
-                avail_m, absent_m, late_m, eff_k = self.last_service_metrics.tolist()
-                for key, v in zip(SERVICE_PATHS, (avail_m, absent_m, late_m, eff_k)):
-                    paths[key].append(v)
-                fault_str += f" avail={avail_m:.0f} effK={eff_k:.0f} late={late_m:.0f}"
-            if self.defense is not None:
-                events = defense_lib.events
-                dm = events.round_metrics(self.last_defense_metrics)
-                for key, path_key in events.PATH_KEYS.items():
-                    paths[path_key].append(dm[key])
-                agg_name = events.active_agg(self.defense.mode, self.defense.ladder,
-                                             int(dm["rung"]), cfg.agg)
-                fault_str += f" rung={int(dm['rung'])}({agg_name}) flag={dm['flagged']:.0f}"
+            if rollback_armed and self._roll_back(
+                    self._divergence(tr_loss, va_loss, var_f, recent_val), snapshot,
+                    f"round {r + 1}", log):
+                continue
+            # the round's fault, service and defense rows, read with the
+            # eval: one host read each
+            fault_str = self._append_round(
+                paths, (tr_loss, tr_acc, va_loss, va_acc), var_f, 1.0 / dt,
+                None if self.fault is None else self.last_fault_metrics.tolist(),
+                None if self.service_state is None else self.last_service_metrics.tolist(),
+                None if self.defense is None else self.last_defense_metrics)
             log(
                 f"[{r + 1}/{cfg.rounds}](interval: {cfg.display_interval}) "
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
@@ -1287,4 +1368,158 @@ class Trainer:
             if checkpoint_fn is not None:
                 checkpoint_fn(r + 1, self, paths)
             r += 1
+        return paths
+
+    def _append_round(self, paths, evals, variance, rate, fault_row, service_row,
+                      defense_row) -> str:
+        """One round's entries into ``paths``: the evals ``(train loss,
+        train acc, val loss, val acc)``, the variance, the rate, and the
+        fault, service and defense rows of a run that has them (None
+        otherwise).  Returns the round's log suffix for those rows."""
+        cfg = self.cfg
+        tr_loss, tr_acc, va_loss, va_acc = evals
+        paths["trainLossPath"].append(tr_loss)
+        paths["trainAccPath"].append(tr_acc)
+        paths["valLossPath"].append(va_loss)
+        paths["valAccPath"].append(va_acc)
+        paths["variencePath"].append(variance)
+        paths["roundsPerSec"].append(rate)
+        suffix = ""
+        if fault_row is not None:
+            dropped, erased, corrupt, eff_k = fault_row
+            for key, v in zip(FAULT_PATHS, fault_row):
+                paths[key].append(v)
+            suffix = (f" effK={eff_k:.0f} drop={dropped:.0f} "
+                      f"erase={erased:.0f} corrupt={corrupt:.0f}")
+        if service_row is not None:
+            avail_m, absent_m, late_m, eff_k = service_row
+            for key, v in zip(SERVICE_PATHS, service_row):
+                paths[key].append(v)
+            suffix += f" avail={avail_m:.0f} effK={eff_k:.0f} late={late_m:.0f}"
+        if defense_row is not None:
+            events = defense_lib.events
+            dm = events.round_metrics(defense_row)
+            for key, path_key in events.PATH_KEYS.items():
+                paths[path_key].append(dm[key])
+            agg_name = events.active_agg(self.defense.mode, self.defense.ladder,
+                                         int(dm["rung"]), cfg.agg)
+            suffix += f" rung={int(dm['rung'])}({agg_name}) flag={dm['flagged']:.0f}"
+        return suffix
+
+    def _roll_back(self, reason, snapshot, what: str, log) -> bool:
+        """The rollback guard's trip: where ``reason`` names a divergence,
+        a ``snapshot = (state, round)`` exists and rollbacks are left,
+        restore the snapshot, widen the trim by ``rollback_widen`` and
+        salt every later round's seeds with the new rollback count (the
+        epoch).  Returns whether it rolled back; ``what`` names the
+        diverged round or dispatch in the log line."""
+        cfg = self.cfg
+        if reason is None or snapshot is None or self._rollbacks_done >= cfg.rollback_max:
+            return False
+        state, snap_round = snapshot
+        self._set_state(_clone_state(state))
+        avail, widen = self.service_state
+        self.service_state = (
+            avail, widen * torch.tensor(cfg.rollback_widen, dtype=torch.float32))
+        self._rollbacks_done += 1
+        self._rollback_epoch = self._rollbacks_done
+        log(
+            f"[rollback {self._rollbacks_done}/{cfg.rollback_max}] {what} diverged "
+            f"({reason}); restored round {snap_round}, trim widened x{cfg.rollback_widen:.2f}"
+        )
+        return True
+
+    def _train_multi(self, paths, evals, eval_pair, log, checkpoint_fn, start_round):
+        """The R > 1 driver (JAX ``_train_multi``, :2337-2690): dispatches of
+        ``rounds_per_dispatch`` rounds (:meth:`run_rounds_stacked`), the
+        record folded at each dispatch's end.
+
+        * Eval runs at dispatch boundaries (every one, or every
+          ``eval_interval`` rounds, and at the run's end); a dispatch's
+          record entries repeat the last eval, since the params between
+          its rounds never reach the host.
+        * The per-round variance and fault, defense and service rows are
+          kept exactly (stacked on the device, read once per dispatch).
+        * Every round of a dispatch reports its rate ``n / dt``.
+        * ``checkpoint_fn`` runs at boundaries, so a resume lands on one;
+          a resumed run may open with an alignment dispatch and close with
+          a tail dispatch (fewer rounds, the same graph).
+        * Under ``--dispatch-mode degraded`` with service rollback armed,
+          the guard judges a dispatch's last round at its boundary, and a
+          trip restores the previous boundary's state and runs the whole
+          dispatch again under salted draws.
+        * With ``--dispatch-prefetch on`` a boundary with nothing to do on
+          the host (no eval due, no guard armed, no checkpoint_fn) folds
+          its record after the next dispatch has been queued."""
+        cfg = self.cfg
+        tr_loss, tr_acc, va_loss, va_acc = evals
+        R = cfg.rounds_per_dispatch
+        eval_every = cfg.eval_interval or R
+        prefetch = cfg.dispatch_prefetch == "on"
+        rollback_armed = cfg.service == "on" and cfg.rollback == "on"
+        snapshot = None
+        recent_val: List[float] = []
+
+        var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
+
+        def fold(r0, n, t0, dt, rows):
+            """The dispatch's host rows into the paths and one log line;
+            ``dt`` None for a deferred fold, measured now."""
+            var_l, fault_l, defense_l, service_l = rows
+            if dt is None:
+                dt = time.perf_counter() - t0
+            suffix = ""
+            for i in range(n):
+                suffix = self._append_round(
+                    paths, (tr_loss, tr_acc, va_loss, va_acc), var_l[i], n / dt,
+                    None if fault_l is None else fault_l[i],
+                    None if service_l is None else service_l[i],
+                    None if defense_l is None else defense_l[i])
+            log(
+                f"[{r0 + n}/{cfg.rounds}](interval: {cfg.display_interval}, dispatch: {n}) "
+                f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
+                f"val: loss={va_loss:.4f} acc={va_acc:.4f}{var_str}{suffix}"
+            )
+
+        r = start_round
+        pending = None  # a deferred fold: (r0, n, t0, host rows)
+        while r < cfg.rounds:
+            # an alignment dispatch on an unaligned resume, a tail at an
+            # unaligned end; every other dispatch is R rounds
+            rem = r % R
+            n = min(R - rem if rem else R, cfg.rounds - r)
+            end = r + n
+            t0 = time.perf_counter()
+            host = _HostRows(self.run_rounds_stacked(r, n))
+            if pending is not None:
+                # the previous dispatch's fold, while the card runs this one
+                p_r0, p_n, p_t0, p_host = pending
+                fold(p_r0, p_n, p_t0, None, p_host.get())
+                pending = None
+            do_eval = end % eval_every == 0 or end >= cfg.rounds or rollback_armed
+            sync = (not prefetch or do_eval or rollback_armed or checkpoint_fn is not None
+                    or end >= cfg.rounds)
+            if not sync:
+                pending = (r, n, t0, host)
+                r = end
+                continue
+            self._sync()
+            dt = time.perf_counter() - t0
+            rows = host.get()
+            if do_eval:
+                (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
+            # judged on the dispatch's last round; a trip re-runs the whole
+            # dispatch from the previous boundary's state
+            if rollback_armed and self._roll_back(
+                    self._divergence(tr_loss, va_loss, rows[0][-1], recent_val), snapshot,
+                    f"dispatch ending round {end}", log):
+                continue
+            fold(r, n, t0, dt, rows)
+            if rollback_armed:
+                recent_val = (recent_val + [va_loss])[-ROLLBACK_WINDOW:]
+                # a copy, taken before checkpoint_fn (as in the R = 1 loop)
+                snapshot = (_clone_state(self._state()), end)
+            if checkpoint_fn is not None:
+                checkpoint_fn(end, self, paths)
+            r = end
         return paths

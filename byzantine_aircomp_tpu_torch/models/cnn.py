@@ -63,7 +63,7 @@ class CNN(nn.Module):
         return self.Dense_1(F.relu(self.Dense_0(x)))
 
 
-@MODELS.register("CNN", aliases=("cnn",))
+@MODELS.register("CNN", aliases=("cnn",), graphable=True)
 def make_cnn(input_shape=(28, 28), num_classes: int = 10, fc_width: int = 1024,
              generator=None, **_):
     # the EMNIST variant widens fc1 to 2048 (EMNIST_Air_weight.py:80-82)

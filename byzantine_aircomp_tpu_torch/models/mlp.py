@@ -36,6 +36,6 @@ class MLP(nn.Module):
         return self.fc(x.reshape(x.shape[0], -1))
 
 
-@MODELS.register("MLP", aliases=("mlp",))
+@MODELS.register("MLP", aliases=("mlp",), graphable=True)
 def make_mlp(input_shape=(28, 28), num_classes: int = 10, generator=None, **_):
     return MLP(input_shape, num_classes, generator)

@@ -162,7 +162,7 @@ class ResNet18(nn.Module):
         return self.Dense_0(torch.mean(x, dim=(2, 3)))
 
 
-@MODELS.register("ResNet18", aliases=("resnet18",))
+@MODELS.register("ResNet18", aliases=("resnet18",), graphable=True)
 def make_resnet18(input_shape=(32, 32, 3), num_classes: int = 10, width: int = 64,
                   remat: bool = False, generator=None, **_):
     return ResNet18(input_shape, num_classes, width, remat, generator)

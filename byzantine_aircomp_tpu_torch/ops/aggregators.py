@@ -23,7 +23,9 @@ card (the Weiszfeld sums, the guess update and the stopping rule), and
 once ``movement <= tol`` the guess stays as it is on the device; the host
 reads the done flag once per chunk.  The result is exactly that of
 stopping at the step where the JAX ``cond`` stops; steps run after
-convergence change nothing, and their draws are discarded.
+convergence change nothing, and their draws are discarded.  Inside a
+CUDA-graph capture (``fed/graphs.py``) the loop is unrolled to ``maxiter``
+steps with no host read at all, which gives the same bits.
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def _f32_scalar(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-@AGGREGATORS.register("mean", streamable=True)
+@AGGREGATORS.register("mean", streamable=True, graphable=True)
 def mean(wmatrix: torch.Tensor, *, degraded: bool = False, **_) -> torch.Tensor:
     """Column mean (reference ``mean``, ``:186-187``), accumulated in f32.
     ``degraded``: the mean of the finite rows only, NaN when there is none
@@ -90,7 +92,8 @@ def weiszfeld_solve(
     init_guess: torch.Tensor,
     maxiter: int,
     chunk: int = WEISZFELD_CHUNK,
-) -> Tuple[torch.Tensor, int]:
+    unrolled: Optional[bool] = None,
+) -> Tuple[torch.Tensor, "int | torch.Tensor"]:
     """Run ``(g, active, steps) <- step(g, g_spare, active, steps, i)`` until
     the step clears ``active`` (``||g - g_next|| <= tol``) or ``maxiter``
     steps; returns ``(guess, steps run)``.
@@ -104,9 +107,18 @@ def weiszfeld_solve(
     per-step loop's bit for bit (``chunk=1``).  The loop runs inside the
     profiler range ``WEISZFELD_LOOP_RANGE``, so a profile can count the
     kernels of its steps apart from the set-up's.
+
+    ``unrolled`` (default: whether the current CUDA stream is capturing a
+    graph) runs all ``maxiter`` steps with no host read, for a CUDA graph:
+    the steps after convergence copy the guess and nothing else, so the
+    guess is the chunked loop's bit for bit, and the steps run come back
+    as a device int64 scalar instead of an int.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if unrolled is None:
+        unrolled = (init_guess.device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing())
     # a private copy: on the card the buffers are written in place
     g = init_guess.clone()
     spare = torch.empty_like(g)
@@ -115,13 +127,13 @@ def weiszfeld_solve(
     i = 0
     with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
         while i < maxiter:
-            for _ in range(min(chunk, maxiter - i)):
+            for _ in range(maxiter - i if unrolled else min(chunk, maxiter - i)):
                 g_next, active, steps = step(g, spare, active, steps, i)
                 g, spare = g_next, g
                 i += 1
-            if not bool(active):  # the one host sync per chunk
+            if not unrolled and not bool(active):  # the one host sync per chunk
                 break
-    return g, int(steps)
+    return g, (steps if unrolled else int(steps))
 
 
 def _init_guess(wmatrix, guess):
@@ -137,16 +149,18 @@ def gm2_solve(
     maxiter: int = 1000,
     tol: float = 1e-5,
     chunk: int = WEISZFELD_CHUNK,
-) -> Tuple[torch.Tensor, int]:
-    """:func:`gm2` returning ``(aggregate, Weiszfeld steps run)``."""
+    unrolled: Optional[bool] = None,
+) -> Tuple[torch.Tensor, "int | torch.Tensor"]:
+    """:func:`gm2` returning ``(aggregate, Weiszfeld steps run)``;
+    ``unrolled`` as in :func:`weiszfeld_solve`."""
 
     def step(g, g_out, active, steps, _i):
         return kernels.weiszfeld_step_fused(wmatrix, g, g_out, active, steps, tol)
 
-    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk)
+    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk, unrolled)
 
 
-@AGGREGATORS.register("gm2", streamable=True)
+@AGGREGATORS.register("gm2", streamable=True, graphable=True, unrolled_solve=True)
 def gm2(wmatrix: torch.Tensor, *, guess=None, maxiter: int = 1000,
         tol: float = 1e-5, **_) -> torch.Tensor:
     """Ideal geometric median by Weiszfeld iteration (reference ``gm2``,
@@ -168,8 +182,11 @@ def gm_solve(
     fades: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     noise: Optional[torch.Tensor] = None,
     chunk: int = WEISZFELD_CHUNK,
-) -> Tuple[torch.Tensor, int]:
-    """:func:`gm` returning ``(aggregate, Weiszfeld steps run)``.
+    unrolled: Optional[bool] = None,
+) -> Tuple[torch.Tensor, "int | torch.Tensor"]:
+    """:func:`gm` returning ``(aggregate, Weiszfeld steps run)``;
+    ``unrolled`` as in :func:`weiszfeld_solve` (its steps after convergence
+    draw too, and the draws are discarded).
 
     Step t draws the fades' standard normals [K] twice and, with
     ``noise_var`` set, the receiver's standard normals [d+1] from
@@ -206,10 +223,10 @@ def gm_solve(
         )
         return g, active, steps
 
-    return weiszfeld_solve(step, init, maxiter, chunk)
+    return weiszfeld_solve(step, init, maxiter, chunk, unrolled)
 
 
-@AGGREGATORS.register("gm", owns_channel=True)
+@AGGREGATORS.register("gm", owns_channel=True, graphable=True, unrolled_solve=True)
 def gm(wmatrix: torch.Tensor, *, noise_var=None, guess=None, maxiter: int = 1000,
        tol: float = 1e-5, p_max: float = 1.0, generator=None, fades=None,
        noise=None, **_) -> torch.Tensor:
@@ -242,7 +259,8 @@ def _sorted_finite_columns(wmatrix: torch.Tensor):
     return kernels.total_order_vals(torch.sort(keys, dim=0).values), torch.sum(finite)
 
 
-@AGGREGATORS.register("median", supports_fused_epilogue=True, streamable=True)
+@AGGREGATORS.register("median", supports_fused_epilogue=True, streamable=True,
+                       graphable=True)
 def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
            degraded: bool = False, **_) -> torch.Tensor:
     """Coordinatewise median with torch semantics: the lower-middle order
@@ -263,7 +281,8 @@ def median(wmatrix: torch.Tensor, *, channel: Optional[channel.OmaTerms] = None,
     return torch.index_select(srt, 0, idx.reshape(1))[0]
 
 
-@AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True, streamable=True)
+@AGGREGATORS.register("trimmed_mean", supports_fused_epilogue=True, streamable=True,
+                       graphable=True)
 def trimmed_mean(wmatrix: torch.Tensor, *, trim_ratio=0.1,
                  beta: Optional[int] = None,
                  channel: Optional[channel.OmaTerms] = None,

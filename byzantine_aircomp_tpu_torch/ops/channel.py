@@ -111,7 +111,10 @@ def oma_terms(
 ) -> OmaTerms:
     """Draw the OMA link's terms (fades first, then real/imag noise)."""
     h_r, h_i = rayleigh_fade(k, generator=generator, device=device)
-    scale = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32, device=device))
+    # a 0-d f32 CPU tensor takes part in a CUDA op with no host-to-device
+    # copy, so a CUDA graph can capture the draw (IEEE sqrt is correctly
+    # rounded on both, so the scale has the bits it had on the card)
+    scale = torch.sqrt(torch.tensor(noise_var, dtype=torch.float32))
     n_r = scale * torch.randn((k, d), generator=generator, device=device)
     n_i = scale * torch.randn((k, d), generator=generator, device=device)
     return OmaTerms(h_r, h_i, floored_hsq(h_r, h_i), n_r, n_i)

@@ -28,7 +28,9 @@ source and the headers it includes.
 Each wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``LAUNCHES`` counts kernel
 launches per source (both modes of a Weiszfeld kernel count under its
-source), so a run can show that it went through the kernels.
+source), so a run can show that it went through the kernels; a CUDA-graph
+replay of a round adds the launches its capture recorded
+(:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -115,6 +117,14 @@ _SELECT_PLAN_FIELDS = (
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: Dict[str, int]):
+    """Count the launches of one CUDA-graph replay: a capture only records
+    the launches its wrappers counted (the graph module takes them back
+    out), and every replay launches each of them once (``fed/graphs.py``)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 # ---------------------------------------------------------------------------

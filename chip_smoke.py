@@ -151,6 +151,20 @@
    on NaN rows), service trimmed_mean --var under --defense adaptive at
    rung 1, and streamed gm2 at cohort 4, with the service draws shared;
 
+   multi-round dispatch, each round one replay of a CUDA graph of the
+   round: (z4) gm2 K=1000 (B=100), (z5) gm --var 1e-2 K=50 (B=10), (z6)
+   median --var K=50 and trimmed_mean --var K=1000, (z7) the CNN gm2 K=50,
+   (z8) gm2 under signflip with two local steps, FedProx, server Adam and
+   the monitor defense, K=50, each 2 rounds as one R=2 dispatch through ``harness.run_with_trainer``
+   beside its eager R=1 twin from the same seed: the record must be the
+   twin's (evals repeated within the dispatch) and the params the twin's,
+   bit for bit, from one capture, the run's kernel launched every round
+   from the graph; printed: capture and warm-up seconds, the graph's nodes,
+   rounds/sec of both, the idle share over one more dispatch, launches per
+   round (the Weiszfeld steps after convergence apart) and both memory
+   peaks; and (j3) run (j)'s resume under R=2 with ``--async-writer on``,
+   bitwise;
+
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
    ``--fault`` round of those rules takes) beside the kernel's.
@@ -166,6 +180,7 @@ them.  Details go to ``chiprun_out/chip_smoke.json``.  Exits with code 2
 and prints nothing on standard output when no GPU is visible.
 """
 
+import gc
 import json
 import math
 import os
@@ -491,6 +506,60 @@ def check_fused(torch, kernels):
                           f"d={d} {dtype}")
                 if not deterministic:
                     _fail(f"{name} fused step gave different bits on a rerun at K={k} d={d}")
+    return rows
+
+
+def time_fused_nan_rows_and_idle(torch, kernels, card):
+    """The ideal fused step on the service round's stack, [50, 7850] with
+    NaN rows (5 of 50, as late clients leave them), against its plain
+    version and timed beside its bound; and the step after convergence
+    (``active`` = 0: the guess copied, nothing else), which a CUDA graph of
+    the round replays ``agg_maxiter`` minus the live steps times per
+    aggregation, at [50, 7850], [1000, 7850] and [50, 3,274,634], beside
+    the bound of the copy (read and write d floats)."""
+    rows = []
+    w, guess, _, _ = _inputs(torch, 50, 7850, torch.float32, seed=57850)
+    w[[3, 11, 19, 27, 35]] = float("nan")
+    state = (torch.ones((), dtype=torch.int32, device="cuda"),
+             torch.zeros((), dtype=torch.int64, device="cuda"),
+             torch.ones(1, device="cuda"))  # no scaler for gm2: a placeholder
+    got = _fused_call(torch, kernels, False, w, guess, torch.empty_like(guess), state, 0.0,
+                      None)
+    want = _fused_ref_call(kernels, False, w, guess, state, 0.0, None)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    if not err <= KERNEL_RTOL * float(want[0].abs().max()) + KERNEL_ATOL:
+        _fail(f"weiszfeld_step fused on NaN rows disagrees with its plain version: {err}")
+    active, steps = state[0].clone(), state[1].clone()
+    g_out = torch.empty_like(guess)
+    ms, host_ms = _time_ms(torch, lambda: kernels.weiszfeld_step_fused(
+        w, guess, g_out, active, steps, -1.0), **_reps(50, 7850))
+    plain_ms, _ = _time_ms(torch, lambda: _fused_ref_call(kernels, False, w, guess, state, -1.0,
+                                                          None), **_reps(50, 7850))
+    bound_ms, bound_by = _fused_bound(50, 7850, 4, False)
+    row = dict(name="weiszfeld_step", mode="fused_nan_rows", k=50, d=7850, dtype="float32",
+               nan_rows=5, max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    rows.append(row)
+    print(f"kernel weiszfeld_step fused K=50 d=7850 with 5 NaN rows: max_abs_err={err:.3e} "
+          f"ms={ms:.5f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) [{card}]")
+    for k, d in ((50, 7850), (1000, 7850), (50, CNN_D)):
+        w, guess, _, _ = _inputs(torch, k, d, torch.float32, seed=k + d)
+        idle, steps = torch.zeros((), dtype=torch.int32, device="cuda"), torch.zeros(
+            (), dtype=torch.int64, device="cuda")
+        g_out = torch.empty_like(guess)
+        kernels.weiszfeld_step_fused(w, guess, g_out, idle, steps, 1e-5)
+        torch.cuda.synchronize()
+        if not _same_bits(torch, g_out, guess) or int(steps) != 0:
+            _fail(f"the step after convergence changed the guess at K={k} d={d}")
+        ms, host_ms = _time_ms(torch, lambda: kernels.weiszfeld_step_fused(
+            w, guess, g_out, idle, steps, 1e-5), **_reps(k, d))
+        copy_bound = 2 * d * 4 / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(name="weiszfeld_step", mode="fused_after_convergence", k=k, d=d,
+                         dtype="float32", max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                         bound_ms=copy_bound, bound_by="bytes"))
+        print(f"kernel weiszfeld_step fused after convergence K={k} d={d}: ms={ms:.5f} "
+              f"host_ms={host_ms:.4f} copy bound_ms={copy_bound:.5f} [{card}]")
     return rows
 
 
@@ -1106,6 +1175,20 @@ def _is_kernel_of(name, kernel):
     return any(n in name for n in DEVICE_NAMES[kernel])
 
 
+# the wrappers counted together on the device: the two Weiszfeld wrappers
+# launch the same kernels
+DEVICE_GROUPS = (("weiszfeld_step", "aircomp_weiszfeld_step"), ("select_columns",),
+                 ("packed_vote_counts",))
+
+
+def _device_launches(torch, prof):
+    """The device kernels of each of :data:`DEVICE_GROUPS` in a profile,
+    counted by name: what ran on the card, not what a wrapper counted."""
+    names = [ev.name for ev in _device_kernels(torch, prof)]
+    return {"+".join(group): sum(_is_kernel_of(n, group[0]) for n in names)
+            for group in DEVICE_GROUPS}
+
+
 def profile_iteration(torch, kernels, trainer, kernel):
     """One more global iteration of a finished run under torch.profiler:
     wall time, summed device kernel time and the idle share, and the
@@ -1292,27 +1375,27 @@ def _same_record(a, b):
     return set(a) == set(b)
 
 
-def run_resume(torch, kernels, harness, cfg, label="j"):
-    """Run (j): ``cfg`` straight through, and again as one round with a
-    checkpoint per round and then ``inherit`` to the end in a fresh
-    Trainer; the final params and the paths (all but ``roundsPerSec``) must
-    be bitwise equal.  Returns the resumed run's (trainer, record), with the
-    launches of all three runs."""
+def run_resume(torch, kernels, harness, cfg, label="j", cut=1):
+    """Run (j): ``cfg`` straight through, and again as ``cut`` rounds with a
+    checkpoint per round (per dispatch) and then ``inherit`` to the end in a
+    fresh Trainer; the final params and the paths (all but ``roundsPerSec``)
+    must be bitwise equal.  Returns the resumed run's (trainer, record),
+    with the launches of all three runs."""
     import dataclasses
     import shutil
 
     ck = os.path.join(cfg.cache_dir, f"ckpt_{label}")
     shutil.rmtree(ck, ignore_errors=True)
     straight_t, straight = harness.run_with_trainer(cfg, device="cuda")
-    harness.run_with_trainer(dataclasses.replace(cfg, rounds=1, checkpoint_dir=ck),
+    harness.run_with_trainer(dataclasses.replace(cfg, rounds=cut, checkpoint_dir=ck),
                              device="cuda")
     resumed_t, resumed = harness.run_with_trainer(
         dataclasses.replace(cfg, checkpoint_dir=ck, inherit=True), device="cuda")
     torch.cuda.synchronize()
     same_params = torch.equal(straight_t.flat_params, resumed_t.flat_params)
     same_paths = _same_record(straight, resumed)
-    print(f"run {label} resume: 2 rounds straight vs 1 round + --inherit to 2 in a fresh "
-          f"Trainer: "
+    print(f"run {label} resume: {cfg.rounds} rounds straight vs {cut} round(s) + --inherit "
+          f"to {cfg.rounds} in a fresh Trainer: "
           f"params bitwise equal={same_params}, paths bitwise equal={same_paths} "
           f"(valAccPath {straight['valAccPath']} vs {resumed['valAccPath']})")
     if not (same_params and same_paths):
@@ -2043,6 +2126,231 @@ def time_degraded_sort(torch, kernels, card):
     return rows
 
 
+# the graphed dispatches (z4)-(z8): label, config (classflip, the MNIST MLP
+# unless stated), the run's kernel; each 2 rounds x interval 10 as one R=2
+# dispatch, beside its eager R=1 twin
+GRAPH_RUNS = (
+    ("z4_gm2_K1000", dict(agg="gm2", honest_size=900, byz_size=100), "weiszfeld_step"),
+    ("z5_gm_var_K50", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10),
+     "aircomp_weiszfeld_step"),
+    ("z6_median_var_K50", dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10),
+     "select_columns"),
+    ("z6_trimmed_mean_var_K1000", dict(agg="trimmed_mean", noise_var=1e-2, honest_size=900,
+                                       byz_size=100), "select_columns"),
+    ("z7_cnn_gm2_K50", dict(agg="gm2", model="CNN", honest_size=40, byz_size=10),
+     "weiszfeld_step"),
+    # the carried state beyond the params: the server's Adam moments and
+    # the monitor's detector and policy, under two local steps and FedProx
+    ("z8_gm2_fedavg_adam_monitor_K50", dict(
+        agg="gm2", attack="signflip", defense="monitor", local_steps=2, fedprox_mu=0.01,
+        server_opt="adam", server_lr=0.01, honest_size=40, byz_size=10), "weiszfeld_step"),
+)
+
+
+class _SolveSteps:
+    """Records the steps of every Weiszfeld solve of an eager run (the live
+    steps, before convergence), through ``aggregators.weiszfeld_solve``."""
+
+    def __init__(self, aggregators):
+        self.agg, self.steps = aggregators, []
+
+    def __enter__(self):
+        self.real = self.agg.weiszfeld_solve
+
+        def solve(*a, **kw):
+            g, steps = self.real(*a, **kw)
+            self.steps.append(int(steps))
+            return g, steps
+
+        self.agg.weiszfeld_solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.agg.weiszfeld_solve = self.real
+        return False
+
+
+def _graph_nodes(graph):
+    """The nodes of a kept CUDA graph (the driver's ``cuGraphGetNodes``),
+    or None where the driver does not answer."""
+    import ctypes
+
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return n.value if err == 0 else None
+
+
+def _replicated(record, rounds, r):
+    """An R=1 record as the R-round dispatch reports it: each round's eval
+    entries repeat its dispatch's boundary eval."""
+    from byzantine_aircomp_tpu_torch.fed.harness import _EVAL_PATH_KEYS
+
+    out = dict(record)
+    for key in _EVAL_PATH_KEYS:
+        path = record[key]
+        out[key] = [path[0]] + [path[min(-(-i // r) * r, rounds)] for i in range(1, rounds + 1)]
+    return out
+
+
+def profile_dispatch(torch, trainer, r0, n):
+    """One more dispatch of ``n`` rounds of a finished graphed run under
+    torch.profiler: wall ms, the union of the device spans and the idle
+    share, the device kernels, and the kernels of each wrapper group seen
+    on the device (:func:`_device_launches`); and the same dispatch's
+    device ms from CUDA events around it, without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_rounds_stacked(r0, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in _device_events(torch, prof))
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start_ev.record()
+    trainer.run_rounds_stacked(r0, n)
+    end_ev.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = busy_us / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms if spans else None,
+                idle_share=(1.0 - busy_ms / wall_ms) if spans else None,
+                device_kernels=len(_device_kernels(torch, prof)),
+                device_launches=_device_launches(torch, prof),
+                unprofiled_wall_ms=host_ms, unprofiled_event_ms=start_ev.elapsed_time(end_ev))
+
+
+def run_graphed(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z4)-(z8): each run of :data:`GRAPH_RUNS` as one R=2 dispatch through
+    ``harness.run_with_trainer`` (each round one replay of the round's CUDA
+    graph) and as its eager R=1 twin from the same seed.  The graphed record
+    must be the twin's with the evals repeated within the dispatch, and the
+    final params the twin's, bit for bit; one capture; the run's kernel
+    launched from the graph every iteration.  The launches per round are
+    counted on the device, by kernel name, over one more profiled dispatch
+    of two replays, and must be twice what the wrappers counted at capture.
+    Printed: captures, warm-up and capture seconds, the graph's nodes,
+    rounds/sec of both, the idle share over that dispatch, the launches per
+    round (the Weiszfeld steps run after convergence apart, from the twin's
+    live steps) and both peaks of ``torch.cuda.max_memory_allocated``."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch.ops import aggregators
+
+    out = {}
+    t_all = time.perf_counter()
+    for label, kw, kernel in GRAPH_RUNS:
+        twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
+                             display_interval=10, cache_dir=cache_dir)
+        cfg = dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with _SolveSteps(aggregators) as live:
+            twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
+        torch.cuda.synchronize()
+        twin_launches = dict(kernels.LAUNCHES)
+        twin_peak = torch.cuda.max_memory_allocated()
+        # only the twin's params stay on the card: the graphed run's peak
+        # is its own
+        twin_params = twin_t.flat_params.clone()
+        del twin_t
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer, record = harness.run_with_trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rg = trainer.round_graph
+        if not trainer.dispatch_graph[0] or rg is None or rg.captures != 1:
+            _fail(f"run {label}: not one capture ({trainer.dispatch_graph})")
+        at_capture = rg.replay_launches
+        want = _replicated(twin, cfg.rounds, cfg.rounds_per_dispatch)
+        same = _same_record(record, want)
+        params_equal = torch.equal(trainer.flat_params, twin_params)
+        if not (same and params_equal):
+            diff = {key: [abs(a - b) for a, b in zip(record[key], want[key])]
+                    for key in ("variencePath", "valLossPath")}
+            _fail(f"run {label}: the graphed run differs from its eager twin: record "
+                  f"{diff}, params max abs diff "
+                  f"{float((trainer.flat_params - twin_params).abs().max())}")
+        del twin_params
+        nodes = _graph_nodes(rg.graph)
+        prof = profile_dispatch(torch, trainer, cfg.rounds, 2)
+        per_round = {}
+        for group, seen in prof["device_launches"].items():
+            counted = sum(at_capture[k] for k in group.split("+"))
+            if seen != 2 * counted:
+                _fail(f"run {label}: {seen} {group} kernels ran on the device over two "
+                      f"replays, the wrappers counted {counted} per round at capture")
+            per_round[group] = seen / 2
+        group = next(g for g in per_round if kernel in g.split("+"))
+        if per_round[group] < cfg.display_interval:
+            _fail(f"run {label}: {kernel} ran {per_round[group]} times per replayed round "
+                  f"on the device, not every iteration")
+        live_per_round = sum(live.steps) / twin_cfg.rounds if live.steps else None
+        after = (per_round[group] - live_per_round
+                 if live_per_round is not None else None)
+        entry = dict(
+            config=dict(dict(attack="classflip"), **kw, rounds=2, display_interval=10,
+                        rounds_per_dispatch=2),
+            records_equal=same, params_bitwise_equal=params_equal, captures=rg.captures,
+            replays=rg.replays, warmup_seconds=rg.warmup_seconds,
+            capture_seconds=rg.capture_seconds, graph_nodes=nodes,
+            rounds_per_sec=record["roundsPerSec"], twin_rounds_per_sec=twin["roundsPerSec"],
+            launches_per_round=per_round, capture_launches_per_round=at_capture,
+            twin_launches_per_round={n: c / twin_cfg.rounds for n, c in twin_launches.items()},
+            weiszfeld_live_steps_per_round=live_per_round,
+            weiszfeld_steps_after_convergence_per_round=after,
+            peak_memory_bytes=peak, twin_peak_memory_bytes=twin_peak, wall_seconds=wall,
+            dispatch_profile=prof, card=card)
+        out[label] = entry
+        print(f"run {label}: graphed R=2 record == eager R=1 twin (evals repeated in the "
+              f"dispatch)={same}, params bitwise={params_equal}; captures {rg.captures}, "
+              f"warm-up {rg.warmup_seconds:.2f}s, capture+instantiate "
+              f"{rg.capture_seconds:.2f}s, {nodes} graph nodes; rounds/sec graphed "
+              f"{record['roundsPerSec']} eager twin {twin['roundsPerSec']}; launches per "
+              f"replayed round, seen on the device {per_round} (eager twin "
+              f"{entry['twin_launches_per_round']}); Weiszfeld live steps per round "
+              f"{live_per_round}, after convergence {after}; one more dispatch: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']} ms, idle share "
+              f"{prof['idle_share']}, {prof['device_kernels']} device kernels, unprofiled "
+              f"{prof['unprofiled_wall_ms']:.1f} ms wall / {prof['unprofiled_event_ms']:.1f} "
+              f"ms between events; max_memory_allocated graphed {peak / 2**30:.3f} GiB, "
+              f"eager twin {twin_peak / 2**30:.3f} GiB [{card}]")
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"runs z4-z8 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
+def run_j3(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(j3) run (j)'s config under R=2 with the writer thread on: 4 rounds
+    straight against 2 rounds checkpointed and ``inherit`` to 4 in a fresh
+    Trainer, bitwise (each trainer captures its own graph)."""
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=45, byz_size=5,
+                    dataset="mnist_hard", rounds=4, display_interval=10, rounds_per_dispatch=2,
+                    async_writer="on", cache_dir=cache_dir)
+    kernels.reset_launches()
+    trainer, record = run_resume(torch, kernels, harness, cfg, label="j3", cut=2)
+    if trainer.round_graph is None or trainer.round_graph.captures != 1:
+        _fail("run j3: the resumed trainer did not replay one graph")
+    return dict(launches=dict(kernels.LAUNCHES), val_acc_path=record["valAccPath"],
+                replays=trainer.round_graph.replays, card=card)
+
+
 def main():
     import torch
 
@@ -2068,6 +2376,7 @@ def main():
     rows = check_kernels(torch, kernels)
     rows += check_fused(torch, kernels)
     rows += check_select_and_popcount(torch, kernels, card)
+    rows += time_fused_nan_rows_and_idle(torch, kernels, card)
     iter_errs = check_solver_and_iteration(torch)
     iter_errs.update(check_option_iterations(torch, FedConfig))
     iter_errs.update(check_service_iterations(torch, kernels, FedConfig))
@@ -2076,6 +2385,8 @@ def main():
     runs = run_main_path(torch, kernels, harness, FedConfig, card, cache_dir)
     conv = check_conv_models(torch, kernels, harness, FedConfig, card, cache_dir)
     service_runs = run_service_and_streams(torch, kernels, harness, FedConfig, card, cache_dir)
+    graphed_runs = run_graphed(torch, kernels, harness, FedConfig, card, cache_dir)
+    graphed_runs["j3"] = run_j3(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -2116,7 +2427,7 @@ def main():
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        build_seconds=build_s, kernel_rows=rows,
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
-                       service_and_streamed_runs=service_runs,
+                       service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

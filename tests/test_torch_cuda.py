@@ -702,3 +702,156 @@ def test_service_iteration_on_the_card_equals_the_cpu(cuda, kw):
     assert gens.link_key == gens_gpu.link_key
     torch.testing.assert_close(new_gpu.cpu(), new_cpu, rtol=0, atol=1e-4)
     assert torch.equal(gpu.iteration_service_metrics.cpu(), cpu.iteration_service_metrics)
+
+
+# ---------------------------------------------------------------------------
+# multi-round dispatch: each round one replay of a CUDA graph of the round
+
+
+def _dispatch_ds():
+    from byzantine_aircomp_tpu_torch.data import datasets
+
+    return datasets.load("mnist", synthetic_train=20000, synthetic_val=1000)
+
+
+def _bits_equal(a, b):
+    """Two float lists equal bit for bit, NaN included."""
+    import struct
+
+    return len(a) == len(b) and all(
+        struct.pack("<d", x) == struct.pack("<d", y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(agg="gm2", honest_size=900, byz_size=100),
+    dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10),
+    dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10),
+    dict(agg="mean", attack="signflip", defense="monitor", honest_size=40, byz_size=10),
+    dict(agg="gm2", local_steps=2, fedprox_mu=0.01, server_opt="adam", server_lr=0.01,
+         honest_size=40, byz_size=10),
+    dict(agg="trimmed_mean", noise_var=1e-2, attack="gradascent@1", client_momentum=0.9,
+         server_opt="momentum", honest_size=40, byz_size=10),
+    dict(agg="median", noise_var=1e-2, model="ResNet18", resnet_width=8, honest_size=8,
+         byz_size=2),
+    dict(agg="gm2", model="resnet18", resnet_width=8, remat=True, honest_size=8, byz_size=2),
+], ids=["gm2_K1000", "gm_var_K50", "median_var_K50", "mean_monitor", "gm2_fedavg_prox_adam",
+        "trimmed_mean_onset_client_momentum", "resnet18_median_var", "resnet18_remat_gm2"])
+def test_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
+    """Two rounds in one dispatch, replayed from one CUDA graph and run
+    eagerly (``graphs=False``) from the same seed: every round's variance
+    (and defense rows), the evals and the final params bit for bit, and the
+    run's kernel launched from the graph."""
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2, rounds_per_dispatch=2,
+                    display_interval=5, eval_train=False)
+    graphed = Trainer(cfg, dataset=ds, device="cuda")
+    eager = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+    assert graphed.dispatch_graph[0] and not eager.dispatch_graph[0]
+    before = dict(kernels.LAUNCHES)
+    pg = graphed.train()
+    launched = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    pe = eager.train()
+    torch.cuda.synchronize()
+    rg = graphed.round_graph
+    assert rg.captures == 1 and rg.replays == 2 and eager.round_graph is None
+    assert set(pg) == set(pe)
+    for key in pg:
+        if key != "roundsPerSec":
+            assert _bits_equal(pg[key], pe[key]), (key, pg[key], pe[key])
+    assert torch.equal(graphed.flat_params, eager.flat_params)
+    # the warm-up round's launches and two replays' (the capture's own are
+    # taken back out); gm2 and gm run all agg_maxiter steps in the graph
+    kernel = {"gm2": "weiszfeld_step", "gm": "aircomp_weiszfeld_step",
+              "median": "select_columns", "trimmed_mean": "select_columns"}.get(cfg.agg)
+    if kernel is not None:
+        per_round = cfg.display_interval * (cfg.agg_maxiter if "gm" in cfg.agg else 1)
+        assert rg.replay_launches[kernel] == per_round
+        assert launched[kernel] >= 2 * per_round
+
+
+def test_one_capture_per_trainer_across_dispatches_and_an_alignment(cuda, tmp_path):
+    """A run resumed at round 3 under R=2 opens with a one-round alignment
+    dispatch: it and the next dispatch replay the one graph, as does a
+    further dispatch of the same trainer; the params at round 6 are the
+    eager per-round run's bit for bit."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch.fed import checkpoint, harness
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=40, byz_size=10, rounds=6,
+                    rounds_per_dispatch=2, display_interval=5, eval_train=False)
+    straight = Trainer(dataclasses.replace(cfg, rounds_per_dispatch=1), dataset=ds,
+                       device="cuda")
+    straight.train()
+    cut = dataclasses.replace(cfg, rounds=3, rounds_per_dispatch=1,
+                              checkpoint_dir=str(tmp_path))
+    harness.run_with_trainer(cut, device="cuda", record_in_file=False, dataset=ds)
+    t = Trainer(cfg, dataset=ds, device="cuda")
+    start = harness.restore_trainer(t, checkpoint.load(str(tmp_path), harness.ckpt_title(cut)))
+    lines = []
+    t.train(log_fn=lines.append, start_round=start)
+    assert start == 3 and ["dispatch: 1" in lines[1], "dispatch: 2" in lines[2]] == [True] * 2
+    assert t.round_graph.captures == 1 and t.round_graph.replays == 3
+    assert torch.equal(t.flat_params, straight.flat_params)
+    t.run_rounds_stacked(6, 2)
+    assert t.round_graph.captures == 1 and t.round_graph.replays == 5
+
+
+def test_reseeded_generators_replay_the_eager_draws(cuda):
+    """Generators registered with a graph and seeded before each replay
+    draw what new generators of those seeds draw eagerly, bit for bit."""
+    g1, g2 = torch.Generator(device=cuda), torch.Generator(device=cuda)
+    g1.manual_seed(1)
+    g2.manual_seed(2)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g1)
+    graph.register_generator_state(g2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.randn(10, generator=g1, device=cuda)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = (torch.randn(7851, generator=g1, device=cuda),
+               torch.rand((50, 16), generator=g2, device=cuda),
+               torch.randn(50, generator=g1, device=cuda))
+    for seed in (11, 2**62 + 12345, 3):
+        g1.manual_seed(seed)
+        g2.manual_seed(seed + 1)
+        graph.replay()
+        e1 = torch.Generator(device=cuda).manual_seed(seed)
+        e2 = torch.Generator(device=cuda).manual_seed(seed + 1)
+        want = (torch.randn(7851, generator=e1, device=cuda),
+                torch.rand((50, 16), generator=e2, device=cuda),
+                torch.randn(50, generator=e1, device=cuda))
+        for got, w in zip(out, want):
+            assert torch.equal(got, w)
+
+
+def test_graphed_prefetch_is_bitwise_no_prefetch(cuda):
+    """``--dispatch-prefetch on`` queues the next dispatch's replays before
+    folding the last one's rows (pinned copies behind an event): the
+    records are bitwise those without it, but for the rate."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(agg="median", noise_var=1e-2, attack="classflip", honest_size=40,
+                    byz_size=10, rounds=8, rounds_per_dispatch=2, eval_interval=8,
+                    display_interval=5, eval_train=False)
+    runs = [Trainer(c, dataset=ds, device="cuda") for c in
+            (cfg, dataclasses.replace(cfg, dispatch_prefetch="on"))]
+    paths = [t.train() for t in runs]
+    for key in paths[0]:
+        if key != "roundsPerSec":
+            assert _bits_equal(paths[0][key], paths[1][key]), key
+    assert torch.equal(runs[0].flat_params, runs[1].flat_params)
+    assert [t.round_graph.replays for t in runs] == [8, 8]
