@@ -40,6 +40,16 @@ whether it does, and why not); ``--eval-interval`` (a multiple of R; 0 =
 every dispatch), ``--dispatch-mode exact|degraded``, ``--dispatch-prefetch
 off|on`` and ``--async-writer auto|on|off`` tune it.
 
+Observability (output-only): ``--obs-dir D`` writes the run's event
+stream (the JAX package's schema v10) to ``D/{title}_c{hash}.events.jsonl``
+(``--obs-stdout`` prints it too, ``--obs-rotate-mb`` rotates it, ``--trace
+on`` gives spans ids); ``--forensics top|full`` (with ``--forensics-top``
+and ``--flight-window``; needs ``--defense``) adds ``client_flag`` events
+and, under ``full``, ``flight_*.json`` beside the stream; ``--profile-dir
+P [--profile-rounds A:B]`` writes a ``torch.profiler`` trace to
+``P/trace.json``; ``--hbm-warn-factor`` sets when the memory check warns;
+``--log-file`` tees the log and ``--quiet`` silences it.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -254,6 +264,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async-writer", choices=["auto", "on", "off"], default="auto",
                    help="a writer thread for checkpoint writes and the record pickle "
                         "(auto = on iff --rounds-per-dispatch > 1); output-only")
+    # observability (obs/), all output-only: never in the title or the
+    # config hash, the records bitwise the same with them on or off
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="write a torch.profiler trace of the run here (Chrome/Perfetto "
+                        "JSON; rounds carry a 'round' range, eval/checkpoint named ranges)")
+    p.add_argument("--profile-rounds", type=str, default="", metavar="A:B",
+                   help="restrict the trace to the half-open round window [A, B) "
+                        "(requires --profile-dir)")
+    p.add_argument("--hbm-warn-factor", type=float, default=2.0,
+                   help="warn when the card's measured memory peak exceeds the memory "
+                        "model by this factor (output-only)")
+    p.add_argument("--obs-dir", type=str, default="",
+                   help="write the schema-versioned per-round event stream (JSONL) here")
+    p.add_argument("--obs-stdout", action="store_true",
+                   help="also emit structured events as JSON lines on stdout")
+    p.add_argument("--log-file", type=str, default="",
+                   help="tee harness log lines to this file (append, flushed per line)")
+    p.add_argument("--obs-rotate-mb", type=float, default=0.0,
+                   help="rotate the --obs-dir event stream once the live file passes this "
+                        "many MiB (segments keep one seq envelope; 0 = off)")
+    p.add_argument("--trace", choices=["off", "on"], default="off",
+                   help="spans mint trace/span ids and nest (output-only)")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress harness log lines on stdout (file tee still written)")
+    p.add_argument("--forensics", choices=["off", "top", "full"], default="off",
+                   help="per-client flag provenance: 'top' emits client_flag events for "
+                        "flagged clients in the round's top-M, 'full' emits the whole "
+                        "top-M and arms the flight recorder (requires --defense)")
+    p.add_argument("--forensics-top", type=int, default=8,
+                   help="M: suspicious clients extracted per round (<= K)")
+    p.add_argument("--flight-window", type=int, default=8,
+                   help="W: rounds of detector state kept in the flight-recorder ring")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
     return p
@@ -265,11 +307,12 @@ _TRUE, _FALSE = ("true", "1", "yes", "on"), ("false", "0", "no", "off")
 _DEFENSE_SUFFIXES = ("", "_ladder", "_warmup", "_alpha", "_drift", "_cusum", "_z", "_up",
                      "_down", "_min_flagged", "_floor", "_leak")
 
-# the cohort, service and dispatch flags: their FedConfig fields, as named
+# the cohort, service, dispatch and observability flags: their FedConfig
+# fields, as named
 _FLAG_FIELDS = ("cohort_size", "cohort_quantile", "cohort_sketch_bins") + (
     ("service",) + FedConfig._SERVICE_KNOBS) + (
     "rounds_per_dispatch", "eval_interval", "dispatch_mode", "dispatch_prefetch",
-    "async_writer")
+    "async_writer") + FedConfig._OBS_FIELDS
 
 
 def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:

@@ -1,16 +1,18 @@
-"""The defense's per-round metrics: their packing and the record keys.
+"""The defense's per-round metrics: their packing, the record keys and
+the ``defense`` event.
 
-Port of the packing half of ``byzantine_aircomp_tpu/defense/events.py``.
-Each iteration observes a [5] vector (rung, flagged clients, suspicious,
-max score, max CUSUM); :func:`reduce_round` folds a round of them into the
-[6] round vector of :data:`METRIC_KEYS`, as the JAX package's round does
-(``fed/train.py:1770-1784``).  The ``defense`` events of the JAX package
-write through its obs sinks, which the port does not have yet.
+Port of ``byzantine_aircomp_tpu/defense/events.py``.  Each iteration
+observes a [5] vector (rung, flagged clients, suspicious, max score, max
+CUSUM); :func:`reduce_round` folds a round of them into the [6] round
+vector of :data:`METRIC_KEYS`, as the JAX package's round does
+(``fed/train.py:1770-1784``); :func:`emit_round` writes it as one
+``defense`` event through the run's obs sinks, with the transition from
+the previous round's rung.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -59,3 +61,35 @@ def active_agg(mode: str, ladder, rung: int, base_agg: str) -> str:
     """The aggregator applied: the rung's ladder entry under ``adaptive``,
     always the configured one under ``monitor``."""
     return ladder[rung] if mode == "adaptive" else base_agg
+
+
+def emit_round(
+    obs,
+    round_idx: int,
+    *,
+    mode: str,
+    agg: str,
+    metrics: Dict[str, float],
+    prev_rung: Optional[int] = None,
+) -> None:
+    """One ``defense`` event per round on the run's sinks.  ``prev_rung``
+    (the previous round's end rung, kept on the host) makes the carried
+    rung an explicit transition: "escalate" / "deescalate" / None."""
+    rung = int(metrics["rung"])
+    transition = None
+    if prev_rung is not None and rung != prev_rung:
+        transition = "escalate" if rung > prev_rung else "deescalate"
+    obs.emit(
+        "defense",
+        round=round_idx,
+        mode=mode,
+        rung=rung,
+        agg=agg,
+        prev_rung=prev_rung,
+        transition=transition,
+        flagged=metrics["flagged"],
+        suspicious_iters=metrics["suspicious_iters"],
+        score_max=metrics["score_max"],
+        cusum_max=metrics["cusum_max"],
+        transitions=metrics["transitions"],
+    )

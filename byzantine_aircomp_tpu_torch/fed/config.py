@@ -236,6 +236,43 @@ class FedConfig:
     mark: str = ""
     cache_dir: str = ""
 
+    # observability (obs/): all output-only, so config_hash skips every one
+    # of them and run_title names none; with all at their defaults no obs
+    # code runs and the records, params and random streams are bitwise
+    # those of a run without the subsystem (JAX fed/config.py:390-455).
+    # a torch.profiler trace (Chrome/Perfetto JSON) of the run lands here,
+    # each round a "round" range, eval and checkpoint named ranges
+    profile_dir: str = ""
+    # capture window "A:B" (half-open, round indices); requires profile_dir
+    profile_rounds: str = ""
+    # the per-run event stream ({ckpt_title}.events.jsonl, appended on resume)
+    obs_dir: str = ""
+    # also emit the event stream as JSON lines on stdout
+    obs_stdout: bool = False
+    # tee every harness log line here, flushed per line
+    log_file: str = ""
+    # silence the harness's stdout logging (the log_file tee still writes)
+    quiet: bool = False
+    # warn when the card's measured memory peak exceeds the port's memory
+    # model (obs/hbm.cuda_peak_bytes) by this factor
+    hbm_warn_factor: float = 2.0
+    # client-level forensics (obs/forensics.py): "off" runs no forensic
+    # code; "top" computes the round's top-M flag provenance and emits
+    # client_flag events for the flagged rows; "full" emits the whole top-M
+    # and keeps the flight recorder (the last flight_window rounds of
+    # detector state, dumped on every rollback and at run end).  Requires
+    # --defense monitor|adaptive
+    forensics: str = "off"
+    # top-M suspicious clients extracted per round (<= node_size)
+    forensics_top: int = 8
+    # flight-recorder window W: rounds of detector state kept in the ring
+    flight_window: int = 8
+    # rotate the --obs-dir stream once the live file passes this many MiB
+    # (0 = one unbounded file); segments keep one seq envelope
+    obs_rotate_mb: float = 0.0
+    # "on": spans mint trace/span ids and nest (obs/trace.py)
+    trace: str = "off"
+
     _FAULT_KNOBS = (
         "dropout_prob", "fade_floor", "csi_std", "corrupt_prob",
         "corrupt_mode", "corrupt_size", "ge_p_gb", "ge_p_bg", "ge_bad_mult",
@@ -266,6 +303,14 @@ class FedConfig:
     # rounds_per_dispatch) at R = 1.  async_writer and dispatch_prefetch
     # are output-only and skipped always
     _DISPATCH_KNOBS = ("eval_interval", "dispatch_mode")
+
+    # forensics knobs that need --forensics top|full
+    _FORENSICS_KNOBS = ("forensics_top", "flight_window")
+
+    # the observability fields: output-only, skipped by config_hash always
+    _OBS_FIELDS = ("obs_dir", "obs_stdout", "obs_rotate_mb", "log_file", "quiet",
+                   "profile_dir", "profile_rounds", "hbm_warn_factor", "forensics",
+                   "forensics_top", "flight_window", "trace")
 
     @property
     def node_size(self) -> int:
@@ -411,6 +456,7 @@ class FedConfig:
                 "client stack"
             )
         self._validate_defense()
+        self._validate_obs()
         # unknown names fail here, not mid-run (KeyError lists known names)
         agg_lib.resolve(self.agg)
         # an unknown name, or a malformed "name@R", raises here
@@ -559,6 +605,46 @@ class FedConfig:
             self.defense_ladder_names(),
             self.agg if self.defense == "adaptive" else None,
         )
+
+    def _validate_obs(self):
+        """The observability knobs (JAX ``fed/config.py:688-724``, :787-815)."""
+        from ..obs.profile import parse_rounds
+
+        if self.profile_rounds:
+            if not self.profile_dir:
+                raise ValueError(
+                    "profile_rounds requires profile_dir (a capture window without a "
+                    "trace destination would silently do nothing)"
+                )
+            # a malformed window fails at startup, not at round A
+            parse_rounds(self.profile_rounds)
+        if not self.hbm_warn_factor > 0:
+            raise ValueError(f"hbm_warn_factor must be positive, got {self.hbm_warn_factor}")
+        if self.obs_rotate_mb < 0:
+            raise ValueError(
+                f"obs_rotate_mb must be >= 0 (0 disables rotation), got {self.obs_rotate_mb}"
+            )
+        if self.obs_rotate_mb > 0 and not self.obs_dir:
+            raise ValueError("obs_rotate_mb requires --obs-dir")
+        if self.trace not in ("off", "on"):
+            raise ValueError(f"trace must be off|on, got {self.trace!r}")
+        if self.forensics not in ("off", "top", "full"):
+            raise ValueError(f"forensics must be off|top|full, got {self.forensics!r}")
+        if self.forensics == "off":
+            self._untouched("forensics", self._FORENSICS_KNOBS, "--forensics top|full")
+            return
+        if self.defense == "off":
+            raise ValueError(
+                "--forensics attributes the defense detector's per-client scores — it "
+                "requires --defense monitor|adaptive"
+            )
+        if not 1 <= self.forensics_top <= self.node_size:
+            raise ValueError(
+                f"forensics_top must be in [1, node_size={self.node_size}] (the top-k "
+                f"runs over the K drawn rows), got {self.forensics_top}"
+            )
+        if self.flight_window < 1:
+            raise ValueError(f"flight_window must be >= 1, got {self.flight_window}")
 
     def _untouched(self, kind: str, knobs, needs: str):
         """Raise when a knob of ``knobs`` is off its default (it would do

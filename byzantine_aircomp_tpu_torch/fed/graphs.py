@@ -24,6 +24,10 @@ of R rounds is R replays with no host read between them.
   raises, and so does any other failure of the capture.  Inside the capture
   the Weiszfeld loop runs all ``agg_maxiter`` steps with no host read
   (``ops.aggregators.weiszfeld_solve``).
+* **Outputs.**  Each replay's per-round outputs (the variance, the fault,
+  defense and service rows, and the forensic top-M, computed inside the
+  graph into a static buffer) are copied into the dispatch's stacked
+  buffers on the device.
 * **Launch counts.**  The kernel wrappers count at capture, where nothing
   is launched: those counts are taken back out, and every replay adds them
   (``ops.kernels.add_launches``).
@@ -122,7 +126,9 @@ class RoundGraph:
         self.warmup_seconds: Optional[float] = None
         self.capture_seconds: Optional[float] = None
 
-    def _capture(self, round_idx: int):
+    def capture(self, round_idx: int):
+        """Warm up and capture the round (for the generators of round
+        ``round_idx``); :meth:`run` calls it at its first dispatch."""
         from .train import _clone_state as _clone
 
         t = self.trainer
@@ -149,7 +155,7 @@ class RoundGraph:
             try:
                 variance = t.run_round(round_idx)
                 self.outputs = (variance, t.last_fault_metrics, t.last_defense_metrics,
-                                t.last_service_metrics)
+                                t.last_service_metrics, t.last_forensic_metrics)
                 _copy_into(self.static, t._state())
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
@@ -171,7 +177,7 @@ class RoundGraph:
 
         t = self.trainer
         if self.graph is None:
-            self._capture(start_round)
+            self.capture(start_round)
         _copy_into(self.static, t._state())
         t._set_state(self.static)
         stacked = [None if o is None else

@@ -37,11 +37,46 @@ from ..defense import events as defense_events
 from .train import FAULT_PATHS, SERVICE_PATHS, Trainer
 
 
+# the log's routing, set per run by configure_log: the --log-file tee and
+# the --quiet gate (module globals, since every caller of `log` shares them)
+_LOG_FILE = None
+_QUIET = False
+
+
+def configure_log(log_file: str = "", quiet: bool = False):
+    """Route :func:`log` and the banner (JAX ``fed/harness.py:39-66``): tee
+    to ``log_file`` (appended, flushed per line) and/or silence stdout.
+    Returns a zero-argument restore callable, so sequential runs in one
+    process never inherit a previous run's routing."""
+    global _LOG_FILE, _QUIET
+    prev = (_LOG_FILE, _QUIET)
+    _LOG_FILE = io_lib.open_append(log_file) if log_file else None
+    _QUIET = quiet
+
+    def restore():
+        global _LOG_FILE, _QUIET
+        if _LOG_FILE is not None:
+            _LOG_FILE.close()
+        _LOG_FILE, _QUIET = prev
+
+    return restore
+
+
+def _emit_line(line: str):
+    """One log line to the configured outputs, flushed."""
+    if not _QUIET:
+        print(line)
+        sys.stdout.flush()
+    if _LOG_FILE is not None:
+        _LOG_FILE.write(line + "\n")
+        _LOG_FILE.flush()
+
+
 def log(*k, **kw):
-    """Timestamped logging (reference ``log``, ``:40-44``)."""
+    """Timestamped logging (reference ``log``, ``:40-44``), routed by
+    :func:`configure_log`."""
     stamp = time.strftime("[%m-%d %H:%M:%S] ", time.localtime())
-    print(stamp + kw.get("sep", " ").join(str(x) for x in k))
-    sys.stdout.flush()
+    _emit_line(stamp + kw.get("sep", " ").join(str(x) for x in k))
 
 
 _CFG_DEFAULTS = {f.name: f.default for f in dataclasses.fields(FedConfig)}
@@ -137,9 +172,10 @@ def run_title(cfg: FedConfig) -> str:
 # identity: the JAX harness's unconditional skip list (``fed/harness.py:219``)
 # as far as the port has the fields.  ``rounds`` is the horizon that
 # ``inherit`` exists to extend; the writer thread and the dispatch prefetch
-# change when bytes reach the disk and the host folds, not the records
+# change when bytes reach the disk and the host folds, not the records; the
+# observability knobs add outputs only (JAX :224-236)
 _HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds", "async_writer",
-              "dispatch_prefetch")
+              "dispatch_prefetch") + FedConfig._OBS_FIELDS
 
 # fields skipped while at their default, so that a config that leaves them
 # there hashes as it did before the field was ported: the sign channel's
@@ -237,8 +273,7 @@ def banner(cfg: FedConfig, trainer: Trainer, path: str):
         )
     lines.append("-------------------------------------------")
     for line in lines:
-        print(line)
-    sys.stdout.flush()
+        _emit_line(line)
 
 
 def build_record(
@@ -422,24 +457,165 @@ def run_with_trainer(
     (:func:`merge_paths`).  A torn or unreadable checkpoint restarts from
     round 0, with one log line.
 
+    With ``--obs-dir`` / ``--obs-stdout`` set, the JAX package's schema-v10
+    event stream is written beside the pickled record (JAX
+    ``fed/harness.py:569-1010``): ``run_start`` (with the aggregation's
+    ``hbm`` traffic block), the ``setup`` span, the trainer's round events,
+    ``profile`` (``--profile-dir``), ``retrace``, the flight recorder's
+    run-end ``forensic_dump`` (``--forensics full``) and ``run_end`` with
+    the ``memory`` block (the card's peak against :func:`modeled_peak`).
+    ``--trace on`` wraps the run in a ``run`` span.  ``--log-file`` tees
+    and ``--quiet`` silences the log for the run's duration.
+
     With the writer thread on (:func:`..obs.resolve_async`) each
     checkpoint is copied to the host here and written by the writer as one
-    task, the record pickle rides it last, and the writer is drained and
-    closed before this returns, on success or failure (JAX
-    ``fed/harness.py:599-645``, :994-999)."""
+    task, the event appends ride it too, the record pickle rides it last,
+    and the writer is drained before the sinks close and closed before this
+    returns, on success or failure (JAX ``fed/harness.py:599-645``,
+    :994-999)."""
     if cfg.attack is None:
         cfg.byz_size = 0
     cfg.validate()
+    restore_log = configure_log(cfg.log_file, cfg.quiet)
     writer = obs_lib.WriterThread() if obs_lib.resolve_async(cfg) else None
+    obs = obs_lib.from_config(cfg, ckpt_title(cfg), writer=writer)
     try:
-        return _run_inner(cfg, device, record_in_file, dataset, on_round, writer)
+        if obs.traced:
+            # the trace root: every span of the run nests under this one
+            with obs.span("run", title=ckpt_title(cfg)):
+                return _run_inner(cfg, device, record_in_file, dataset, on_round, writer,
+                                  obs)
+        return _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs)
     finally:
+        # every enqueued append, checkpoint and pickle lands before the
+        # sinks close, on a crash too
+        if writer is not None:
+            writer.drain()
+        obs.close()
         if writer is not None:
             writer.close()
+        restore_log()
 
 
-def _run_inner(cfg, device, record_in_file, dataset, on_round, writer):
-    trainer = Trainer(cfg, dataset=dataset, device=device)
+def _data_bytes(cfg: FedConfig, trainer: Trainer) -> int:
+    """What the trainer keeps on the card for the whole run: the train rows
+    and labels, the shards' offsets and sizes, and the eval caches the
+    initial eval allocates (the val split, and the train split when
+    ``eval_train``: f32 rows and int64 labels)."""
+    held = sum(t.numel() * t.element_size()
+               for t in (trainer.x_train, trainer.y_train, trainer.offsets, trainer.sizes))
+    ds = trainer.dataset
+    feats = int(np.prod(ds.input_shape))
+    splits = [len(ds.x_val)] + ([len(ds.x_train)] if cfg.eval_train else [])
+    return held + sum(n * (4 * feats + 8) for n in splits)
+
+
+def modeled_peak(cfg: FedConfig, trainer: Trainer) -> Tuple[int, Dict[str, int]]:
+    """The port's memory model of ``cfg``'s run on the card
+    (:func:`..obs.hbm.cuda_peak_bytes`) and its terms: the data, the
+    stacks (K rows resident, ``cohort_size`` streamed), the channel terms
+    of a rule that takes them, and the client step's working set from the
+    model's layer shapes (:func:`..obs.hbm.per_sample_bytes`)."""
+    from ..obs import hbm as hbm_lib
+    from ..ops import aggregators as agg_lib
+
+    streamed = cfg.cohort_size > 0
+    part_h, part_b = cfg.participant_counts()
+    rows = cfg.cohort_size if streamed else part_h + part_b
+    ds = trainer.dataset
+    spatial = getattr(type(trainer.model), "SPATIAL_INPUT", True)
+    shape = tuple(ds.input_shape) if spatial else (int(np.prod(ds.input_shape)),)
+    input_bytes, act_bytes = hbm_lib.per_sample_bytes(trainer.model, shape, cfg.remat)
+    data_attack = trainer.attack is not None and trainer.attack.data_fn is not None
+    client = hbm_lib.client_step_bytes(
+        rows * cfg.local_steps * cfg.batch_size, input_bytes, act_bytes,
+        input_copies=2 if data_attack else 1)
+    channel = 2 if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg) else 0
+    state_pc = 0
+    if streamed:
+        # the O(K) per-client state that survives streaming (JAX
+        # fed/harness.py:884-903)
+        if cfg.defense != "off":
+            state_pc += 3 * 4
+        if cfg.fault is not None:
+            state_pc += 1
+        if cfg.service == "on":
+            per = cfg.population // cfg.node_size
+            state_pc += per + ((per - 1) * 3 * 4 if cfg.defense != "off" else 0)
+    data = _data_bytes(cfg, trainer)
+    modeled = hbm_lib.cuda_peak_bytes(
+        rows, trainer.dim, client_bytes=client, data_bytes=data, channel_copies=channel,
+        param_copies=6 if streamed else 4, state_bytes=state_pc * cfg.node_size)
+    terms = dict(rows=rows, data_bytes=data, stack_bytes=rows * trainer.dim * 4,
+                 channel_copies=channel, client_step_bytes=client,
+                 input_bytes_per_sample=input_bytes, activation_bytes_per_sample=act_bytes)
+    return modeled, terms
+
+
+def _memory_block(cfg: FedConfig, trainer: Trainer, baseline: Optional[int]) -> Dict:
+    """The ``run_end`` memory block: the device's watermarks, the port's
+    model (:func:`modeled_peak`) beside the JAX package's, and whether the
+    run's own peak (``max_memory_allocated`` since the run started, less
+    what was allocated before it) exceeds ``hbm_warn_factor`` x the model.
+    Only a ``device:`` source is judged: a host RSS holds the interpreter."""
+    from ..obs import hbm as hbm_lib
+    from ..obs import profile as profile_lib
+
+    memory = dict(profile_lib.device_memory(trainer.device))
+    modeled, terms = modeled_peak(cfg, trainer)
+    memory["hbm_model"] = "streamed" if cfg.cohort_size > 0 else "resident"
+    memory["modeled_peak_bytes"] = modeled
+    memory["model_terms"] = terms
+    memory["jax_modeled_peak_bytes"] = (
+        hbm_lib.streamed_peak_bytes(cfg.node_size, trainer.dim, cfg.cohort_size,
+                                    data_bytes=terms["data_bytes"])
+        if cfg.cohort_size > 0 else
+        hbm_lib.modeled_peak_bytes(cfg.node_size, trainer.dim, data_bytes=terms["data_bytes"]))
+    memory["warn_factor"] = cfg.hbm_warn_factor
+    on_device = str(memory["source"]).startswith("device")
+    if on_device and baseline is not None:
+        memory["baseline_bytes"] = baseline
+        memory["run_peak_bytes"] = memory["peak_bytes_in_use"] - baseline
+        memory["measured_over_modeled"] = memory["run_peak_bytes"] / modeled
+    exceeds = on_device and memory.get("run_peak_bytes", 0) > cfg.hbm_warn_factor * modeled
+    memory["exceeds_model"] = bool(exceeds)
+    if exceeds:
+        log(f"WARNING: measured device peak {memory['run_peak_bytes']} bytes exceeds "
+            f"{cfg.hbm_warn_factor:g}x the modeled peak {modeled} bytes (obs/hbm "
+            f"{memory['hbm_model']} model) — an allocation the model does not account "
+            "for is resident")
+    return memory
+
+
+def _retrace(trainer: Trainer, rounds_run: int):
+    """The programs ``trainer`` built in its run (obs/retrace.py): its
+    CUDA-graph captures (``RoundGraph.captures``), and the eager round's
+    one-time set-up where it ran a round eagerly."""
+    from ..obs import RetraceDetector
+
+    retrace = RetraceDetector()
+    rg = trainer.round_graph
+    for _ in range(rg.captures if rg is not None else 0):
+        retrace.build("multi_round_fn")
+    if rounds_run and not trainer.dispatch_graph[0]:
+        retrace.build("round_fn")
+    return retrace
+
+
+def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
+    from ..device import resolve_device
+    from ..obs import hbm as hbm_lib
+    from ..obs import profile as profile_lib
+
+    baseline = None
+    dev = resolve_device(device)
+    if obs.enabled and dev.type == "cuda":
+        # the run's own peak: the watermark restarts here, and what is
+        # allocated already is the caller's
+        torch.cuda.reset_peak_memory_stats(dev)
+        baseline = torch.cuda.memory_allocated(dev)
+    with obs.span("setup", stage="trainer_init"):
+        trainer = Trainer(cfg, dataset=dataset, device=device)
     path = cache_path(cfg, trainer.dataset.name)
     banner(cfg, trainer, path)
 
@@ -474,18 +650,85 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer):
         def checkpoint_fn(r, t, so_far):
             on_round(r, t)
 
+    if obs.enabled:
+        extra = {}
+        if cfg.service == "on":
+            extra = dict(service=cfg.service, population=cfg.population,
+                         churn_arrival=cfg.churn_arrival,
+                         churn_departure=cfg.churn_departure,
+                         straggler_prob=cfg.straggler_prob, rollback=cfg.rollback)
+        if cfg.forensics != "off":
+            extra.update(forensics=cfg.forensics, forensics_top=cfg.forensics_top)
+        on_card = trainer.device.type == "cuda"
+        obs.emit(
+            "run_start",
+            title=run_title(cfg),
+            ckpt_title=title,
+            backend=trainer.device.type,
+            rounds=cfg.rounds,
+            start_round=start_round,
+            k=cfg.node_size,
+            byz=cfg.byz_size,
+            byz_ids=(None if cfg.service == "on"
+                     else [int(i) for i in torch.nonzero(trainer.byz_mask).flatten().tolist()]),
+            dim=trainer.dim,
+            agg=cfg.agg,
+            attack=cfg.attack,
+            fault=cfg.fault,
+            defense=cfg.defense,
+            seed=cfg.seed,
+            **extra,
+            # the CUDA kernel on the card (JAX's "pallas"), the plain
+            # torch version on the CPU (JAX's "xla")
+            hbm=hbm_lib.aggregator_hbm_model(
+                cfg.agg, cfg.node_size, trainer.dim, impl="pallas" if on_card else "xla",
+                fused=trainer.channel_fused, channel=cfg.noise_var is not None,
+                trim=cfg.byz_size),
+        )
     log("Optimization begin")
     t0 = time.perf_counter()
-    paths = trainer.train(log_fn=log, checkpoint_fn=checkpoint_fn, start_round=start_round)
+    profiler = profile_lib.from_config(cfg, trainer.device)
+    if profiler.enabled:
+        window = f" (rounds {cfg.profile_rounds})" if cfg.profile_rounds else ""
+        log(f"Profiling to {cfg.profile_dir}{window}")
+    profiler.start()  # whole-run mode; window mode opens at round A
+    # the finished trainer carries its run's profiler (``last_profile``)
+    trainer.profiler = profiler
+    try:
+        paths = trainer.train(log_fn=log, checkpoint_fn=checkpoint_fn,
+                              start_round=start_round, obs=obs, profiler=profiler)
+    finally:
+        profiler.close()
     elapsed = time.perf_counter() - t0
     if resume_prefix:
         paths = merge_paths(resume_prefix, paths)
+    if profiler.captured:
+        obs.emit("profile", dir=cfg.profile_dir, rounds=cfg.profile_rounds or "all",
+                 traces=profiler.trace_paths)
     # a resume at the end runs no round: no rate to report
     rounds_run = max(cfg.rounds - start_round, 0)
+    rps = None
     if rounds_run and elapsed > 1e-6:
-        log(f"Optimization done in {elapsed:.1f}s ({rounds_run / elapsed:.2f} rounds/sec)")
+        rps = rounds_run / elapsed
+        log(f"Optimization done in {elapsed:.1f}s ({rps:.2f} rounds/sec)")
     else:
         log(f"Optimization done in {elapsed:.1f}s (no rounds run)")
+    if obs.enabled:
+        retrace = _retrace(trainer, rounds_run)
+        steady_ok = retrace.check("multi_round_fn", max_lowerings=1, warn_fn=log)
+        obs.emit("retrace", counts=retrace.snapshot(), steady_state_ok=steady_ok)
+    if trainer.flight_recorder is not None:
+        trainer.flight_recorder.dump(max(cfg.rounds - 1, 0), "run_end", obs=obs)
+    if obs.enabled:
+        obs.emit(
+            "run_end",
+            elapsed_secs=round(elapsed, 3),
+            rounds_run=rounds_run,
+            rounds_per_sec=None if rps is None else round(rps, 4),
+            final_val_acc=paths["valAccPath"][-1],
+            final_val_loss=paths["valLossPath"][-1],
+            memory=_memory_block(cfg, trainer, baseline),
+        )
     record = build_record(
         cfg,
         paths,
@@ -497,7 +740,8 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer):
         if writer is not None:
             # after every pending checkpoint; drained so that the file is
             # there when this returns
-            writer.submit(lambda: io_lib.atomic_pickle(path, record))
+            writer.submit_traced(lambda: io_lib.atomic_pickle(path, record), "record_pickle",
+                                 sink=obs.sink)
             writer.drain()
         else:
             io_lib.atomic_pickle(path, record)

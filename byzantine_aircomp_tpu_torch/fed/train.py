@@ -80,6 +80,7 @@ import torch.nn.functional as F
 from torch.func import functional_call, grad, vmap
 
 from .. import defense as defense_lib
+from .. import obs as obs_lib
 from ..data import datasets as data_lib
 from ..device import resolve_device
 from ..ops import aggregators as agg_lib
@@ -87,6 +88,7 @@ from ..ops import attacks as attack_lib
 from ..ops import channel as channel_lib
 from ..ops import faults as fault_lib
 from ..ops import flatten as flatten_lib
+from ..obs import forensics as forensics_lib
 from ..registry import MODELS
 from . import graphs as graphs_lib
 from . import server_opt as server_opt_lib
@@ -188,13 +190,15 @@ def detector_update_by_id(det, score, finite, ids, params):
 class DispatchOutputs(NamedTuple):
     """A dispatch's per-round outputs, stacked on the device with a leading
     dim of the rounds run: the honest variance [n] and the round rows of
-    :data:`FAULT_PATHS` [n, 4], of the defense [n, 6] and of
-    :data:`SERVICE_PATHS` [n, 4], each None when its feature is off."""
+    :data:`FAULT_PATHS` [n, 4], of the defense [n, 6], of
+    :data:`SERVICE_PATHS` [n, 4] and the forensic top-M [n, M, NUM_COLS]
+    (:mod:`..obs.forensics`), each None when its feature is off."""
 
     variances: torch.Tensor
     fault: Optional[torch.Tensor]
     defense: Optional[torch.Tensor]
     service: Optional[torch.Tensor]
+    forensic: Optional[torch.Tensor] = None
 
 
 class _HostRows:
@@ -279,6 +283,14 @@ class Trainer:
         self.fault = fault_lib.resolve(cfg.fault, cfg.fault_overrides())
         # the online defense (None when off: no defense code runs)
         self.defense = defense_lib.from_config(cfg)
+        # whether the channel folds into the rule's read (select_columns'
+        # epilogue) instead of being applied to the stack first: only where
+        # nothing else reads the received stack before the rule
+        self.channel_fused = (
+            cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg)
+            and agg_lib.supports_fused_epilogue(cfg.agg) and self.fault is None
+            and cfg.bucket_size == 1 and cfg.service == "off" and cfg.cohort_size == 0
+            and not (self.defense is not None and self.defense.mode == "adaptive"))
         self.num_classes = self.dataset.num_classes
 
         # init params (reference modelFactory + setup_seed(2021), :98-104)
@@ -403,6 +415,20 @@ class Trainer:
             self.device)
         self.iteration_defense_metrics: Optional[torch.Tensor] = None
         self.last_defense_metrics: Optional[torch.Tensor] = None
+        # client-level forensics (obs/forensics.py), output only: the
+        # [forensics_top, NUM_COLS] top-M of the last iteration and of the
+        # last round (device tensors, None when off), and under "full" the
+        # host-side flight recorder
+        self._forensics_on = cfg.forensics != "off"
+        self.iteration_forensic: Optional[torch.Tensor] = None
+        self.last_forensic_metrics: Optional[torch.Tensor] = None
+        self.flight_recorder = (
+            forensics_lib.FlightRecorder(cfg.flight_window,
+                                         cfg.obs_dir or cfg.checkpoint_dir or ".")
+            if cfg.forensics == "full" else None)
+        # the profiler of the run that drove this trainer (set by the
+        # harness; its last_profile is the trace's torch.profiler object)
+        self.profiler = obs_lib.NULL_PROFILER
 
         # service rounds (JAX fed/train.py:297-318): the stable id -> data
         # shard map (the population oversubscribes the node_size shards
@@ -830,8 +856,7 @@ class Trainer:
                         k, d, cfg.noise_var, generator=gens.channel,
                         device=w_stack.device,
                     )
-                if (fault is not None or not agg_lib.supports_fused_epilogue(cfg.agg)
-                        or cfg.bucket_size > 1 or adaptive):
+                if not self.channel_fused:
                     w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
                     terms = None
         if service:
@@ -849,7 +874,14 @@ class Trainer:
             seen = w_stack if terms is None else channel_lib.oma(
                 w_stack, cfg.noise_var, terms=terms)
             det, pol = self.defense_state
-            score, finite, _ = defense_lib.client_score_components(seen, flat_params)
+            score, finite, parts = defense_lib.client_score_components(seen, flat_params)
+            if self._forensics_on:
+                # the forensic rows' identities and the baselines the
+                # detector thresholded (from before the update)
+                f_ids, ema_pre, dev_pre = (
+                    (pop_ids, det[1][pop_ids], det[2][pop_ids]) if service
+                    else (torch.arange(w_stack.shape[0], device=w_stack.device), det[1],
+                          det[2]))
             if service:
                 rows, flags = detector_update_by_id(det, score, finite, pop_ids, spec.detector)
                 det = (det[0] + 1,) + rows
@@ -858,6 +890,12 @@ class Trainer:
             n_flagged = torch.sum(flags)
             pol, suspicious = defense_lib.policy_update(pol, n_flagged, spec.policy)
             rung = pol[0]
+            if self._forensics_on:
+                cus_post = det[3][pop_ids] if service else det[3]
+                self.iteration_forensic = forensics_lib.with_rung(forensics_lib.top_m(
+                    forensics_lib.candidate_rows(f_ids, score, parts, ema_pre, dev_pre,
+                                                 cus_post, flags, spec.detector),
+                    cfg.forensics_top), rung)
             self.defense_state = (det, pol)
             self.iteration_defense_metrics = torch.stack([
                 rung.to(torch.float32), n_flagged.to(torch.float32),
@@ -1049,10 +1087,13 @@ class Trainer:
         n_fin = torch.zeros((), dtype=torch.int32, device=dev)
         n_flag = torch.zeros((), dtype=torch.int64, device=dev)
         ge_new = None if ge_bad is None else ge_bad.clone()
+        topm = None
         if spec is not None:
             # copies: rebuild's defense-aware view reads the snapshot
             det0, pol = defense_in
             ema, dv, cus = (t.clone() for t in det0[1:])
+            if self._forensics_on:
+                topm = forensics_lib.stream_init(cfg.forensics_top, device=dev)
         for c in range(n_chunks):
             chunk, ge_c, er, co = rebuild_full(c)
             fin = agg_lib._finite_rows(chunk)
@@ -1076,17 +1117,32 @@ class Trainer:
             if spec is not None:
                 # per-client rows updated chunk by chunk under the step of the
                 # iteration's start (advanced once after the pass)
-                score, score_fin, _ = defense_lib.client_score_components(chunk, flat_params)
+                score, score_fin, parts = defense_lib.client_score_components(
+                    chunk, flat_params)
                 det_c = (det0[0], ema, dv, cus)
+                rows = slice(c * cohort, (c + 1) * cohort)
+                ids_c = pop_ids[rows] if service else None
+                if topm is not None:
+                    # the chunk's rows' baselines from before their update
+                    ema_pre, dev_pre = ((ema[ids_c], dv[ids_c]) if service
+                                        else (ema[rows].clone(), dv[rows].clone()))
                 if service:
                     (ema, dv, cus), flags = detector_update_by_id(
-                        det_c, score, score_fin, pop_ids[c * cohort:(c + 1) * cohort],
-                        spec.detector)
+                        det_c, score, score_fin, ids_c, spec.detector)
                 else:
-                    rows = slice(c * cohort, (c + 1) * cohort)
                     (_, ema[rows], dv[rows], cus[rows]), flags = defense_lib.detector_update(
                         (det0[0], ema[rows], dv[rows], cus[rows]), score, score_fin,
                         spec.detector)
+                if topm is not None:
+                    # the chunk's candidates against the running top-M
+                    # (population ids under service, participant rows else)
+                    ids_f = ids_c if service else torch.arange(
+                        c * cohort, (c + 1) * cohort, device=dev)
+                    cus_post = cus[ids_c] if service else cus[rows]
+                    topm = forensics_lib.merge_top_m(
+                        topm, forensics_lib.candidate_rows(
+                            ids_f, score, parts, ema_pre, dev_pre, cus_post, flags,
+                            spec.detector), cfg.forensics_top)
                 n_flag = n_flag + torch.sum(flags)
                 max_sc = torch.maximum(max_sc, torch.max(score))
             del chunk, c32, c_fin
@@ -1097,6 +1153,9 @@ class Trainer:
             pol, suspicious = defense_lib.policy_update(pol, n_flag, spec.policy)
             rung = pol[0]
             self.defense_state = (det, pol)
+            if topm is not None:
+                # the rung at flag time, stamped once the policy has updated
+                self.iteration_forensic = forensics_lib.with_rung(topm, rung)
             self.iteration_defense_metrics = torch.stack([
                 rung.to(torch.float32), n_flag.to(torch.float32),
                 suspicious.to(torch.float32), max_sc, torch.max(det[3]),
@@ -1150,10 +1209,12 @@ class Trainer:
         (:func:`..defense.events.reduce_round`).  Under service,
         ``last_service_metrics`` becomes the round's [4]: the last
         iteration's available count, the absent and late rows summed, the
-        effective K at its minimum (JAX ``fed/train.py:1773-1782``)."""
+        effective K at its minimum (JAX ``fed/train.py:1773-1782``).  With
+        forensics on, ``last_forensic_metrics`` becomes the round's
+        [forensics_top, NUM_COLS] top-M of its iterations' matrices."""
         interval = self.cfg.display_interval
         variance = None
-        counts, observed, served = [], [], []
+        counts, observed, served, forensic = [], [], [], []
         rung_in = self.defense_state[1][0] if self.defense is not None else None
         for it in range(interval):
             self.flat_params, variance = self.iteration(
@@ -1167,6 +1228,8 @@ class Trainer:
                 observed.append(self.iteration_defense_metrics)
             if self.service_state is not None:
                 served.append(self.iteration_service_metrics)
+            if self._forensics_on:
+                forensic.append(self.iteration_forensic)
         if counts:
             per_it = torch.stack(counts)
             self.last_fault_metrics = torch.cat(
@@ -1179,6 +1242,10 @@ class Trainer:
             self.last_service_metrics = torch.cat([
                 per_it[-1, :1], torch.sum(per_it[:, 1:3], dim=0),
                 torch.amin(per_it[:, 3:], dim=0)])
+        if forensic:
+            # a client's peak iteration wins; host-side emission dedupes
+            self.last_forensic_metrics = forensics_lib.merge_interval(
+                torch.stack(forensic), self.cfg.forensics_top)
         return variance
 
     def run_rounds_stacked(self, start_round: int, num_rounds: int) -> DispatchOutputs:
@@ -1199,9 +1266,12 @@ class Trainer:
             for i in range(num_rounds):
                 variance = self.run_round(start_round + i)
                 rows.append((variance, self.last_fault_metrics,
-                             self.last_defense_metrics, self.last_service_metrics))
+                             self.last_defense_metrics, self.last_service_metrics,
+                             self.last_forensic_metrics))
             outs = DispatchOutputs(*(
                 None if col[0] is None else torch.stack(col) for col in zip(*rows)))
+        if outs.forensic is not None:
+            self.last_forensic_metrics = outs.forensic[-1]
         if outs.fault is not None:
             self.last_fault_metrics = outs.fault[-1]
         if outs.defense is not None:
@@ -1277,6 +1347,8 @@ class Trainer:
         log_fn: Optional[Callable[[str], None]] = None,
         checkpoint_fn: Optional[Callable[[int, "Trainer", Dict[str, List[float]]], None]] = None,
         start_round: int = 0,
+        obs: Optional["obs_lib.Observability"] = None,
+        profiler: Optional["obs_lib.Profiler"] = None,
     ) -> Dict[str, List[float]]:
         """Full training run; returns the reference-schema metric paths
         (``trainLossPath`` etc., pickled record keys at ``:481-489``).
@@ -1285,6 +1357,18 @@ class Trainer:
         the eval of the restored params.  ``checkpoint_fn(r, trainer, paths)``
         runs after every round, with ``r`` the number of rounds done and
         ``paths`` those recorded so far.
+
+        ``obs`` (default: the null sink) receives the JAX trainer's events
+        (``fed/train.py:2026-2330``): a ``round`` span per round (its
+        ``compiled`` true where the round paid for the eager set-up), an
+        ``eval`` span per eval and a ``checkpoint`` span per checkpoint,
+        and per round ``participation`` (service), ``defense``,
+        ``client_flag`` (forensics) and ``round``, all from the host floats
+        that go into the paths (:meth:`_append_round`), and ``rollback``.
+        The spans add no device sync: the round already ends on one.
+        ``profiler`` (default: the null profiler) wraps each round in its
+        ``round`` range and names eval and checkpoint, and owns a
+        ``--profile-rounds`` window through its round hooks.
 
         Under service rounds with ``rollback`` on (JAX ``fed/train.py:
         2084-2194``, :2310-2328), a guard runs before a round's paths are
@@ -1299,12 +1383,15 @@ class Trainer:
         round's seeds, and the round runs again."""
         cfg = self.cfg
         log = log_fn or (lambda s: None)
+        obs = obs or obs_lib.NULL
+        profiler = profiler or obs_lib.NULL_PROFILER
 
         def eval_pair():
             tr = self.evaluate("train") if cfg.eval_train else (0.0, 0.0)
             return tr, self.evaluate("val")
 
-        (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
+        with obs.span("eval", stage="initial", round=start_round), profiler.phase("eval"):
+            (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
         paths = {
             "trainLossPath": [tr_loss],
             "trainAccPath": [tr_acc],
@@ -1322,6 +1409,10 @@ class Trainer:
         if self.service_state is not None:
             for key in SERVICE_PATHS:
                 paths[key] = []
+        # the previous round's rung, for the defense event's transition
+        # (read once, only when the stream is on)
+        self._prev_rung = (int(self.defense_state[1][0])
+                           if self.defense is not None and obs.enabled else None)
         log(
             f"[{start_round}/{cfg.rounds}](interval: {cfg.display_interval}) "
             f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
@@ -1330,31 +1421,43 @@ class Trainer:
         if cfg.rounds_per_dispatch > 1:
             # the R = 1 loop below stays as it was, bit for bit
             return self._train_multi(paths, (tr_loss, tr_acc, va_loss, va_acc), eval_pair,
-                                     log, checkpoint_fn, start_round)
+                                     log, checkpoint_fn, start_round, obs, profiler)
         var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
         rollback_armed = cfg.service == "on" and cfg.rollback == "on"
         snapshot = None
         recent_val: List[float] = []
         r = start_round
         while r < cfg.rounds:
-            self._sync()
-            t0 = time.perf_counter()
-            variance = self.run_round(r)
-            self._sync()
-            dt = time.perf_counter() - t0
-            (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
+            profiler.round_start(r)
+            with obs.span("round", round=r) as sp, profiler.step(r):
+                self._sync()
+                t0 = time.perf_counter()
+                variance = self.run_round(r)
+                self._sync()
+                dt = time.perf_counter() - t0
+                # the first round pays for the eager set-up (obs/retrace.py)
+                compiled = sp["compiled"] = r == start_round
+            with obs.span("eval", stage="round", round=r + 1), profiler.phase("eval"):
+                (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
             var_f = float(variance)
             if rollback_armed and self._roll_back(
                     self._divergence(tr_loss, va_loss, var_f, recent_val), snapshot,
-                    f"round {r + 1}", log):
+                    f"round {r + 1}", log, obs, r, va_loss):
+                profiler.round_end(r)
                 continue
-            # the round's fault, service and defense rows, read with the
-            # eval: one host read each
+            # the round's fault, service, defense and forensic rows, read
+            # with the eval: one host read each
+            forensic = (None if self.last_forensic_metrics is None
+                        else self.last_forensic_metrics.tolist())
             fault_str = self._append_round(
                 paths, (tr_loss, tr_acc, va_loss, va_acc), var_f, 1.0 / dt,
                 None if self.fault is None else self.last_fault_metrics.tolist(),
                 None if self.service_state is None else self.last_service_metrics.tolist(),
-                None if self.defense is None else self.last_defense_metrics)
+                None if self.defense is None else self.last_defense_metrics,
+                obs=obs, round_idx=r, forensic_row=forensic,
+                round_secs=dt, compiled=compiled)
+            self._flight_record(r, forensic, dict(val_loss=va_loss, val_acc=va_acc,
+                                                  variance=var_f))
             log(
                 f"[{r + 1}/{cfg.rounds}](interval: {cfg.display_interval}) "
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
@@ -1366,17 +1469,36 @@ class Trainer:
                 # the params in place cannot reach the restore point
                 snapshot = (_clone_state(self._state()), r + 1)
             if checkpoint_fn is not None:
-                checkpoint_fn(r + 1, self, paths)
+                with obs.span("checkpoint", round=r + 1), profiler.phase("checkpoint"):
+                    checkpoint_fn(r + 1, self, paths)
+            profiler.round_end(r)
             r += 1
         return paths
 
+    def _flight_record(self, r, forensic_row, summary):
+        """Round ``r`` into the flight recorder (``--forensics full``): the
+        detector and policy state, the round's defense vector and forensic
+        top-M (host copies, read after the round's barrier)."""
+        if self.flight_recorder is None:
+            return
+        det, pol = self.defense_state
+        self.flight_recorder.record(r, detector_state=det, policy_state=pol,
+                                    defense_metrics=self.last_defense_metrics,
+                                    forensic_rows=forensic_row, summary=summary)
+
     def _append_round(self, paths, evals, variance, rate, fault_row, service_row,
-                      defense_row) -> str:
+                      defense_row, *, obs=None, round_idx=None, forensic_row=None,
+                      **round_fields) -> str:
         """One round's entries into ``paths``: the evals ``(train loss,
         train acc, val loss, val acc)``, the variance, the rate, and the
         fault, service and defense rows of a run that has them (None
-        otherwise).  Returns the round's log suffix for those rows."""
+        otherwise).  With ``obs`` on, the same floats go out as round
+        ``round_idx``'s events: ``participation``, ``defense``, the
+        ``client_flag`` events of ``forensic_row`` (the round's top-M, host
+        rows) and ``round`` (with ``round_fields``: ``round_secs``,
+        ``compiled``).  Returns the round's log suffix for the rows."""
         cfg = self.cfg
+        obs = obs or obs_lib.NULL
         tr_loss, tr_acc, va_loss, va_acc = evals
         paths["trainLossPath"].append(tr_loss)
         paths["trainAccPath"].append(tr_acc)
@@ -1385,16 +1507,22 @@ class Trainer:
         paths["variencePath"].append(variance)
         paths["roundsPerSec"].append(rate)
         suffix = ""
+        fault_metrics = service_metrics = None
         if fault_row is not None:
             dropped, erased, corrupt, eff_k = fault_row
             for key, v in zip(FAULT_PATHS, fault_row):
                 paths[key].append(v)
+            fault_metrics = dict(dropped=dropped, erased=erased, corrupt=corrupt,
+                                 effective_k=eff_k)
             suffix = (f" effK={eff_k:.0f} drop={dropped:.0f} "
                       f"erase={erased:.0f} corrupt={corrupt:.0f}")
         if service_row is not None:
             avail_m, absent_m, late_m, eff_k = service_row
             for key, v in zip(SERVICE_PATHS, service_row):
                 paths[key].append(v)
+            service_metrics = dict(available=avail_m, absent=absent_m, late=late_m,
+                                   effective_k=eff_k)
+            obs.emit("participation", round=round_idx, **service_metrics)
             suffix += f" avail={avail_m:.0f} effK={eff_k:.0f} late={late_m:.0f}"
         if defense_row is not None:
             events = defense_lib.events
@@ -1403,19 +1531,40 @@ class Trainer:
                 paths[path_key].append(dm[key])
             agg_name = events.active_agg(self.defense.mode, self.defense.ladder,
                                          int(dm["rung"]), cfg.agg)
+            if obs.enabled:
+                events.emit_round(obs, round_idx, mode=self.defense.mode, agg=agg_name,
+                                  metrics=dm, prev_rung=self._prev_rung)
+                self._prev_rung = int(dm["rung"])
             suffix += f" rung={int(dm['rung'])}({agg_name}) flag={dm['flagged']:.0f}"
+        if obs.enabled:
+            if forensic_row is not None:
+                forensics_lib.emit_round_flags(obs, round_idx, forensic_row,
+                                               mode=cfg.forensics)
+            obs.round(round_idx, train_loss=tr_loss, train_acc=tr_acc, val_loss=va_loss,
+                      val_acc=va_acc, variance=variance, rounds_per_sec=rate,
+                      fault_metrics=fault_metrics, service_metrics=service_metrics,
+                      memory=obs_lib.device_memory(self.device), **round_fields)
         return suffix
 
-    def _roll_back(self, reason, snapshot, what: str, log) -> bool:
+    def _roll_back(self, reason, snapshot, what: str, log, obs=None, round_idx=None,
+                   va_loss=None) -> bool:
         """The rollback guard's trip: where ``reason`` names a divergence,
         a ``snapshot = (state, round)`` exists and rollbacks are left,
         restore the snapshot, widen the trim by ``rollback_widen`` and
         salt every later round's seeds with the new rollback count (the
         epoch).  Returns whether it rolled back; ``what`` names the
-        diverged round or dispatch in the log line."""
+        diverged round or dispatch in the log line.  A trip emits a
+        ``rollback`` event for ``round_idx`` on ``obs`` and, under
+        ``--forensics full``, records the diverged state and dumps the
+        flight recorder (JAX ``fed/train.py:2128-2190``)."""
         cfg = self.cfg
         if reason is None or snapshot is None or self._rollbacks_done >= cfg.rollback_max:
             return False
+        obs = obs or obs_lib.NULL
+        if self.flight_recorder is not None:
+            # the diverged round's detector state, before the restore
+            self._flight_record(round_idx, self.last_forensic_metrics,
+                                dict(val_loss=va_loss, diverged=True, reason=reason))
         state, snap_round = snapshot
         self._set_state(_clone_state(state))
         avail, widen = self.service_state
@@ -1423,13 +1572,19 @@ class Trainer:
             avail, widen * torch.tensor(cfg.rollback_widen, dtype=torch.float32))
         self._rollbacks_done += 1
         self._rollback_epoch = self._rollbacks_done
+        if obs.enabled:
+            obs.emit("rollback", round=round_idx, restored_round=snap_round, reason=reason,
+                     epoch=self._rollback_epoch, widen=float(widen) * cfg.rollback_widen)
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump(round_idx, reason, obs=obs)
         log(
             f"[rollback {self._rollbacks_done}/{cfg.rollback_max}] {what} diverged "
             f"({reason}); restored round {snap_round}, trim widened x{cfg.rollback_widen:.2f}"
         )
         return True
 
-    def _train_multi(self, paths, evals, eval_pair, log, checkpoint_fn, start_round):
+    def _train_multi(self, paths, evals, eval_pair, log, checkpoint_fn, start_round,
+                     obs=None, profiler=None):
         """The R > 1 driver (JAX ``_train_multi``, :2337-2690): dispatches of
         ``rounds_per_dispatch`` rounds (:meth:`run_rounds_stacked`), the
         record folded at each dispatch's end.
@@ -1438,8 +1593,10 @@ class Trainer:
           ``eval_interval`` rounds, and at the run's end); a dispatch's
           record entries repeat the last eval, since the params between
           its rounds never reach the host.
-        * The per-round variance and fault, defense and service rows are
-          kept exactly (stacked on the device, read once per dispatch).
+        * The per-round variance and fault, defense, service and forensic
+          rows are kept exactly (stacked on the device, read once per
+          dispatch); each round's events are emitted at fold time from
+          those host rows.
         * Every round of a dispatch reports its rate ``n / dt``.
         * ``checkpoint_fn`` runs at boundaries, so a resume lands on one;
           a resumed run may open with an alignment dispatch and close with
@@ -1449,9 +1606,15 @@ class Trainer:
           trip restores the previous boundary's state and runs the whole
           dispatch again under salted draws.
         * With ``--dispatch-prefetch on`` a boundary with nothing to do on
-          the host (no eval due, no guard armed, no checkpoint_fn) folds
-          its record after the next dispatch has been queued."""
+          the host (no eval due, no guard armed, no checkpoint_fn, no
+          flight recorder) folds its record after the next dispatch has
+          been queued; the ``dispatch`` span then times the queueing only,
+          with no sync.
+        * The flight recorder (``--forensics full``) keeps one entry per
+          dispatch, its last round's."""
         cfg = self.cfg
+        obs = obs or obs_lib.NULL
+        profiler = profiler or obs_lib.NULL_PROFILER
         tr_loss, tr_acc, va_loss, va_acc = evals
         R = cfg.rounds_per_dispatch
         eval_every = cfg.eval_interval or R
@@ -1462,10 +1625,10 @@ class Trainer:
 
         var_str = f" var={cfg.noise_var:.2e}" if cfg.noise_var is not None else ""
 
-        def fold(r0, n, t0, dt, rows):
-            """The dispatch's host rows into the paths and one log line;
-            ``dt`` None for a deferred fold, measured now."""
-            var_l, fault_l, defense_l, service_l = rows
+        def fold(r0, n, t0, dt, compiled, rows):
+            """The dispatch's host rows into the paths, the events and one
+            log line; ``dt`` None for a deferred fold, measured now."""
+            var_l, fault_l, defense_l, service_l, forensic_l = rows
             if dt is None:
                 dt = time.perf_counter() - t0
             suffix = ""
@@ -1474,7 +1637,14 @@ class Trainer:
                     paths, (tr_loss, tr_acc, va_loss, va_acc), var_l[i], n / dt,
                     None if fault_l is None else fault_l[i],
                     None if service_l is None else service_l[i],
-                    None if defense_l is None else defense_l[i])
+                    None if defense_l is None else defense_l[i],
+                    obs=obs, round_idx=r0 + i,
+                    forensic_row=None if forensic_l is None else forensic_l[i],
+                    round_secs=dt / n, compiled=compiled)
+            if forensic_l is not None:
+                self._flight_record(r0 + n - 1, forensic_l[-1],
+                                    dict(val_loss=va_loss, val_acc=va_acc,
+                                         variance=var_l[-1]))
             log(
                 f"[{r0 + n}/{cfg.rounds}](interval: {cfg.display_interval}, dispatch: {n}) "
                 f"train: loss={tr_loss:.4f} acc={tr_acc:.4f} "
@@ -1482,44 +1652,61 @@ class Trainer:
             )
 
         r = start_round
-        pending = None  # a deferred fold: (r0, n, t0, host rows)
+        pending = None  # a deferred fold: (r0, n, t0, compiled, host rows)
         while r < cfg.rounds:
             # an alignment dispatch on an unaligned resume, a tail at an
             # unaligned end; every other dispatch is R rounds
             rem = r % R
             n = min(R - rem if rem else R, cfg.rounds - r)
             end = r + n
+            profiler.round_start(r)
             t0 = time.perf_counter()
-            host = _HostRows(self.run_rounds_stacked(r, n))
+            with obs.span("dispatch", round=r, rounds=n) as sp:
+                # the first dispatch pays for the eager set-up or the
+                # capture (obs/retrace.py)
+                compiled = sp["compiled"] = r == start_round
+                if self.dispatch_graph[0] and self.round_graph is None:
+                    # the capture runs outside the profiler's trace, which
+                    # would otherwise record into what is captured
+                    self.round_graph = graphs_lib.RoundGraph(self)
+                    with profiler.suspended():
+                        self.round_graph.capture(r)
+                with profiler.step(r):
+                    host = _HostRows(self.run_rounds_stacked(r, n))
             if pending is not None:
                 # the previous dispatch's fold, while the card runs this one
-                p_r0, p_n, p_t0, p_host = pending
-                fold(p_r0, p_n, p_t0, None, p_host.get())
+                p_r0, p_n, p_t0, p_compiled, p_host = pending
+                fold(p_r0, p_n, p_t0, None, p_compiled, p_host.get())
                 pending = None
             do_eval = end % eval_every == 0 or end >= cfg.rounds or rollback_armed
             sync = (not prefetch or do_eval or rollback_armed or checkpoint_fn is not None
-                    or end >= cfg.rounds)
+                    or self.flight_recorder is not None or end >= cfg.rounds)
             if not sync:
-                pending = (r, n, t0, host)
+                pending = (r, n, t0, compiled, host)
+                profiler.round_end(r)
                 r = end
                 continue
             self._sync()
             dt = time.perf_counter() - t0
             rows = host.get()
             if do_eval:
-                (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
+                with obs.span("eval", stage="round", round=end), profiler.phase("eval"):
+                    (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
             # judged on the dispatch's last round; a trip re-runs the whole
             # dispatch from the previous boundary's state
             if rollback_armed and self._roll_back(
                     self._divergence(tr_loss, va_loss, rows[0][-1], recent_val), snapshot,
-                    f"dispatch ending round {end}", log):
+                    f"dispatch ending round {end}", log, obs, end - 1, va_loss):
+                profiler.round_end(r)
                 continue
-            fold(r, n, t0, dt, rows)
+            fold(r, n, t0, dt, compiled, rows)
             if rollback_armed:
                 recent_val = (recent_val + [va_loss])[-ROLLBACK_WINDOW:]
                 # a copy, taken before checkpoint_fn (as in the R = 1 loop)
                 snapshot = (_clone_state(self._state()), end)
             if checkpoint_fn is not None:
-                checkpoint_fn(end, self, paths)
+                with obs.span("checkpoint", round=end), profiler.phase("checkpoint"):
+                    checkpoint_fn(end, self, paths)
+            profiler.round_end(r)
             r = end
         return paths

@@ -1,6 +1,128 @@
-"""Host-side run services of the port: for now the writer thread
-(:mod:`.writer`), which checkpoint writes and the record pickle ride."""
+"""Observability of the port: the run's event stream, spans, forensics,
+profiler and memory model.
 
-from .writer import WriterThread, resolve_async
+The port of the core of ``byzantine_aircomp_tpu/obs/``:
 
-__all__ = ["WriterThread", "resolve_async"]
+* :mod:`.sinks`   — where events go (JSONL file / stdout / memory / fan-out)
+* :mod:`.events`  — the schema-versioned event shapes (the JAX package's
+  schema v10, verbatim) and the reference-record field mapping
+* :mod:`.span`    — phase timing (rounds, eval, checkpoint, set-up)
+* :mod:`.trace`   — the context-local trace and span ids (``--trace on``)
+* :mod:`.retrace` — counts of the programs the trainer builds (CUDA-graph
+  captures, the eager round's set-up)
+* :mod:`.hbm`     — the aggregation's traffic model and the peak model on
+  the card
+* :mod:`.forensics` — per-client flag provenance (top-M in the round,
+  ``client_flag`` events) and the flight recorder
+* :mod:`.profile` — ``torch.profiler`` traces and memory watermarks
+* :mod:`.ledger`  — the perf ledger with noise-robust verdicts
+* :mod:`.writer`  — the writer thread and :class:`AsyncSink`
+
+:class:`Observability` is the façade the harness and the trainer use:
+``obs.span(...)`` / ``obs.round(...)`` / ``obs.emit(...)``.  The disabled
+path is :data:`NULL` (a null sink): with ``--obs-dir`` / ``--obs-stdout``
+unset no file is touched, and the records, params and random streams are
+bitwise those of a run without this package.  The metrics registry, its
+sink, the alert engine and the exporter of the JAX façade exist as
+``None`` attributes here; its ``span_event`` and ``trace_root``, which
+serve the JAX package's serving layer, are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from .events import (  # noqa: F401
+    REFERENCE_KEY_MAP,
+    SCHEMA_VERSION,
+    Collector,
+    make_event,
+    validate_event,
+)
+from .forensics import FlightRecorder, emit_round_flags  # noqa: F401
+from .ledger import PerfLedger, config_key, robust_stats  # noqa: F401
+from .profile import (  # noqa: F401
+    NULL_PROFILER,
+    Profiler,
+    device_memory,
+    parse_rounds,
+)
+from .retrace import RetraceDetector, RetraceError  # noqa: F401
+from .sinks import (  # noqa: F401
+    EventSink,
+    JsonlSink,
+    MemorySink,
+    MultiSink,
+    NullSink,
+    StdoutSink,
+)
+from .span import SpanTimer
+from . import trace  # noqa: F401
+from .writer import AsyncSink, WriterThread, resolve_async  # noqa: F401
+
+
+class Observability:
+    """Façade bundling a sink with the span timer and round collector."""
+
+    def __init__(self, sink: EventSink) -> None:
+        self.sink = sink
+        self.enabled = not isinstance(sink, NullSink)
+        self._spans = SpanTimer(sink)
+        self.collector = Collector(sink)
+        # the JAX façade's live-telemetry attachments, not ported yet
+        self.registry = None
+        self.metrics_sink = None
+        self.alert_engine = None
+        self.exporter = None
+
+    @property
+    def traced(self) -> bool:
+        return self._spans.traced
+
+    @traced.setter
+    def traced(self, value: bool) -> None:
+        self._spans.traced = bool(value)
+
+    def emit(self, kind: str, **fields) -> None:
+        self.sink.emit(make_event(kind, **fields))
+
+    def span(self, name: str, sync=None, **fields):
+        return self._spans.span(name, sync=sync, **fields)
+
+    def round(self, round_idx: int, **metrics) -> None:
+        self.collector.round_event(round_idx, **metrics)
+
+    def close(self) -> None:
+        self.sink.close()
+
+
+#: the disabled singleton — shared, stateless, close() is a no-op
+NULL = Observability(NullSink())
+
+
+def events_path(obs_dir: str, title: str) -> str:
+    """The run's event-stream file, keyed on the checkpoint title (run
+    title + config hash), so a resumed run appends to its own stream and
+    two configs never share one file."""
+    return os.path.join(obs_dir, f"{title}.events.jsonl")
+
+
+def from_config(cfg, title: str, writer: Optional[WriterThread] = None) -> Observability:
+    """The run's Observability (:data:`NULL` when no obs knob is set).
+    ``writer`` (the writer thread) moves the JSONL and stdout sinks behind
+    :class:`AsyncSink`, so their appends leave the round loop."""
+    sinks = []
+    if getattr(cfg, "obs_dir", ""):
+        sinks.append(JsonlSink(events_path(cfg.obs_dir, title),
+                               rotate_mb=getattr(cfg, "obs_rotate_mb", 0.0)))
+    if getattr(cfg, "obs_stdout", False):
+        sinks.append(StdoutSink())
+    if writer is not None:
+        sinks = [AsyncSink(s, writer) for s in sinks]
+    if not sinks:
+        return NULL
+    out = Observability(sinks[0] if len(sinks) == 1 else MultiSink(sinks))
+    # output-only: spans mint ids, the training program is untouched
+    out.traced = getattr(cfg, "trace", "off") == "on"
+    return out

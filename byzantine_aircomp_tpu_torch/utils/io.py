@@ -1,6 +1,6 @@
 """Crash-safe file writes.
 
-A copy of ``atomic_write`` from ``byzantine_aircomp_tpu/utils/io.py``: the
+Copies of ``atomic_write`` and ``open_append`` from ``byzantine_aircomp_tpu/utils/io.py``: the
 port keeps its own so that it imports nothing of the JAX package.  A run
 killed mid-write must never leave a truncated file under the final name,
 because a later resume or analysis pass would load garbage: the bytes go
@@ -39,3 +39,14 @@ def atomic_write(path: str, write_fn: Callable, mode: str = "wb") -> str:
 def atomic_pickle(path: str, obj: Any) -> str:
     """Atomically pickle ``obj`` to ``path``."""
     return atomic_write(path, lambda f: pickle.dump(obj, f))
+
+
+def open_append(path: str):
+    """Open ``path`` for line-buffered text append, creating parent dirs:
+    the append-safe counterpart of :func:`atomic_write` for growing files
+    (event streams, log tees), where one line per ``write()`` never tears a
+    line and POSIX append keeps concurrent writers from interleaving
+    within one."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    return open(path, "a", buffering=1)

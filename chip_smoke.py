@@ -165,6 +165,22 @@
    peaks; and (j3) run (j)'s resume under R=2 with ``--async-writer on``,
    bitwise;
 
+   the event stream, forensics, the profiler and the memory model
+   (``run_obs``): (z9) gm2 K=1000, eager, 7 rounds, with ``--obs-dir``,
+   ``--defense monitor --forensics full --forensics-top 8`` and a
+   ``torch.profiler`` trace of round 1, beside its twin with the stream
+   and forensics off (records and params bitwise; the stream's kinds in
+   order, every event valid; the trace's Weiszfeld kernels); (z10) the
+   same as one graphed R=2 run of 8 rounds with the writer thread on
+   (bitwise its graphed twin; each round's client_flag events bitwise
+   z9's; one capture counted); (z11) gm --var K=50, graphed R=2; then the
+   card's memory peak of each of those runs, of the CNN gm2 at K=50, the
+   streamed CNN mean at K=200 and ResNet-18 at K=10 with and without remat,
+   over the port's memory model, each within [0.5, 2.0]; events and
+   stream bytes per round and the round time with the stream on and off
+   are printed, and one ``platform: "cuda"`` ledger row per measure goes
+   to ``chiprun_out/perf_ledger_cuda.jsonl``;
+
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
    ``--fault`` round of those rules takes) beside the kernel's.
@@ -2351,6 +2367,330 @@ def run_j3(torch, kernels, harness, FedConfig, card, cache_dir):
                 replays=trainer.round_graph.replays, card=card)
 
 
+# (z9)-(z11): the main path with the event stream, forensics and the
+# profiler on (gm2 K=1000 and gm --var K=50, classflip, the MNIST MLP)
+OBS_Z9 = dict(agg="gm2", attack="classflip", honest_size=900, byz_size=100,
+              display_interval=10, defense="monitor")
+OBS_Z11 = dict(agg="gm", noise_var=1e-2, attack="classflip", honest_size=40, byz_size=10,
+               display_interval=10, rounds=8, rounds_per_dispatch=2)
+# the memory model's other cells: z7's CNN gm2 K=50 (one R=2 dispatch),
+# z3's streamed CNN mean at K=200 (cohort 50), and ResNet-18 at K=10 with
+# and without remat (median --var, CIFAR-10)
+OBS_MEMORY_RUNS = (
+    ("mem_cnn_gm2_K50", dict(agg="gm2", attack="classflip", model="CNN", honest_size=40,
+                             byz_size=10, rounds=2, rounds_per_dispatch=2,
+                             display_interval=10), "mnist", "weiszfeld_step"),
+    ("mem_z3_streamed_cnn_mean_K200", dict(agg="mean", attack="classflip", model="CNN",
+                                           honest_size=150, byz_size=50, cohort_size=50,
+                                           rounds=1, display_interval=1, eval_train=False),
+     "mnist", None),
+    ("mem_resnet18_remat_K10", dict(agg="median", noise_var=1e-2, attack="signflip",
+                                    model="ResNet18", dataset="cifar10", remat=True,
+                                    honest_size=9, byz_size=1, rounds=1, display_interval=1,
+                                    eval_train=False), "cifar10", "select_columns"),
+    ("mem_resnet18_K10", dict(agg="median", noise_var=1e-2, attack="signflip",
+                              model="ResNet18", dataset="cifar10", honest_size=9, byz_size=1,
+                              rounds=1, display_interval=1, eval_train=False), "cifar10",
+     "select_columns"),
+)
+
+
+def _obs_stream(obs_dir):
+    """The events of the one stream under ``obs_dir``, and its bytes."""
+    (name,) = [n for n in os.listdir(obs_dir) if n.endswith(".events.jsonl")]
+    path = os.path.join(obs_dir, name)
+    with open(path) as f:
+        return [json.loads(line) for line in f], os.path.getsize(path)
+
+
+def _obs_tokens(events):
+    """The stream as (kind, span name) tokens, a run of client_flag events
+    as one token."""
+    out = []
+    for e in events:
+        tok = (e["kind"], e.get("name"))
+        if not (tok == ("client_flag", None) and out and out[-1] == tok):
+            out.append(tok)
+    return out
+
+
+def _flags_by_round(events):
+    return {r: [{k: v for k, v in e.items() if k not in ("ts", "seq")} for e in events
+                if e["kind"] == "client_flag" and e["round"] == r]
+            for r in sorted({e["round"] for e in events if e["kind"] == "client_flag"})}
+
+
+def run_obs(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z9)-(z11) and the memory model on the card.
+
+    (z9) gm2 K=1000, eager R=1, 7 rounds, with the stream, ``--defense
+    monitor --forensics full --forensics-top 8`` and the profiler over
+    ``--profile-rounds 1:2``, beside its twin with every obs and forensics
+    knob off: records (but the rate) and params bitwise, every event valid,
+    the stream run_start, then per round a round span, an eval span,
+    defense, client_flag, round and the checkpoint span of the round-time
+    stamps, then profile, retrace, the run-end
+    forensic_dump and run_end; ``flight_run_end.json`` written; the trace
+    holds the ``round`` range once and the Weiszfeld kernels in it
+    (``_device_kernels``); the memory block's source ``device:cuda`` and
+    ``exceeds_model`` false.  (z10) the same under ``--rounds-per-dispatch
+    2 --async-writer on`` (8 rounds, graphed) beside its graphed twin with
+    the stream off: records and params bitwise; each round's client_flag
+    events, the forensic top-M computed inside the graph, bitwise (z9)'s
+    but for ``ts`` and ``seq``; one capture counted, steady state ok;
+    ``seq`` rising.  (z11) gm --var K=50, R=2 graphed (8 rounds), ``--obs-dir`` only,
+    beside its twin: the stream valid, the record bitwise.  Then the memory
+    model: measured (the run's own ``max_memory_allocated``) over modeled
+    for (z9)-(z11) and :data:`OBS_MEMORY_RUNS`, each within [0.5,
+    ``hbm_warn_factor``]; and the model of the resident CNN at K=1000,
+    beside the card's memory.  Each run launches its kernel every
+    iteration (counts set to 0 before it and read after).  Printed: events
+    and stream bytes per round, and the host time of each round with its
+    eval, fold, events and flight record (between ``on_round`` stamps, past
+    the first dispatch and the profiled window's rounds and trace export)
+    with the stream on
+    against off.  One ``platform: "cuda"`` row per run goes to
+    ``chiprun_out/perf_ledger_cuda.jsonl``."""
+    from byzantine_aircomp_tpu_torch import obs as obs_lib
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    root = os.path.join(cache_dir, "obs")
+    if os.path.isdir(root):
+        import shutil
+
+        shutil.rmtree(root)
+    data = {"mnist": datasets.load("mnist")}
+    out, memory = {}, {}
+    t_all = time.perf_counter()
+
+    def drive(label, cfg, kernel, ds, stamps=None):
+        """One run; ``stamps`` (a list) gets (rounds done, host clock)
+        after each round's (dispatch's) fold, events and flight record."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        stamp = None if stamps is None else (
+            lambda r, _t: stamps.append((r, time.perf_counter())))
+        t0 = time.perf_counter()
+        trainer, record = harness.run_with_trainer(cfg, device="cuda", dataset=ds,
+                                                   on_round=stamp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if kernel is not None and launches[kernel] < cfg.rounds * cfg.display_interval:
+            _fail(f"run {label}: {kernel} launched {launches[kernel]} times in "
+                  f"{cfg.rounds * cfg.display_interval} iterations")
+        if not bool(torch.isfinite(trainer.flat_params).all()):
+            _fail(f"run {label}: non-finite params")
+        return trainer, record, launches, wall
+
+    def round_seconds(stamps, window, r):
+        """Host seconds per round between successive ``on_round`` stamps
+        (the round or dispatch of ``r`` rounds, its eval, fold, events and
+        flight record), past the first dispatch (its set-up or capture) and
+        away from the profiler's ``window`` of rounds."""
+        # a stamp comes before the profiler's round_end of its dispatch,
+        # which exports the window's trace: the next interval holds it
+        return [(t1 - t0) / (r1 - r0) for (r0, t0), (r1, t1) in zip(stamps, stamps[1:])
+                if not any(i in window for i in range(r0 - r, r1))]
+
+    def pair(label, kw, obs_kw, kernel, ds="mnist"):
+        """The run with ``obs_kw`` beside its twin without: records (but
+        the rate) and params bitwise.  Returns (trainer, record, events,
+        entry)."""
+        twin_stamps, stamps = [], []
+        twin_t, twin, _, twin_wall = drive(
+            f"{label}_twin", FedConfig(cache_dir=os.path.join(root, label + "_twin"), **kw),
+            kernel, data[ds], twin_stamps)
+        twin_params = twin_t.flat_params.clone()
+        del twin_t
+        cfg = FedConfig(cache_dir=os.path.join(root, label), **kw, **obs_kw)
+        trainer, record, launches, wall = drive(label, cfg, kernel, data[ds], stamps)
+        same = _same_record(record, twin)
+        params_equal = torch.equal(trainer.flat_params, twin_params)
+        if not (same and params_equal):
+            _fail(f"run {label}: the observed run differs from its twin (record {same}, "
+                  f"params {params_equal})")
+        events, nbytes = _obs_stream(cfg.obs_dir)
+        for e in events:
+            obs_lib.validate_event(e)
+        if [e["seq"] for e in events] != list(range(len(events))):
+            _fail(f"run {label}: seq does not rise through the stream")
+        mem = [e for e in events if e["kind"] == "run_end"][0]["memory"]
+        if mem["source"] != "device:cuda" or mem["exceeds_model"]:
+            _fail(f"run {label}: memory block {mem}")
+        window = (range(*map(int, cfg.profile_rounds.split(":"))) if cfg.profile_rounds
+                  else range(0))
+        on = round_seconds(stamps, window, cfg.rounds_per_dispatch)
+        off = round_seconds(twin_stamps, window, cfg.rounds_per_dispatch)
+        entry = dict(
+            config=dict(kw, **obs_kw), records_equal=same, params_bitwise_equal=params_equal,
+            events=len(events), events_per_round=len(events) / cfg.rounds,
+            stream_bytes=nbytes, stream_bytes_per_round=nbytes / cfg.rounds,
+            round_seconds_obs_on=on, round_seconds_obs_off=off,
+            round_seconds_obs_on_mean=sum(on) / len(on),
+            round_seconds_obs_off_mean=sum(off) / len(off),
+            wall_seconds=wall, twin_wall_seconds=twin_wall, launches=launches,
+            memory=mem, card=card)
+        memory[label] = mem
+        print(f"run {label}: record and params bitwise its twin's (obs off): {same} "
+              f"{params_equal}; {len(events)} events ({entry['events_per_round']:.1f} per "
+              f"round), {nbytes} stream bytes ({entry['stream_bytes_per_round']:.0f} per "
+              f"round); host ms per round with its eval and fold, obs on: mean "
+              f"{entry['round_seconds_obs_on_mean'] * 1e3:.2f} of "
+              f"{[round(x * 1e3, 2) for x in on]}, off: mean "
+              f"{entry['round_seconds_obs_off_mean'] * 1e3:.2f} of "
+              f"{[round(x * 1e3, 2) for x in off]}; launches {launches} [{card}]")
+        return trainer, record, events, entry
+
+    # (z9)
+    d9 = os.path.join(root, "z9_stream")
+    z9_obs = dict(obs_dir=d9, forensics="full", forensics_top=8,
+                  profile_dir=os.path.join(root, "z9_profile"), profile_rounds="1:2")
+    t9, r9, ev9, out["z9_gm2_K1000_eager"] = pair(
+        "z9_gm2_K1000_eager", dict(OBS_Z9, rounds=7), z9_obs, "weiszfeld_step")
+    want = [("span", "setup"), ("run_start", None), ("span", "eval")]
+    for _ in range(7):
+        # the checkpoint span is on_round's (the round-time stamps)
+        want += [("span", "round"), ("span", "eval"), ("defense", None),
+                 ("client_flag", None), ("round", None), ("span", "checkpoint")]
+    want += [("profile", None), ("retrace", None), ("forensic_dump", None), ("run_end", None)]
+    if _obs_tokens(ev9) != want:
+        _fail(f"run z9: stream {_obs_tokens(ev9)}")
+    if not os.path.exists(os.path.join(d9, "flight_run_end.json")):
+        _fail("run z9: no flight_run_end.json")
+    prof = t9.profiler.last_profile
+    cpu = torch.autograd.DeviceType.CPU
+    rounds_traced = sum(1 for ev in prof.events()
+                        if ev.device_type == cpu and ev.name == "round")
+    weiszfeld = [ev.name for ev in _device_kernels(torch, prof)
+                 if _is_kernel_of(ev.name, "weiszfeld_step")]
+    if rounds_traced != 1 or len(weiszfeld) < OBS_Z9["display_interval"]:
+        _fail(f"run z9: the trace holds {rounds_traced} round ranges and {len(weiszfeld)} "
+              "Weiszfeld kernels")
+    out["z9_gm2_K1000_eager"].update(trace_round_ranges=rounds_traced,
+                                     trace_weiszfeld_kernels=len(weiszfeld),
+                                     trace_device_kernels=len(_device_kernels(torch, prof)),
+                                     trace_paths=t9.profiler.trace_paths)
+    print(f"run z9: the trace of round 1 holds {len(weiszfeld)} Weiszfeld kernels of "
+          f"{out['z9_gm2_K1000_eager']['trace_device_kernels']} device kernels [{card}]")
+    del t9, prof
+    # the stream alone (no forensics, no profiler) over the same rounds, to
+    # tell the stream's host time per round from the forensics'
+    stamps = []
+    cfg = FedConfig(cache_dir=os.path.join(root, "z9_stream_only"),
+                    obs_dir=os.path.join(root, "z9_stream_only_stream"),
+                    **dict(OBS_Z9, rounds=7))
+    t, record, _, _ = drive("z9_stream_only", cfg, "weiszfeld_step", data["mnist"], stamps)
+    if not _same_record(record, r9):
+        _fail("run z9: the stream-only run's record differs")
+    del t
+    alone = round_seconds(stamps, range(*map(int, z9_obs["profile_rounds"].split(":"))), 1)
+    out["z9_gm2_K1000_eager"].update(round_seconds_stream_only=alone,
+                                     round_seconds_stream_only_mean=sum(alone) / len(alone))
+    print(f"run z9: host ms per round with the stream alone: mean "
+          f"{sum(alone) / len(alone) * 1e3:.2f} of {[round(x * 1e3, 2) for x in alone]} "
+          f"[{card}]")
+
+    # (z10)
+    z10_kw = dict(OBS_Z9, rounds=8, rounds_per_dispatch=2, async_writer="on")
+    t10, _, ev10, out["z10_gm2_K1000_graphed"] = pair(
+        "z10_gm2_K1000_graphed", z10_kw,
+        dict(obs_dir=os.path.join(root, "z10_stream"), forensics="full", forensics_top=8),
+        "weiszfeld_step")
+    if t10.round_graph is None or t10.round_graph.captures != 1:
+        _fail("run z10: not one capture")
+    (retrace,) = [e for e in ev10 if e["kind"] == "retrace"]
+    if retrace["counts"]["multi_round_fn"] != 1 or not retrace["steady_state_ok"]:
+        _fail(f"run z10: retrace {retrace}")
+    f9, f10 = _flags_by_round(ev9), _flags_by_round(ev10)
+    same_flags = all(f10.get(r) == f9[r] for r in f9)
+    if not same_flags or sorted(f10) != list(range(8)):
+        _fail(f"run z10: the graphed rounds' client_flag events differ from z9's: "
+              f"{ {r: (f9.get(r), f10.get(r)) for r in f10} }")
+    out["z10_gm2_K1000_graphed"].update(client_flags_bitwise_z9=same_flags,
+                                        retrace=retrace["counts"])
+    print(f"run z10: each round's client_flag events bitwise z9's: {same_flags}; "
+          f"retrace {retrace['counts']} steady {retrace['steady_state_ok']} [{card}]")
+    del t10
+
+    # (z11)
+    t11, _, _, out["z11_gm_var_K50_graphed"] = pair(
+        "z11_gm_var_K50_graphed", OBS_Z11, dict(obs_dir=os.path.join(root, "z11_stream")),
+        "aircomp_weiszfeld_step")
+    if t11.round_graph is None or t11.round_graph.captures != 1:
+        _fail("run z11: not one capture")
+    del t11
+
+    # the memory model's other cells
+    for label, kw, ds, kernel in OBS_MEMORY_RUNS:
+        if ds not in data:
+            data[ds] = datasets.load(ds)
+        cfg = FedConfig(cache_dir=os.path.join(root, label),
+                        obs_dir=os.path.join(root, label + "_stream"), **kw)
+        t, record, launches, wall = drive(label, cfg, kernel, data[ds])
+        events, _ = _obs_stream(cfg.obs_dir)
+        mem = [e for e in events if e["kind"] == "run_end"][0]["memory"]
+        memory[label] = mem
+        out[label] = dict(config=kw, memory=mem, wall_seconds=wall, launches=launches,
+                          card=card)
+        del t
+    del data["cifar10"]
+    # the resident CNN at K=1000: the model's peak beside the card's memory
+    # (run z3 runs out of memory there)
+    cfg = FedConfig(agg="mean", attack="classflip", model="CNN", honest_size=900,
+                    byz_size=100, rounds=1, display_interval=1, eval_train=False)
+    t = Trainer(cfg, dataset=data["mnist"], device="cuda")
+    resident, terms = harness.modeled_peak(cfg, t)
+    del t
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["resident_cnn_K1000_model"] = dict(modeled_peak_bytes=resident, terms=terms,
+                                           device_total_bytes=total, card=card)
+    print(f"the resident CNN mean at K=1000: modeled peak {resident / 2**30:.2f} GiB (client "
+          f"step {terms['client_step_bytes'] / 2**30:.2f} GiB, stack "
+          f"{terms['stack_bytes'] / 2**30:.2f} GiB) against the card's "
+          f"{total / 2**30:.2f} GiB [{card}]")
+
+    ledger = obs_lib.PerfLedger(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             obs_lib.ledger.DEFAULT_LEDGER_PATH))
+    name, power = [x.strip() for x in card.split(",")][:2]
+    bad = []
+    for label, mem in memory.items():
+        ratio = mem["run_peak_bytes"] / mem["modeled_peak_bytes"]
+        print(f"memory {label}: measured {mem['run_peak_bytes'] / 2**30:.3f} GiB / modeled "
+              f"{mem['modeled_peak_bytes'] / 2**30:.3f} GiB = {ratio:.3f} (JAX model "
+              f"{mem['jax_modeled_peak_bytes'] / 2**30:.3f} GiB) [{card}]")
+        if not 0.5 <= ratio <= mem["warn_factor"]:
+            bad.append((label, ratio))
+        entry, c = out[label], out[label]["config"]
+        key = obs_lib.config_key(dict(k=c["honest_size"] + c["byz_size"], b=c["byz_size"],
+                                      agg=c["agg"], attack=c["attack"],
+                                      model=c.get("model", "MLP"),
+                                      dataset=c.get("dataset", "mnist")))
+        ledger.append(f"peak_over_model_{label}", ratio, unit="ratio", platform="cuda",
+                      key=key, card=name, power_limit=power,
+                      peak_measured_bytes=mem["run_peak_bytes"], peak_source=mem["source"],
+                      peak_resident_modeled_bytes=mem["modeled_peak_bytes"])
+        if "round_seconds_obs_on" in entry:
+            for side in ("on", "off"):
+                ledger.append(f"round_seconds_obs_{side}_{label}",
+                              entry[f"round_seconds_obs_{side}_mean"], unit="s",
+                              platform="cuda", key=key, card=name, power_limit=power,
+                              samples=entry[f"round_seconds_obs_{side}"])
+            for metric, unit in (("events_per_round", "events"),
+                                 ("stream_bytes_per_round", "bytes")):
+                ledger.append(f"{metric}_{label}", entry[metric], unit=unit, platform="cuda",
+                              key=key, card=name, power_limit=power)
+    if bad:
+        _fail(f"the memory model misses: measured/modeled {bad} outside [0.5, warn factor]")
+    out["ledger"] = ledger.path
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"runs z9-z11 and the memory cells added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2387,6 +2727,7 @@ def main():
     service_runs = run_service_and_streams(torch, kernels, harness, FedConfig, card, cache_dir)
     graphed_runs = run_graphed(torch, kernels, harness, FedConfig, card, cache_dir)
     graphed_runs["j3"] = run_j3(torch, kernels, harness, FedConfig, card, cache_dir)
+    obs_runs = run_obs(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -2428,6 +2769,7 @@ def main():
                        build_seconds=build_s, kernel_rows=rows,
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
+                       obs_runs=obs_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

@@ -855,3 +855,155 @@ def test_graphed_prefetch_is_bitwise_no_prefetch(cuda):
             assert _bits_equal(paths[0][key], paths[1][key]), key
     assert torch.equal(runs[0].flat_params, runs[1].flat_params)
     assert [t.round_graph.replays for t in runs] == [8, 8]
+
+
+# ---------------------------------------------------------------------------
+# observability: the event stream, forensics, the profiler and the memory
+# watermarks on the card
+
+
+def _forensics_cfg(**kw):
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+
+    return FedConfig(**dict(dict(agg="gm2", attack="signflip", honest_size=40, byz_size=10,
+                                 rounds=4, rounds_per_dispatch=2, display_interval=5,
+                                 eval_train=False, defense="monitor", defense_warmup=1,
+                                 forensics="full", forensics_top=8), **kw))
+
+
+def test_graphed_forensics_are_bitwise_the_eager_run(cuda):
+    """Each round's forensic top-M, computed inside the CUDA graph into a
+    static buffer, bitwise the eager dispatch's, as are the records."""
+    from byzantine_aircomp_tpu_torch.fed import harness
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = _forensics_cfg()
+    graphed = Trainer(cfg, dataset=ds, device="cuda")
+    eager = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+    assert graphed.dispatch_graph[0]
+    outs_g = graphed.run_rounds_stacked(0, 2)
+    outs_e = eager.run_rounds_stacked(0, 2)
+    torch.cuda.synchronize()
+    assert outs_g.forensic.shape == (2, 8, 11)
+    assert torch.equal(outs_g.forensic, outs_e.forensic)
+    assert torch.equal(outs_g.defense, outs_e.defense)
+    assert harness._retrace(graphed, 2).snapshot() == dict(round_fn=0, multi_round_fn=1,
+                                                           eval_fn=0)
+    assert harness._retrace(eager, 2).snapshot() == dict(round_fn=1, multi_round_fn=0,
+                                                         eval_fn=0)
+    pg, pe = graphed.train(), eager.train()
+    for key in pg:
+        if key != "roundsPerSec":
+            assert _bits_equal(pg[key], pe[key]), key
+
+
+def test_prefetched_run_with_the_stream_on_defers_its_folds(cuda, tmp_path, monkeypatch):
+    """With the stream on, a prefetched run still queues dispatch i+1
+    before it reads dispatch i's rows, and adds no device sync between."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch.fed import harness
+    from byzantine_aircomp_tpu_torch.fed import train as train_mod
+
+    order = []
+    stacked, get = train_mod.Trainer.run_rounds_stacked, train_mod._HostRows.get
+    sync = torch.cuda.synchronize
+
+    def run_stacked(self, r, n):
+        order.append(("dispatch", r))
+        return stacked(self, r, n)
+
+    def host_get(self):
+        order.append(("fold",))
+        return get(self)
+
+    def counted_sync(*a, **k):
+        order.append(("sync",))
+        return sync(*a, **k)
+
+    cfg = _forensics_cfg(forensics="off", defense="off", defense_warmup=5, rounds=8,
+                         eval_interval=8,
+                         dispatch_prefetch="on", obs_dir=str(tmp_path / "obs"),
+                         cache_dir=str(tmp_path / "rec"))
+    monkeypatch.setattr(train_mod.Trainer, "run_rounds_stacked", run_stacked)
+    monkeypatch.setattr(train_mod._HostRows, "get", host_get)
+    monkeypatch.setattr(torch.cuda, "synchronize", counted_sync)
+    _, record = harness.run_with_trainer(cfg, device="cuda", dataset=_dispatch_ds())
+    marks = [e for e in order if e != ("sync",)]
+    i = marks.index(("dispatch", 0))
+    assert marks[i:i + 4] == [("dispatch", 0), ("dispatch", 2), ("fold",), ("dispatch", 4)]
+    # (the first dispatch's capture syncs; none between queueing dispatch 2
+    # and folding dispatch 0)
+    assert ("sync",) not in order[order.index(("dispatch", 2)):order.index(("fold",))]
+    monkeypatch.undo()
+    _, plain = harness.run_with_trainer(
+        dataclasses.replace(cfg, obs_dir="", dispatch_prefetch="off"), device="cuda",
+        dataset=_dispatch_ds())
+    for key in plain:
+        if key != "roundsPerSec":
+            assert record[key] == plain[key] or _bits_equal(record[key], plain[key]), key
+
+
+def test_device_memory_reads_the_cuda_allocator(cuda):
+    from byzantine_aircomp_tpu_torch.obs import profile
+
+    x = torch.ones(1 << 20, device=cuda)
+    row = profile.device_memory(cuda)
+    assert row["source"] == "device:cuda"
+    assert row["peak_bytes_in_use"] >= row["bytes_in_use"] >= x.numel() * 4
+    assert profile.per_device_memory()[0]["source"] == "device:cuda"
+
+
+def test_profiled_run_traces_device_kernels(cuda, tmp_path):
+    """A --profile-dir run on the card: the trace holds the round range and
+    device kernels, the Weiszfeld kernel among them."""
+    import json
+
+    from byzantine_aircomp_tpu_torch.fed import harness
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=40, byz_size=10, rounds=2,
+                    display_interval=2, eval_train=False, profile_dir=str(tmp_path / "p"),
+                    profile_rounds="1:2", obs_dir=str(tmp_path / "o"),
+                    cache_dir=str(tmp_path / "r"))
+    harness.run_with_trainer(cfg, device="cuda", dataset=_dispatch_ds())
+    trace = json.load(open(tmp_path / "p" / "trace.json"))["traceEvents"]
+    kernels_seen = [ev["name"] for ev in trace if ev.get("cat") == "kernel"]
+    assert kernels_seen and any("step_kernel" in n for n in kernels_seen)
+    assert [ev.get("name") for ev in trace].count("round") >= 1
+    (stream,) = [p for p in (tmp_path / "o").iterdir() if p.name.endswith(".events.jsonl")]
+    end = [json.loads(line) for line in open(stream)][-1]
+    assert end["kind"] == "run_end" and end["memory"]["source"] == "device:cuda"
+    assert end["memory"]["exceeds_model"] is False
+
+
+def test_whole_run_profile_of_a_graphed_run_leaves_the_capture_out(cuda, tmp_path):
+    """A whole-run trace of a graphed R=2 run: the capture runs outside it
+    (a segment before, one after), the segment after holds the replays'
+    Weiszfeld kernels, and the run is bitwise its unprofiled twin."""
+    import json
+    import os
+
+    from byzantine_aircomp_tpu_torch.fed import harness
+
+    ds = _dispatch_ds()
+    cfg = _forensics_cfg(defense="off", forensics="off", defense_warmup=5,
+                         cache_dir=str(tmp_path / "r"))
+    plain_t, plain = harness.run_with_trainer(cfg, device="cuda", dataset=ds)
+    import dataclasses
+
+    prof_cfg = dataclasses.replace(cfg, profile_dir=str(tmp_path / "p"),
+                                   obs_dir=str(tmp_path / "o"))
+    t, record = harness.run_with_trainer(prof_cfg, device="cuda", dataset=ds)
+    assert torch.equal(t.flat_params, plain_t.flat_params)
+    for key in plain:
+        if key != "roundsPerSec":
+            assert record[key] == plain[key] or _bits_equal(record[key], plain[key]), key
+    paths = t.profiler.trace_paths
+    assert [os.path.basename(p) for p in paths] == ["trace.json", "trace_1.json"]
+    after = json.load(open(paths[1]))["traceEvents"]
+    assert any("step_kernel" in ev.get("name", "") for ev in after
+               if ev.get("cat") == "kernel")
+    assert t.round_graph.captures == 1
+    assert harness._retrace(t, cfg.rounds).snapshot()["multi_round_fn"] == 1
