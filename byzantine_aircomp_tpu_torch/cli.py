@@ -48,7 +48,12 @@ and ``--flight-window``; needs ``--defense``) adds ``client_flag`` events
 and, under ``full``, ``flight_*.json`` beside the stream; ``--profile-dir
 P [--profile-rounds A:B]`` writes a ``torch.profiler`` trace to
 ``P/trace.json``; ``--hbm-warn-factor`` sets when the memory check warns;
-``--log-file`` tees the log and ``--quiet`` silences it.
+``--log-file`` tees the log and ``--quiet`` silences it.  Live telemetry:
+``--metrics on`` folds the events into a metrics registry,
+``--metrics-port N`` serves it as ``/metrics`` and ``/healthz`` for the
+run's duration, and ``--alerts default|rules.json`` evaluates SLO rules
+each round (both imply ``--metrics on``); the run ends with the alert
+summary on the log and a ``metrics_snapshot`` event.
 
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
@@ -286,6 +291,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "many MiB (segments keep one seq envelope; 0 = off)")
     p.add_argument("--trace", choices=["off", "on"], default="off",
                    help="spans mint trace/span ids and nest (output-only)")
+    p.add_argument("--metrics", choices=["off", "on"], default="off",
+                   help="fold the event stream into an in-process metrics registry "
+                        "(counters/gauges/histograms; implied by --metrics-port/--alerts)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="serve Prometheus /metrics + /healthz on this port for the "
+                        "duration of the run (0 = no exporter)")
+    p.add_argument("--alerts", type=str, default="off",
+                   help="SLO alert rules evaluated each round: 'default' for the "
+                        "built-in pack or a path to a JSON rule list; alert events "
+                        "join the stream")
     p.add_argument("--quiet", action="store_true",
                    help="suppress harness log lines on stdout (file tee still written)")
     p.add_argument("--forensics", choices=["off", "top", "full"], default="off",

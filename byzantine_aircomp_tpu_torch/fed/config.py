@@ -272,6 +272,17 @@ class FedConfig:
     obs_rotate_mb: float = 0.0
     # "on": spans mint trace/span ids and nest (obs/trace.py)
     trace: str = "off"
+    # live telemetry (obs/metrics.py, obs/exporter.py, obs/alerts.py),
+    # derived on the host from the event stream.  "on" folds the events
+    # into an in-process metrics registry
+    metrics: str = "off"
+    # serve Prometheus /metrics + /healthz on this port (implies --metrics
+    # on); 0 disables the exporter
+    metrics_port: int = 0
+    # SLO alert rules evaluated each round on the registry (implies
+    # --metrics on): "off", "default" (the built-in pack) or a path to a
+    # JSON rule list
+    alerts: str = "off"
 
     _FAULT_KNOBS = (
         "dropout_prob", "fade_floor", "csi_std", "corrupt_prob",
@@ -310,7 +321,8 @@ class FedConfig:
     # the observability fields: output-only, skipped by config_hash always
     _OBS_FIELDS = ("obs_dir", "obs_stdout", "obs_rotate_mb", "log_file", "quiet",
                    "profile_dir", "profile_rounds", "hbm_warn_factor", "forensics",
-                   "forensics_top", "flight_window", "trace")
+                   "forensics_top", "flight_window", "trace", "metrics", "metrics_port",
+                   "alerts")
 
     @property
     def node_size(self) -> int:
@@ -628,6 +640,19 @@ class FedConfig:
             raise ValueError("obs_rotate_mb requires --obs-dir")
         if self.trace not in ("off", "on"):
             raise ValueError(f"trace must be off|on, got {self.trace!r}")
+        if self.metrics not in ("off", "on"):
+            raise ValueError(f"metrics must be off|on, got {self.metrics!r}")
+        if not 0 <= self.metrics_port <= 65535:
+            raise ValueError(
+                f"metrics_port must be a port number (0 disables), got {self.metrics_port}")
+        if not self.alerts:
+            raise ValueError("alerts must be 'off', 'default', or a JSON rules path — got "
+                             "an empty string")
+        if self.alerts not in ("off", "default"):
+            # a malformed rules file fails at startup, not at round 0
+            from ..obs.alerts import load_rules
+
+            load_rules(self.alerts)
         if self.forensics not in ("off", "top", "full"):
             raise ValueError(f"forensics must be off|top|full, got {self.forensics!r}")
         if self.forensics == "off":

@@ -37,6 +37,7 @@ of R rounds is R replays with no host read between them.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, Optional, Tuple
 
@@ -150,15 +151,27 @@ class RoundGraph:
         t._set_state(self.static)
         before = dict(kernels.LAUNCHES)
         mode = torch.cuda.get_sync_debug_mode()
-        with torch.cuda.graph(graph, stream=side):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                variance = t.run_round(round_idx)
-                self.outputs = (variance, t.last_fault_metrics, t.last_defense_metrics,
-                                t.last_service_metrics, t.last_forensic_metrics)
-                _copy_into(self.static, t._state())
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+        # a trainer and its RoundGraph form a reference cycle, so an earlier
+        # trainer's graph and pinned buffers are freed by the cyclic
+        # collector, and a free that lands inside this capture invalidates
+        # it: collect first, and keep the collector off until the capture
+        # ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    variance = t.run_round(round_idx)
+                    self.outputs = (variance, t.last_fault_metrics, t.last_defense_metrics,
+                                    t.last_service_metrics, t.last_forensic_metrics)
+                    _copy_into(self.static, t._state())
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+        finally:
+            if collecting:
+                gc.enable()
         graph.instantiate()
         torch.cuda.synchronize(dev)
         self.replay_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}

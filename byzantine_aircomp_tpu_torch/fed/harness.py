@@ -173,7 +173,8 @@ def run_title(cfg: FedConfig) -> str:
 # as far as the port has the fields.  ``rounds`` is the horizon that
 # ``inherit`` exists to extend; the writer thread and the dispatch prefetch
 # change when bytes reach the disk and the host folds, not the records; the
-# observability knobs add outputs only (JAX :224-236)
+# observability knobs, live telemetry among them, add outputs only (JAX
+# :224-237)
 _HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds", "async_writer",
               "dispatch_prefetch") + FedConfig._OBS_FIELDS
 
@@ -466,6 +467,11 @@ def run_with_trainer(
     the ``memory`` block (the card's peak against :func:`modeled_peak`).
     ``--trace on`` wraps the run in a ``run`` span.  ``--log-file`` tees
     and ``--quiet`` silences the log for the run's duration.
+    ``--metrics``/``--metrics-port``/``--alerts`` fold the same events into
+    a metrics registry, serve it (``obs.exporter``, closed with the sinks)
+    and evaluate the alert rules after each round's events; the run ends
+    with the alert summary and a ``metrics_snapshot`` event
+    (:func:`_telemetry_epilogue`).
 
     With the writer thread on (:func:`..obs.resolve_async`) each
     checkpoint is copied to the host here and written by the writer as one
@@ -480,6 +486,14 @@ def run_with_trainer(
     writer = obs_lib.WriterThread() if obs_lib.resolve_async(cfg) else None
     obs = obs_lib.from_config(cfg, ckpt_title(cfg), writer=writer)
     try:
+        if cfg.metrics_port > 0:
+            # up before the trainer is built, so /metrics answers during the
+            # set-up and the capture; obs.close() below shuts it down on run
+            # end and crash alike.  A failed bind raises here
+            obs.exporter = obs_lib.MetricsExporter(
+                obs.registry, port=cfg.metrics_port,
+                health_fn=obs.metrics_sink.health).start()
+            log(f"Serving /metrics and /healthz on port {obs.exporter.port}")
         if obs.traced:
             # the trace root: every span of the run nests under this one
             with obs.span("run", title=ckpt_title(cfg)):
@@ -600,6 +614,27 @@ def _retrace(trainer: Trainer, rounds_run: int):
     if rounds_run and not trainer.dispatch_graph[0]:
         retrace.build("round_fn")
     return retrace
+
+
+def _telemetry_epilogue(cfg: FedConfig, obs) -> None:
+    """The run's end under ``--metrics``/``--alerts`` (JAX
+    ``fed/harness.py:960-983``): one last rule evaluation (the retrace and
+    memory gauges exist only after the run_end fold), the alert summary on
+    the log, and the registry's snapshot as a ``metrics_snapshot`` event."""
+    last_round = max(cfg.rounds - 1, 0)
+    alert_summary = None
+    if obs.alert_engine is not None:
+        alert_summary = obs.alert_engine.finalize(last_round, obs.sink)
+        fired = {name: info["fired"] for name, info in alert_summary["rules"].items()
+                 if info["fired"]}
+        if fired:
+            log(f"ALERTS: {alert_summary['total_fired']} fired "
+                f"(worst severity {alert_summary['worst']}): {fired}")
+        else:
+            log("ALERTS: none fired")
+    if obs.registry is not None:
+        obs.emit("metrics_snapshot", round=last_round, metrics=obs.registry.snapshot(),
+                 alerts=alert_summary)
 
 
 def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
@@ -729,6 +764,7 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
             final_val_loss=paths["valLossPath"][-1],
             memory=_memory_block(cfg, trainer, baseline),
         )
+    _telemetry_epilogue(cfg, obs)
     record = build_record(
         cfg,
         paths,

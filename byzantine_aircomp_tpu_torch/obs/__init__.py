@@ -17,15 +17,18 @@ The port of the core of ``byzantine_aircomp_tpu/obs/``:
 * :mod:`.profile` — ``torch.profiler`` traces and memory watermarks
 * :mod:`.ledger`  — the perf ledger with noise-robust verdicts
 * :mod:`.writer`  — the writer thread and :class:`AsyncSink`
+* :mod:`.metrics` — the live metrics registry, fed by the event stream
+* :mod:`.exporter` — Prometheus-text ``/metrics`` and ``/healthz``
+* :mod:`.alerts`  — declarative SLO rules evaluated each round on the
+  registry
 
 :class:`Observability` is the façade the harness and the trainer use:
 ``obs.span(...)`` / ``obs.round(...)`` / ``obs.emit(...)``.  The disabled
 path is :data:`NULL` (a null sink): with ``--obs-dir`` / ``--obs-stdout``
 unset no file is touched, and the records, params and random streams are
-bitwise those of a run without this package.  The metrics registry, its
-sink, the alert engine and the exporter of the JAX façade exist as
-``None`` attributes here; its ``span_event`` and ``trace_root``, which
-serve the JAX package's serving layer, are not ported yet.
+bitwise those of a run without this package.  The JAX façade's
+``span_event`` and ``trace_root``, which serve the JAX package's serving
+layer, are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,8 +43,11 @@ from .events import (  # noqa: F401
     make_event,
     validate_event,
 )
+from .alerts import AlertEngine, load_rules  # noqa: F401
+from .exporter import MetricsExporter  # noqa: F401
 from .forensics import FlightRecorder, emit_round_flags  # noqa: F401
 from .ledger import PerfLedger, config_key, robust_stats  # noqa: F401
+from .metrics import LabeledRegistry, MetricsRegistry, MetricsSink  # noqa: F401
 from .profile import (  # noqa: F401
     NULL_PROFILER,
     Profiler,
@@ -63,17 +69,24 @@ from .writer import AsyncSink, WriterThread, resolve_async  # noqa: F401
 
 
 class Observability:
-    """Façade bundling a sink with the span timer and round collector."""
+    """Façade bundling a sink with the span timer and round collector.
 
-    def __init__(self, sink: EventSink) -> None:
+    The live-telemetry attachments are host-side only: ``registry`` and
+    ``metrics_sink`` when ``--metrics`` is on (the sink rides in the fan-out,
+    synchronously), ``alert_engine`` when ``--alerts`` is set (evaluated
+    after every round event, on every path: eager, dispatched, graphed),
+    and ``exporter`` when the harness opened a scrape port (closed here, so
+    run end and crash both release it)."""
+
+    def __init__(self, sink: EventSink, registry=None, metrics_sink=None,
+                 alert_engine=None) -> None:
         self.sink = sink
         self.enabled = not isinstance(sink, NullSink)
         self._spans = SpanTimer(sink)
         self.collector = Collector(sink)
-        # the JAX façade's live-telemetry attachments, not ported yet
-        self.registry = None
-        self.metrics_sink = None
-        self.alert_engine = None
+        self.registry = registry
+        self.metrics_sink = metrics_sink
+        self.alert_engine = alert_engine
         self.exporter = None
 
     @property
@@ -92,8 +105,15 @@ class Observability:
 
     def round(self, round_idx: int, **metrics) -> None:
         self.collector.round_event(round_idx, **metrics)
+        if self.alert_engine is not None:
+            # after the round event folded into the registry, so a rule at
+            # round r sees the state through r
+            self.alert_engine.evaluate(round_idx, self.sink)
 
     def close(self) -> None:
+        if self.exporter is not None:
+            self.exporter.close()
+            self.exporter = None
         self.sink.close()
 
 
@@ -111,7 +131,12 @@ def events_path(obs_dir: str, title: str) -> str:
 def from_config(cfg, title: str, writer: Optional[WriterThread] = None) -> Observability:
     """The run's Observability (:data:`NULL` when no obs knob is set).
     ``writer`` (the writer thread) moves the JSONL and stdout sinks behind
-    :class:`AsyncSink`, so their appends leave the round loop."""
+    :class:`AsyncSink`, so their appends leave the round loop.
+    ``--metrics-port`` and ``--alerts`` imply the metrics registry; the
+    registry implies nothing else (a metrics-only run writes no file).  The
+    metrics sink stays synchronous, outside the writer: the alert engine
+    reads the registry right after each round event, in
+    :meth:`Observability.round`."""
     sinks = []
     if getattr(cfg, "obs_dir", ""):
         sinks.append(JsonlSink(events_path(cfg.obs_dir, title),
@@ -120,9 +145,18 @@ def from_config(cfg, title: str, writer: Optional[WriterThread] = None) -> Obser
         sinks.append(StdoutSink())
     if writer is not None:
         sinks = [AsyncSink(s, writer) for s in sinks]
+    registry = metrics_sink = alert_engine = None
+    if cfg.metrics == "on" or cfg.metrics_port > 0 or cfg.alerts != "off":
+        registry = MetricsRegistry()
+        metrics_sink = MetricsSink(registry)
+        sinks.append(metrics_sink)
+        if cfg.alerts != "off":
+            alert_engine = AlertEngine(load_rules(cfg.alerts), registry)
     if not sinks:
         return NULL
-    out = Observability(sinks[0] if len(sinks) == 1 else MultiSink(sinks))
+    out = Observability(sinks[0] if len(sinks) == 1 else MultiSink(sinks),
+                        registry=registry, metrics_sink=metrics_sink,
+                        alert_engine=alert_engine)
     # output-only: spans mint ids, the training program is untouched
     out.traced = getattr(cfg, "trace", "off") == "on"
     return out

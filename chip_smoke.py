@@ -181,6 +181,18 @@
    are printed, and one ``platform: "cuda"`` ledger row per measure goes
    to ``chiprun_out/perf_ledger_cuda.jsonl``;
 
+   live telemetry (``run_telemetry``): (z12) z9's config and z11's, each
+   run off, on, on, off, on = the stream and ``--metrics on
+   --metrics-port <a free port> --alerts
+   byzantine_aircomp_tpu_torch/tools/alert_rules.json``, off = the stream
+   alone: records and params bitwise, the
+   kernel launched every iteration, ``/metrics`` and ``/healthz`` scraped
+   live after two rounds (the round counter advancing), no exporter
+   thread or port left after the run, the registry's round count and the
+   alert summary in the stream's ``metrics_snapshot``, equal to a replay
+   of the stream; host ms a round on against off, the scrape's ms and
+   bytes and the registry's series are printed and go to the ledger;
+
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
    ``--fault`` round of those rules takes) beside the kernel's.
@@ -2420,6 +2432,48 @@ def _flags_by_round(events):
             for r in sorted({e["round"] for e in events if e["kind"] == "client_flag"})}
 
 
+def _drive(torch, kernels, harness, label, cfg, kernel, ds, on_round=None):
+    """One run on the card, the launch counts set to 0 just before it and
+    read just after: fails unless ``kernel`` launched every iteration and
+    the params are finite.  ``on_round(r, trainer)`` runs after each
+    round's (dispatch's) fold, events and flight record.  Returns
+    (trainer, record, launches, wall seconds)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer, record = harness.run_with_trainer(cfg, device="cuda", dataset=ds,
+                                               on_round=on_round)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if kernel is not None and launches[kernel] < cfg.rounds * cfg.display_interval:
+        _fail(f"run {label}: {kernel} launched {launches[kernel]} times in "
+              f"{cfg.rounds * cfg.display_interval} iterations")
+    if not bool(torch.isfinite(trainer.flat_params).all()):
+        _fail(f"run {label}: non-finite params")
+    return trainer, record, launches, wall
+
+
+def _stamper(stamps):
+    """An ``on_round`` that appends (rounds done, host clock) to ``stamps``
+    (None: no callback)."""
+    return None if stamps is None else (
+        lambda r, _t: stamps.append((r, time.perf_counter())))
+
+
+def _round_seconds(stamps, window, r):
+    """Host seconds per round between successive ``on_round`` stamps (the
+    round or dispatch of ``r`` rounds, its eval, fold, events and flight
+    record), past the first dispatch (its set-up or capture) and away from
+    the rounds in ``window`` (the profiler's, or those a scrape follows)."""
+    # a stamp comes before the profiler's round_end of its dispatch,
+    # which exports the window's trace: the next interval holds it
+    return [(t1 - t0) / (r1 - r0) for (r0, t0), (r1, t1) in zip(stamps, stamps[1:])
+            if not any(i in window for i in range(r0 - r, r1))]
+
+
 def run_obs(torch, kernels, harness, FedConfig, card, cache_dir):
     """(z9)-(z11) and the memory model on the card.
 
@@ -2465,36 +2519,9 @@ def run_obs(torch, kernels, harness, FedConfig, card, cache_dir):
     t_all = time.perf_counter()
 
     def drive(label, cfg, kernel, ds, stamps=None):
-        """One run; ``stamps`` (a list) gets (rounds done, host clock)
-        after each round's (dispatch's) fold, events and flight record."""
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        kernels.reset_launches()
-        stamp = None if stamps is None else (
-            lambda r, _t: stamps.append((r, time.perf_counter())))
-        t0 = time.perf_counter()
-        trainer, record = harness.run_with_trainer(cfg, device="cuda", dataset=ds,
-                                                   on_round=stamp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        if kernel is not None and launches[kernel] < cfg.rounds * cfg.display_interval:
-            _fail(f"run {label}: {kernel} launched {launches[kernel]} times in "
-                  f"{cfg.rounds * cfg.display_interval} iterations")
-        if not bool(torch.isfinite(trainer.flat_params).all()):
-            _fail(f"run {label}: non-finite params")
-        return trainer, record, launches, wall
+        return _drive(torch, kernels, harness, label, cfg, kernel, ds, _stamper(stamps))
 
-    def round_seconds(stamps, window, r):
-        """Host seconds per round between successive ``on_round`` stamps
-        (the round or dispatch of ``r`` rounds, its eval, fold, events and
-        flight record), past the first dispatch (its set-up or capture) and
-        away from the profiler's ``window`` of rounds."""
-        # a stamp comes before the profiler's round_end of its dispatch,
-        # which exports the window's trace: the next interval holds it
-        return [(t1 - t0) / (r1 - r0) for (r0, t0), (r1, t1) in zip(stamps, stamps[1:])
-                if not any(i in window for i in range(r0 - r, r1))]
+    round_seconds = _round_seconds
 
     def pair(label, kw, obs_kw, kernel, ds="mnist"):
         """The run with ``obs_kw`` beside its twin without: records (but
@@ -2690,6 +2717,222 @@ def run_obs(torch, kernels, harness, FedConfig, card, cache_dir):
     print(f"runs z9-z11 and the memory cells added {out['wall_seconds']:.1f}s [{card}]")
     return out
 
+# the telemetry phase: z9's and z11's configs with --metrics on, a scrape
+# port and the repo's rules file, each beside a twin with them off; the
+# rounds after whose stamp the run is scraped
+TELEMETRY_RUNS = (
+    ("z9_gm2_K1000_eager", dict(OBS_Z9, rounds=7), "weiszfeld_step", (3, 7)),
+    ("z11_gm_var_K50_graphed", OBS_Z11, "aircomp_weiszfeld_step", (4, 8)),
+)
+ALERT_RULES = "byzantine_aircomp_tpu_torch/tools/alert_rules.json"
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port, path):
+    """(status, body, ms) of one GET on the local exporter."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body.decode(), (time.perf_counter() - t0) * 1e3
+
+
+def _replay_registry(obs_lib, events, rules):
+    """A finished stream folded into a fresh registry as the harness folds
+    it live: each event into the metrics sink, the alert engine after each
+    round event and once more after run_end, up to the run's
+    metrics_snapshot.  Returns (snapshot, finalize summary)."""
+    registry = obs_lib.MetricsRegistry()
+    sink = obs_lib.MetricsSink(registry)
+    engine = obs_lib.AlertEngine(obs_lib.load_rules(rules), registry)
+    last_round = max(next(e for e in events if e["kind"] == "run_start")["rounds"] - 1, 0)
+    summary = None
+    for e in events:
+        if e["kind"] == "metrics_snapshot":
+            break
+        if e["kind"] == "alert":
+            continue
+        sink.emit(e)
+        if e["kind"] == "round":
+            engine.evaluate(e["round"], sink)
+        elif e["kind"] == "run_end":
+            summary = engine.finalize(last_round, sink)
+    return registry.snapshot(), summary
+
+
+def run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z12) live telemetry on the main path, eager and graphed.
+
+    z9's config (gm2 K=1000, eager, 7 rounds) and z11's (gm --var K=50,
+    graphed R=2, 8 rounds), each run four times in turns: off, on, on, off.
+    On is the stream and ``--metrics on --metrics-port <a free port>
+    --alerts`` the repo's rules file; off is the stream alone.  Each on run
+    against the first off run: records (but the rate) and params bitwise;
+    every run launches the kernel every iteration (counts set to 0 before
+    each run and read after); ``/metrics`` and ``/healthz`` scraped live
+    after two rounds' stamps (the round counter at those rounds, healthy,
+    the last round one less); after the run no exporter thread is left and
+    the port refuses; the stream's ``metrics_snapshot`` counts the rounds
+    run, carries the alert summary (the progress rule fired, the memory
+    watermark rule did not), and equals a replay of the stream through a
+    fresh registry and engine.  Printed: host ms per round between
+    ``on_round`` stamps, on against off (the intervals a scrape follows
+    left out on both sides), the scrapes' ms and bytes and the registry's
+    series; each goes to the ledger as a ``platform: "cuda"`` row."""
+    import threading
+
+    from byzantine_aircomp_tpu_torch import obs as obs_lib
+    from byzantine_aircomp_tpu_torch.data import datasets
+
+    root = os.path.join(cache_dir, "telemetry")
+    if os.path.isdir(root):
+        import shutil
+
+        shutil.rmtree(root)
+    rules = os.path.join(os.path.dirname(os.path.abspath(__file__)), ALERT_RULES)
+    ds = datasets.load("mnist")
+    ledger = obs_lib.PerfLedger(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             obs_lib.ledger.DEFAULT_LEDGER_PATH))
+    name, power = [x.strip() for x in card.split(",")][:2]
+    out = {}
+    t_all = time.perf_counter()
+
+    def one(label, kw, kernel, scrape_at, telemetry):
+        """One run; returns its params, record, launches, the host seconds
+        of each round away from a scrape, its scrapes and its stream."""
+        stamps, scrapes = [], []
+        port = _free_port()
+
+        def on_round(r, _t):
+            stamps.append((r, time.perf_counter()))
+            if telemetry and r in scrape_at:
+                status, body, ms = _scrape(port, "/metrics")
+                h_status, health, h_ms = _scrape(port, "/healthz")
+                total = [float(line.split()[-1]) for line in body.splitlines()
+                         if line.startswith("aircomp_rounds_total ")]
+                scrapes.append(dict(round=r, status=status, rounds_total=total, ms=ms,
+                                    bytes=len(body.encode()), healthz_status=h_status,
+                                    healthz=json.loads(health), healthz_ms=h_ms))
+
+        extra = dict(metrics="on", metrics_port=port, alerts=rules) if telemetry else {}
+        cfg = FedConfig(cache_dir=os.path.join(root, label),
+                        obs_dir=os.path.join(root, label + "_stream"), **kw, **extra)
+        trainer, record, launches, _ = _drive(torch, kernels, harness, label, cfg, kernel,
+                                              ds, on_round)
+        params = trainer.flat_params.clone()
+        graphed = trainer.round_graph is not None and trainer.round_graph.captures == 1
+        del trainer
+        if graphed != (cfg.rounds_per_dispatch > 1):
+            _fail(f"run {label}: graphed {graphed}")
+        secs = _round_seconds(stamps, range(0), cfg.rounds_per_dispatch)
+        secs = [x for ((r0, _), _), x in zip(zip(stamps, stamps[1:]), secs)
+                if r0 not in scrape_at]
+        events, _ = _obs_stream(cfg.obs_dir)
+        if telemetry:
+            want = [dict(round=r, status=200, rounds_total=[float(r)], healthz_status=200,
+                         last_round=r - 1, ok=True) for r in scrape_at]
+            seen = [dict(round=x["round"], status=x["status"],
+                         rounds_total=x["rounds_total"], healthz_status=x["healthz_status"],
+                         last_round=x["healthz"]["last_round"], ok=x["healthz"]["ok"])
+                    for x in scrapes]
+            if seen != want:
+                _fail(f"run {label}: live scrapes {seen}, want {want}")
+            if any(t.name == "aircomp-metrics-exporter" for t in threading.enumerate()):
+                _fail(f"run {label}: the exporter thread outlived the run")
+            try:
+                _scrape(port, "/metrics")
+                _fail(f"run {label}: the port still answers after the run")
+            except OSError:
+                pass
+        return params, record, launches, secs, scrapes, events, cfg
+
+    for label, kw, kernel, scrape_at in TELEMETRY_RUNS:
+        runs = [one(f"{label}_{i}_{'on' if on else 'off'}", kw, kernel, scrape_at, on)
+                for i, on in enumerate((False, True, True, False))]
+        params0, record0 = runs[0][:2]
+        for params, record, *_ in runs[1:]:
+            same, params_equal = _same_record(record, record0), torch.equal(params, params0)
+            if not (same and params_equal):
+                _fail(f"run {label}: a run differs from the first off run (record {same}, "
+                      f"params {params_equal})")
+        scrapes = runs[1][4] + runs[2][4]
+        summaries, series = [], None
+        for *_, events, cfg in runs[1:3]:
+            for e in events:
+                obs_lib.validate_event(e)
+            snaps = [e for e in events if e["kind"] == "metrics_snapshot"]
+            if len(snaps) != 1:
+                _fail(f"run {label}: {len(snaps)} metrics_snapshot events")
+            snap = snaps[0]
+            rounds_total = snap["metrics"]["aircomp_rounds_total"]["series"][0]["value"]
+            summary = snap["alerts"]
+            if rounds_total != cfg.rounds or summary is None:
+                _fail(f"run {label}: registry counted {rounds_total} rounds of {cfg.rounds}, "
+                      f"alert summary {summary}")
+            if (not summary["rules"]["round_progress"]["fired"]
+                    or summary["rules"]["hbm_watermark"]["fired"]):
+                # the watermark rule reads the run's own peak, which run_obs
+                # holds within [0.5, 2.0] of the model
+                _fail(f"run {label}: the progress rule never fired or the watermark "
+                      f"rule fired: {summary}")
+            replay, replay_summary = _replay_registry(obs_lib, events, rules)
+            if replay != snap["metrics"] or replay_summary != summary:
+                _fail(f"run {label}: the live registry differs from the stream's replay")
+            summaries.append(summary)
+            series = (sum(len(f["series"]) for f in snap["metrics"].values()),
+                      len(snap["metrics"]))
+        alerts = [(e["rule"], e["round"], e["firing"]) for e in runs[1][5]
+                  if e["kind"] == "alert"]
+        on, off = runs[1][3] + runs[2][3], runs[0][3] + runs[3][3]
+        entry = dict(
+            config=dict(kw, metrics="on", alerts=ALERT_RULES), order="off, on, on, off",
+            records_and_params_bitwise=True, launches=[r[2] for r in runs],
+            scrapes=scrapes, alerts=alerts, alert_summaries=summaries,
+            registry_series=series[0], registry_families=series[1],
+            round_seconds_telemetry_on=on, round_seconds_telemetry_off=off,
+            round_seconds_telemetry_on_mean=sum(on) / len(on),
+            round_seconds_telemetry_off_mean=sum(off) / len(off), card=card)
+        out[label] = entry
+        print(f"run z12 {label} (off, on, on, off): records and params bitwise; scrapes "
+              f"at rounds {[x['round'] for x in scrapes]} read aircomp_rounds_total "
+              f"{[x['rounds_total'] for x in scrapes]} in "
+              f"{[round(x['ms'], 3) for x in scrapes]} ms, "
+              f"{[x['bytes'] for x in scrapes]} bytes, /healthz in "
+              f"{[round(x['healthz_ms'], 3) for x in scrapes]} ms; registry {series[0]} "
+              f"series in {series[1]} families; alerts {alerts}; host ms per round on: "
+              f"mean {entry['round_seconds_telemetry_on_mean'] * 1e3:.2f} of "
+              f"{[round(x * 1e3, 2) for x in on]}, off: mean "
+              f"{entry['round_seconds_telemetry_off_mean'] * 1e3:.2f} of "
+              f"{[round(x * 1e3, 2) for x in off]}; launches "
+              f"{[r[2].get(kernel) for r in runs]} [{card}]")
+        key = obs_lib.config_key(dict(k=kw["honest_size"] + kw["byz_size"], b=kw["byz_size"],
+                                      agg=kw["agg"], attack=kw["attack"], model="MLP",
+                                      dataset="mnist"))
+        for side in ("on", "off"):
+            ledger.append(f"round_seconds_telemetry_{side}_{label}",
+                          entry[f"round_seconds_telemetry_{side}_mean"], unit="s",
+                          platform="cuda", key=key, card=name, power_limit=power,
+                          samples=entry[f"round_seconds_telemetry_{side}"])
+        for x in scrapes:
+            ledger.append(f"scrape_ms_{label}", x["ms"], unit="ms", platform="cuda", key=key,
+                          card=name, power_limit=power, bytes=x["bytes"], round=x["round"])
+        ledger.append(f"registry_series_{label}", series[0], unit="series", platform="cuda",
+                      key=key, card=name, power_limit=power)
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"run z12 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
 
 def main():
     import torch
@@ -2728,6 +2971,7 @@ def main():
     graphed_runs = run_graphed(torch, kernels, harness, FedConfig, card, cache_dir)
     graphed_runs["j3"] = run_j3(torch, kernels, harness, FedConfig, card, cache_dir)
     obs_runs = run_obs(torch, kernels, harness, FedConfig, card, cache_dir)
+    telemetry_runs = run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -2762,6 +3006,8 @@ def main():
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row.get("library_ms"),
         ))
+    if sorted(k["name"] for k in line) != sorted(sources):
+        _fail(f"the kernels line lists {[k['name'] for k in line]}")
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -2769,7 +3015,7 @@ def main():
                        build_seconds=build_s, kernel_rows=rows,
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
-                       obs_runs=obs_runs,
+                       obs_runs=obs_runs, telemetry_runs=telemetry_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

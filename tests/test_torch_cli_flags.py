@@ -69,6 +69,9 @@ def test_new_flags_parse_like_the_jax_cli():
     (["--defense-min-flagged", "2"], "defense_min_flagged", 2),
     (["--defense-floor", "1.2"], "defense_floor", 1.2),
     (["--defense-leak", "0.01"], "defense_leak", 0.01),
+    (["--metrics", "on"], "metrics", "on"),
+    (["--metrics-port", "9100"], "metrics_port", 9100),
+    (["--alerts", "default"], "alerts", "default"),
 ])
 def test_each_flag_reaches_its_field(argv, field, value):
     """Each flag sets its field, as the JAX CLI's does."""

@@ -772,6 +772,44 @@ def test_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
         assert launched[kernel] >= 2 * per_round
 
 
+def test_capture_runs_with_the_cyclic_collector_off(cuda):
+    """A trainer and its RoundGraph form a reference cycle, so an abandoned
+    graphed trainer is freed by the cyclic collector, and a free inside
+    another trainer's capture invalidates it: the capture collects first
+    and runs with the collector off, and the run stays bitwise eager."""
+    import gc
+    import weakref
+
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(agg="median", noise_var=1e-2, attack="classflip", honest_size=40,
+                    byz_size=10, rounds=2, rounds_per_dispatch=2, display_interval=5,
+                    eval_train=False)
+    first = Trainer(cfg, dataset=ds, device="cuda")
+    first.run_rounds_stacked(0, 2)
+    gone = weakref.ref(first)
+    del first
+    graphed = Trainer(cfg, dataset=ds, device="cuda")
+    seen, run_round = [], graphed.run_round
+
+    def watched(r):
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled(),
+                     gone() is None))
+        return run_round(r)
+
+    graphed.run_round = watched
+    outs = graphed.run_rounds_stacked(0, 2)
+    assert gc.isenabled()
+    assert [s for s in seen if s[0]] == [(True, False, True)]
+    eager = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+    want = eager.run_rounds_stacked(0, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(outs.variances, want.variances)
+    assert torch.equal(graphed.flat_params, eager.flat_params)
+
+
 def test_one_capture_per_trainer_across_dispatches_and_an_alignment(cuda, tmp_path):
     """A run resumed at round 3 under R=2 opens with a one-round alignment
     dispatch: it and the next dispatch replay the one graph, as does a
@@ -1007,3 +1045,50 @@ def test_whole_run_profile_of_a_graphed_run_leaves_the_capture_out(cuda, tmp_pat
                if ev.get("cat") == "kernel")
     assert t.round_graph.captures == 1
     assert harness._retrace(t, cfg.rounds).snapshot()["multi_round_fn"] == 1
+
+
+@pytest.mark.parametrize("rd", [1, 2], ids=["eager", "graphed"])
+def test_telemetry_on_the_card_serves_live_and_leaves_the_run_bitwise(cuda, tmp_path, rd):
+    """gm2 K=50 with ``--metrics-port`` (a free port) and ``--alerts
+    default``, eager and graphed R=2: ``/metrics`` and ``/healthz`` scraped
+    after each round's (dispatch's) fold show the round counter; the
+    exporter's thread ends with the run and its port refuses; records and
+    params bitwise the run without telemetry, with the kernel launched."""
+    import dataclasses
+    import socket
+    import threading
+    import urllib.request
+
+    from byzantine_aircomp_tpu_torch.fed import harness
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    seen = []
+
+    def scrape(r, _t):
+        url = f"http://127.0.0.1:{port}"
+        body = urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
+        total = [float(line.split()[-1]) for line in body.splitlines()
+                 if line.startswith("aircomp_rounds_total ")]
+        health = urllib.request.urlopen(url + "/healthz", timeout=10).read().decode()
+        seen.append((r, total, '"ok": true' in health))
+
+    ds = _dispatch_ds()
+    cfg = _forensics_cfg(defense="off", forensics="off", forensics_top=8, defense_warmup=5,
+                         rounds_per_dispatch=rd, cache_dir=str(tmp_path / "off"))
+    plain_t, plain = harness.run_with_trainer(cfg, device="cuda", dataset=ds)
+    on = dataclasses.replace(cfg, metrics_port=port, alerts="default",
+                             cache_dir=str(tmp_path / "on"))
+    kernels.reset_launches()
+    t, record = harness.run_with_trainer(on, device="cuda", dataset=ds, on_round=scrape)
+    assert kernels.LAUNCHES["weiszfeld_step"] >= cfg.rounds * cfg.display_interval
+    assert (t.round_graph is not None) == (rd > 1)
+    assert seen == [(r, [float(r)], True) for r in range(rd, cfg.rounds + 1, rd)]
+    assert not any(th.name == "aircomp-metrics-exporter" for th in threading.enumerate())
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5)
+    assert torch.equal(t.flat_params, plain_t.flat_params)
+    for key in plain:
+        if key != "roundsPerSec":
+            assert record[key] == plain[key] or _bits_equal(record[key], plain[key]), key

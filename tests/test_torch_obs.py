@@ -429,10 +429,10 @@ def test_validation_accepts_what_jax_accepts_and_the_hash_holds(kw):
 def test_obs_fields_are_the_jax_fields_with_jax_defaults():
     jax_fields = {f.name: f.default for f in dataclasses.fields(JaxFedConfig)}
     port = {f.name: f.default for f in dataclasses.fields(FedConfig)}
-    assert len(FedConfig._OBS_FIELDS) == 12
+    assert len(FedConfig._OBS_FIELDS) == 15
     for name in FedConfig._OBS_FIELDS:
         assert port[name] == jax_fields[name], name
-    assert len(set(jax_fields) & set(port)) == 99
+    assert len(set(jax_fields) & set(port)) == 102
 
 
 ARGV = ["--profile-dir", "pd", "--profile-rounds", "2:5", "--hbm-warn-factor", "3.5",
