@@ -55,6 +55,18 @@ run's duration, and ``--alerts default|rules.json`` evaluates SLO rules
 each round (both imply ``--metrics on``); the run ends with the alert
 summary on the log and a ``metrics_snapshot`` event.
 
+The implementation knobs: ``--agg-impl auto|pallas|xla`` (``pallas`` the
+hand-written CUDA kernels, ``xla`` their plain torch versions on any
+device, ``auto`` the kernels on the card and the plain versions on the
+CPU; ``pallas`` with ``--device cpu`` is refused), ``--fused-epilogue
+auto|on|off`` (fold the channel into the selection's read),
+``--stack-dtype f32|bf16`` (the dtype of the stack the rule reads) and
+``--prng-impl threefry`` (JAX's ``rbg`` and ``unsafe_rbg`` are refused).
+``--backend ref`` runs the NumPy referee (``backends/ref_trainer.py``)
+instead of the torch trainer, on no device.  ``--preset NAME`` starts from
+a named configuration (``presets.py``); a flag present on the command line
+overrides the preset, even at its default value.
+
 The reference's own flags are all here: ``--opt`` (only ``SGD``),
 ``--agg``, ``--attack`` (also ``name@R``, an onset at round R), ``--var``,
 ``--inherit``, ``--mark``, ``--use-gpu``, ``--K``, ``--B``.  ``--inherit``
@@ -72,66 +84,11 @@ from typing import Optional, Sequence
 from .fed.config import FedConfig
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser("byzantine_aircomp_tpu_torch")
-    # the reference surface (MNIST_Air_weight.py:16-28)
-    p.add_argument("--opt", type=str, default="SGD", choices=["SGD"], help="optimizer")
-    p.add_argument("--agg", type=str, default="gm", help="aggregator name")
-    p.add_argument("--attack", type=str, default=None,
-                   help="attack name; name@R attacks from round R on")
-    p.add_argument("--var", type=float, default=None, help="channel noise variance")
-    p.add_argument("--inherit", action="store_true",
-                   help="resume from the checkpoint under --checkpoint-dir")
-    p.add_argument("--mark", type=str, default="", help="mark on title")
-    p.add_argument("--use-gpu", type=str, default=None,
-                   help="true (default): run on CUDA; false: run on the CPU, "
-                        "like --device cpu")
-    p.add_argument("--K", type=int, default=None, help="number of total devices")
-    p.add_argument("--B", type=int, default=None, help="number of Byzantine devices")
-    p.add_argument("--rounds", type=int, default=100)
-    p.add_argument("--interval", type=int, default=10, help="displayInterval")
-    p.add_argument("--batch-size", type=int, default=50)
-    p.add_argument("--gamma", type=float, default=1e-2)
-    p.add_argument("--weight-decay", type=float, default=0.0)
-    p.add_argument("--local-steps", type=int, default=1,
-                   help="local SGD steps per client per iteration (1 = reference FedSGD)")
-    p.add_argument("--fedprox-mu", type=float, default=0.0,
-                   help="FedProx proximal coefficient (anchors client drift when "
-                        "--local-steps > 1; 0 = plain FedAvg/FedSGD)")
-    p.add_argument("--server-opt", choices=["none", "momentum", "adam"], default="none",
-                   help="server optimizer over the pseudo-gradient (FedAvgM / FedAdam)")
-    p.add_argument("--server-lr", type=float, default=1.0)
-    p.add_argument("--server-momentum", type=float, default=0.9)
-    p.add_argument("--participation", type=float, default=1.0,
-                   help="fraction of clients active per iteration (stratified "
-                        "honest/Byzantine draw; 1.0 = all, the reference's behavior)")
-    p.add_argument("--client-momentum", type=float, default=0.0,
-                   help="client-side momentum beta (needs --local-steps 1); 0 = off")
-    p.add_argument("--bucket-size", type=int, default=1,
-                   help="server-side bucketing: aggregate the means of random "
-                        "s-client buckets; 1 = off")
-    p.add_argument("--attack-param", type=float, default=None,
-                   help="scalar attack magnitude (alie z / ipm eps / gaussian "
-                        "sigma / minmax+minsum fixed gamma)")
-    p.add_argument("--seed", type=int, default=2021)
-    p.add_argument("--cache-dir", type=str, default="",
-                   help="where the pickled record goes (default "
-                        "./{DATASET}_Air_weight_torch/)")
-    eval_group = p.add_mutually_exclusive_group()
-    eval_group.add_argument("--eval-train", dest="eval_train", action="store_true",
-                            default=True, help="evaluate the train set every round "
-                            "(the default)")
-    eval_group.add_argument("--no-eval-train", dest="eval_train", action="store_false",
-                            help="skip the train-set eval (its paths hold zeros)")
-    p.add_argument("--checkpoint-dir", type=str, default="",
-                   help="checkpoint every round here (and --inherit from here)")
-    p.add_argument("--dataset", type=str, default="mnist")
-    p.add_argument("--model", type=str, default="MLP")
-    p.add_argument("--resnet-width", type=int, default=64,
-                   help="ResNet-18 stem width (64 = standard; a multiple of 8)")
-    p.add_argument("--remat", action="store_true",
-                   help="recompute residual-block activations in the backward "
-                        "pass (less activation memory for more FLOPs)")
+def add_knob_flags(p) -> None:
+    """The attack and defense magnitudes, the data split, the training
+    options, the fault channel, the defense, cohort streaming, service
+    rounds and multi-round dispatch: shared by the run CLI and the sweep
+    (JAX ``cli.py:31``, without ``--pop-shards``, which is not ported)."""
     p.add_argument("--partition", choices=["contiguous", "dirichlet"],
                    default="contiguous",
                    help="client data split (dirichlet = label-skewed non-IID, "
@@ -143,6 +100,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-client quantity skew: 'zipf:<s>' re-cuts the "
                         "(possibly Dirichlet-permuted) sample stream into "
                         "Zipf(s)-proportioned shards (zipf:0 = the equal cut)")
+    p.add_argument("--participation", type=float, default=1.0,
+                   help="fraction of clients active per iteration (stratified "
+                        "honest/Byzantine draw; 1.0 = all, the reference's behavior)")
+    p.add_argument("--client-momentum", type=float, default=0.0,
+                   help="client-side momentum beta (needs --local-steps 1); 0 = off")
+    p.add_argument("--bucket-size", type=int, default=1,
+                   help="server-side bucketing: aggregate the means of random "
+                        "s-client buckets; 1 = off")
+    p.add_argument("--cohort-size", type=int, default=0,
+                   help="stream the round over client chunks of this size instead "
+                        "of the resident [K, d] stack (peak memory O(cohort*d)); "
+                        "must divide the honest and Byzantine sizes; 0 = resident")
+    p.add_argument("--cohort-quantile", choices=["exact", "sketch"], default="exact",
+                   help="streamed median/trimmed_mean: exact key bisection (32 "
+                        "counting passes) or a mergeable histogram sketch")
+    p.add_argument("--cohort-sketch-bins", type=int, default=512,
+                   help="histogram resolution of the quantile sketch")
+    p.add_argument("--attack-param", type=float, default=None,
+                   help="scalar attack magnitude (alie z / ipm eps / gaussian "
+                        "sigma / minmax+minsum fixed gamma)")
     p.add_argument("--krum-m", type=int, default=None,
                    help="multi-Krum selection count (default: honest size)")
     p.add_argument("--clip-tau", type=float, default=None,
@@ -212,15 +189,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "pins at 1 (0 disables the floor)")
     p.add_argument("--defense-leak", type=float, default=0.005,
                    help="per-iteration decay rate of the escalation budget")
-    p.add_argument("--cohort-size", type=int, default=0,
-                   help="stream the round over client chunks of this size instead "
-                        "of the resident [K, d] stack (peak memory O(cohort*d)); "
-                        "must divide the honest and Byzantine sizes; 0 = resident")
-    p.add_argument("--cohort-quantile", choices=["exact", "sketch"], default="exact",
-                   help="streamed median/trimmed_mean: exact key bisection (32 "
-                        "counting passes) or a mergeable histogram sketch")
-    p.add_argument("--cohort-sketch-bins", type=int, default=512,
-                   help="histogram resolution of the quantile sketch")
     # service rounds; the knob flags require --service on
     p.add_argument("--service", choices=["off", "on"], default="off",
                    help="service rounds: draw each iteration's K participants from "
@@ -269,6 +237,109 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async-writer", choices=["auto", "on", "off"], default="auto",
                    help="a writer thread for checkpoint writes and the record pickle "
                         "(auto = on iff --rounds-per-dispatch > 1); output-only")
+
+
+# argparse dest -> FedConfig field, for every flag that sets a field: the
+# full config without a preset, and with one the overrides of the flags
+# present on the command line (JAX ``cli.py:ARG_TO_FIELD``).  ``--K``,
+# ``--B``, ``--device`` and ``--use-gpu`` are resolved apart
+ARG_TO_FIELD = {
+    "opt": "opt", "agg": "agg", "attack": "attack", "var": "noise_var",
+    "inherit": "inherit", "mark": "mark", "rounds": "rounds",
+    "interval": "display_interval", "batch_size": "batch_size", "gamma": "gamma",
+    "weight_decay": "weight_decay", "local_steps": "local_steps",
+    "fedprox_mu": "fedprox_mu", "server_opt": "server_opt", "server_lr": "server_lr",
+    "server_momentum": "server_momentum", "seed": "seed", "cache_dir": "cache_dir",
+    "eval_train": "eval_train", "checkpoint_dir": "checkpoint_dir",
+    "dataset": "dataset", "model": "model", "resnet_width": "resnet_width",
+    "remat": "remat", "agg_impl": "agg_impl", "fused_epilogue": "fused_epilogue",
+    "prng_impl": "prng_impl", "stack_dtype": "stack_dtype",
+}
+_KNOB_FIELDS = (
+    "partition", "dirichlet_alpha", "size_skew", "participation", "client_momentum",
+    "bucket_size", "cohort_size", "cohort_quantile", "cohort_sketch_bins", "attack_param",
+    "krum_m", "clip_tau", "clip_iters", "sign_eta", "sign_bits", "dnc_iters",
+    "dnc_sub_dim", "dnc_c", "fault", "dropout_prob", "fade_floor", "csi_std",
+    "corrupt_prob", "corrupt_mode", "corrupt_size", "defense",
+    *FedConfig._DEFENSE_KNOBS, "service", *FedConfig._SERVICE_KNOBS,
+    "rounds_per_dispatch", "eval_interval", "dispatch_mode", "dispatch_prefetch",
+    "async_writer", *FedConfig._OBS_FIELDS,
+)
+ARG_TO_FIELD.update({name: name for name in _KNOB_FIELDS})
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from . import presets
+
+    p = argparse.ArgumentParser("byzantine_aircomp_tpu_torch")
+    # the reference surface (MNIST_Air_weight.py:16-28)
+    p.add_argument("--opt", type=str, default="SGD", choices=["SGD"], help="optimizer")
+    p.add_argument("--agg", type=str, default="gm", help="aggregator name")
+    p.add_argument("--attack", type=str, default=None,
+                   help="attack name; name@R attacks from round R on")
+    p.add_argument("--var", type=float, default=None, help="channel noise variance")
+    p.add_argument("--inherit", action="store_true",
+                   help="resume from the checkpoint under --checkpoint-dir")
+    p.add_argument("--mark", type=str, default="", help="mark on title")
+    p.add_argument("--use-gpu", type=str, default=None,
+                   help="true (default): run on CUDA; false: run on the CPU, "
+                        "like --device cpu")
+    p.add_argument("--K", type=int, default=None, help="number of total devices")
+    p.add_argument("--B", type=int, default=None, help="number of Byzantine devices")
+    # the framework surface
+    p.add_argument("--backend", choices=["torch", "ref"], default="torch",
+                   help="torch: the port's trainer; ref: the NumPy referee "
+                        "(backends/ref_trainer.py), on no device")
+    p.add_argument("--agg-impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="the rules' kernels: pallas = the hand-written CUDA kernels, "
+                        "xla = their plain torch versions (any device), auto = "
+                        "pallas on the card, xla on the CPU")
+    p.add_argument("--fused-epilogue", choices=["auto", "on", "off"], default="auto",
+                   help="fold the OMA channel into median's/trimmed_mean's read of "
+                        "the stack (auto = under --agg-impl pallas where nothing "
+                        "else reads the received stack)")
+    add_knob_flags(p)
+    p.add_argument("--prng-impl", choices=["threefry", "rbg", "unsafe_rbg"],
+                   default="threefry",
+                   help="the random streams: threefry names the port's own (torch "
+                        "Philox); rbg and unsafe_rbg, a TPU hardware RNG path, are "
+                        "refused")
+    p.add_argument("--stack-dtype", choices=["f32", "bf16"], default="f32",
+                   help="[K, d] client-stack dtype fed to the aggregator (bf16 halves "
+                        "the bytes each Weiszfeld step reads; f32 arithmetic)")
+    p.add_argument("--rounds", type=int, default=100)
+    p.add_argument("--interval", type=int, default=10, help="displayInterval")
+    p.add_argument("--batch-size", type=int, default=50)
+    p.add_argument("--gamma", type=float, default=1e-2)
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--local-steps", type=int, default=1,
+                   help="local SGD steps per client per iteration (1 = reference FedSGD)")
+    p.add_argument("--fedprox-mu", type=float, default=0.0,
+                   help="FedProx proximal coefficient (anchors client drift when "
+                        "--local-steps > 1; 0 = plain FedAvg/FedSGD)")
+    p.add_argument("--server-opt", choices=["none", "momentum", "adam"], default="none",
+                   help="server optimizer over the pseudo-gradient (FedAvgM / FedAdam)")
+    p.add_argument("--server-lr", type=float, default=1.0)
+    p.add_argument("--server-momentum", type=float, default=0.9)
+    p.add_argument("--seed", type=int, default=2021)
+    p.add_argument("--cache-dir", type=str, default="",
+                   help="where the pickled record goes (default "
+                        "./{DATASET}_Air_weight_torch/)")
+    eval_group = p.add_mutually_exclusive_group()
+    eval_group.add_argument("--eval-train", dest="eval_train", action="store_true",
+                            default=True, help="evaluate the train set every round "
+                            "(the default; re-enables it over a preset)")
+    eval_group.add_argument("--no-eval-train", dest="eval_train", action="store_false",
+                            help="skip the train-set eval (its paths hold zeros)")
+    p.add_argument("--checkpoint-dir", type=str, default="",
+                   help="checkpoint every round here (and --inherit from here)")
+    p.add_argument("--dataset", type=str, default="mnist")
+    p.add_argument("--model", type=str, default="MLP")
+    p.add_argument("--resnet-width", type=int, default=64,
+                   help="ResNet-18 stem width (64 = standard; a multiple of 8)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute residual-block activations in the backward "
+                        "pass (less activation memory for more FLOPs)")
     # observability (obs/), all output-only: never in the title or the
     # config hash, the records bitwise the same with them on or off
     p.add_argument("--profile-dir", type=str, default="",
@@ -311,24 +382,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="M: suspicious clients extracted per round (<= K)")
     p.add_argument("--flight-window", type=int, default=8,
                    help="W: rounds of detector state kept in the flight-recorder ring")
+    p.add_argument("--preset", choices=presets.names(), default=None,
+                   help="named configuration (presets.py); flags present on the "
+                        "command line override the preset")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
     return p
 
 
 _TRUE, _FALSE = ("true", "1", "yes", "on"), ("false", "0", "no", "off")
-
-# the --defense flags, as suffixes of their FedConfig fields
-_DEFENSE_SUFFIXES = ("", "_ladder", "_warmup", "_alpha", "_drift", "_cusum", "_z", "_up",
-                     "_down", "_min_flagged", "_floor", "_leak")
-
-# the cohort, service, dispatch and observability flags: their FedConfig
-# fields, as named
-_FLAG_FIELDS = ("cohort_size", "cohort_quantile", "cohort_sketch_bins") + (
-    ("service",) + FedConfig._SERVICE_KNOBS) + (
-    "rounds_per_dispatch", "eval_interval", "dispatch_mode", "dispatch_prefetch",
-    "async_writer") + FedConfig._OBS_FIELDS
-
 
 def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:
     """``--device`` and ``--use-gpu`` -> "cuda" or "cpu".  Either flag may
@@ -347,59 +409,40 @@ def resolve_device_flags(device: Optional[str], use_gpu: Optional[str]) -> str:
     return "cpu" if gpu is False else "cuda"
 
 
-def config_from_args(args: argparse.Namespace) -> FedConfig:
+def _explicit_dests(argv: Sequence[str]) -> set:
+    """The dests of the options present in ``argv``: a re-parse with every
+    default suppressed leaves an absent flag's attribute unset (JAX
+    ``cli.py:577``)."""
+    p = build_parser()
+    for action in p._actions:
+        action.default = argparse.SUPPRESS
+    ns, _ = p.parse_known_args(list(argv))
+    return set(vars(ns))
+
+
+def config_from_args(args: argparse.Namespace,
+                     argv: Optional[Sequence[str]] = None) -> FedConfig:
+    """The run's config from parsed flags (JAX ``cli.py:588-630``).  With
+    ``--preset`` the preset's fields stand unless a flag present in
+    ``argv`` (the argv that gave ``args``) overrides them, even at its
+    default value; ``--K``/``--B`` apply last, as the reference's
+    override."""
     device = resolve_device_flags(args.device, args.use_gpu)
-    cfg = FedConfig(
-        opt=args.opt,
-        agg=args.agg,
-        attack=args.attack,
-        noise_var=args.var,
-        rounds=args.rounds,
-        display_interval=args.interval,
-        batch_size=args.batch_size,
-        gamma=args.gamma,
-        seed=args.seed,
-        dataset=args.dataset,
-        model=args.model,
-        resnet_width=args.resnet_width,
-        remat=args.remat,
-        partition=args.partition,
-        dirichlet_alpha=args.dirichlet_alpha,
-        size_skew=args.size_skew,
-        sign_eta=args.sign_eta,
-        sign_bits=args.sign_bits,
-        krum_m=args.krum_m,
-        clip_tau=args.clip_tau,
-        clip_iters=args.clip_iters,
-        dnc_iters=args.dnc_iters,
-        dnc_sub_dim=args.dnc_sub_dim,
-        dnc_c=args.dnc_c,
-        fault=args.fault,
-        dropout_prob=args.dropout_prob,
-        fade_floor=args.fade_floor,
-        csi_std=args.csi_std,
-        corrupt_prob=args.corrupt_prob,
-        corrupt_mode=args.corrupt_mode,
-        corrupt_size=args.corrupt_size,
-        inherit=args.inherit,
-        mark=args.mark,
-        use_gpu=device == "cuda",
-        weight_decay=args.weight_decay,
-        local_steps=args.local_steps,
-        fedprox_mu=args.fedprox_mu,
-        server_opt=args.server_opt,
-        server_lr=args.server_lr,
-        server_momentum=args.server_momentum,
-        client_momentum=args.client_momentum,
-        participation=args.participation,
-        bucket_size=args.bucket_size,
-        **{f"defense{name}": getattr(args, f"defense{name}") for name in _DEFENSE_SUFFIXES},
-        **{name: getattr(args, name) for name in _FLAG_FIELDS},
-        attack_param=args.attack_param,
-        cache_dir=args.cache_dir,
-        eval_train=args.eval_train,
-        checkpoint_dir=args.checkpoint_dir,
-    )
+    if args.preset is not None:
+        from . import presets
+
+        if argv is None:
+            raise ValueError(
+                "config_from_args(args, argv) needs the argv that gave args when "
+                "--preset is used: which flags are explicit comes from it"
+            )
+        given = _explicit_dests(argv)
+        overrides = {field: getattr(args, dest) for dest, field in ARG_TO_FIELD.items()
+                     if dest in given}
+        cfg = presets.get(args.preset, use_gpu=device == "cuda", **overrides)
+    else:
+        cfg = FedConfig(use_gpu=device == "cuda",
+                        **{field: getattr(args, dest) for dest, field in ARG_TO_FIELD.items()})
     # reference --K/--B override: honestSize = K - B (:531-533); with K
     # alone the total node count becomes K, keeping the Byzantine count
     if args.K is not None and args.B is not None:
@@ -414,8 +457,17 @@ def config_from_args(args: argparse.Namespace) -> FedConfig:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    import sys
+
+    if argv is None:
+        argv = sys.argv[1:]
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args, argv)
+    if args.backend == "ref":
+        # the NumPy referee (JAX cli.py:733-736): no torch device
+        from .backends.ref_trainer import run_ref
+
+        return run_ref(cfg)
     from .fed import harness
 
-    args = build_parser().parse_args(argv)
-    cfg = config_from_args(args)
     return harness.run(cfg, device="cuda" if cfg.use_gpu else "cpu")

@@ -2,9 +2,12 @@
 
 Port of ``byzantine_aircomp_tpu/data/datasets.py``:
 
-* the ``Dataset`` container, the numpy IDX reader and the numpy CIFAR-10
-  readers (binary batches, then Python pickles; no torchvision, and no
-  native parser: the JAX package's own numpy fallback);
+* the ``Dataset`` container and the readers: IDX files and CIFAR-10
+  binary batches through the repository's native C++ reader
+  (:mod:`.native_io`, ``native/dataio.cpp``), which also normalizes, with
+  the JAX package's NumPy path where the library cannot be built or
+  ``AIRCOMP_NO_NATIVE`` is set; CIFAR-10's Python pickles (no
+  torchvision);
 * ``mnist``, ``mnist_hard``, ``emnist`` (byclass, 62 classes),
   ``emnist_hard``, ``cifar10`` and ``cifar10_hard``: files where the plain
   sets find them under ``DATA_ROOTS`` (IDX; ``cifar-10-batches-bin`` or
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..registry import DATASETS
+from . import native_io
 
 # normalization stats used by the reference transforms
 MNIST_STATS = (0.1307, 0.3081)  # MNIST_Air_weight.py:555
@@ -66,6 +70,9 @@ class Dataset:
     source: str  # "disk" or "synthetic"
     x_train_raw: Optional[np.ndarray] = None  # [N, ...] uint8, unnormalized
     stats: Optional[Tuple] = None  # (mean, std) per-dataset normalization
+    # which reader read and normalized the files (native_io.describe()),
+    # for the run's log
+    reader: str = "none (synthetic data, no file read)"
 
     @property
     def input_shape(self) -> Tuple[int, ...]:
@@ -78,6 +85,9 @@ class Dataset:
 
 def _read_idx(path: str) -> np.ndarray:
     """IDX file (optionally gzipped) -> uint8 array of its stated dims."""
+    native = native_io.read_idx(path)  # the C++ parser (native/dataio.cpp)
+    if native is not None:
+        return native
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         _, _, ndim = struct.unpack(">HBB", f.read(4))
@@ -112,6 +122,9 @@ def _load_idx_pair(img_rel, lbl_rel):
 
 
 def _normalize(x_u8: np.ndarray, mean, std) -> np.ndarray:
+    native = native_io.normalize_u8(x_u8, mean, std)  # the parallel C++ path
+    if native is not None:
+        return native
     m = np.asarray(mean, np.float32)
     s = np.asarray(std, np.float32)
     return ((x_u8.astype(np.float32) / 255.0) - m) / s
@@ -191,6 +204,7 @@ def mnist(synthetic_train: int = 60000, synthetic_val: int = 10000, **_) -> Data
             "disk",
             x_train_raw=np.ascontiguousarray(pair_tr[0]),
             stats=MNIST_STATS,
+            reader=native_io.describe(),
         )
     return _synthetic("mnist", synthetic_train, synthetic_val, 10, (28, 28), MNIST_STATS)
 
@@ -231,6 +245,7 @@ def emnist(synthetic_train: int = 100000, synthetic_val: int = 16000, **_) -> Da
             "disk",
             x_train_raw=np.ascontiguousarray(pair_tr[0]),
             stats=EMNIST_STATS,
+            reader=native_io.describe(),
         )
     return _synthetic("emnist", synthetic_train, synthetic_val, 62, (28, 28), EMNIST_STATS)
 
@@ -248,7 +263,11 @@ def emnist_hard(synthetic_train: int = 100000, synthetic_val: int = 16000, **_) 
 def _read_cifar_bin(path: str):
     """CIFAR-10 binary batch -> (images [N, 3, 32, 32] u8, labels [N] u8),
     or None for a missing or malformed file (record: 1 label byte + 3072
-    CHW pixel bytes per row)."""
+    CHW pixel bytes per row): the native parser first, the NumPy row parse
+    where it cannot run."""
+    out = native_io.read_cifar_bin(path)
+    if out is not None:
+        return out
     try:
         raw = np.fromfile(path, np.uint8)
     except OSError:
@@ -288,6 +307,7 @@ def _cifar10_from_bin() -> Optional[Dataset]:
         "disk",
         x_train_raw=np.ascontiguousarray(x_tr),
         stats=CIFAR10_STATS,
+        reader=native_io.describe(),
     )
 
 
@@ -322,6 +342,7 @@ def cifar10(synthetic_train: int = 50000, synthetic_val: int = 10000, **_) -> Da
             "disk",
             x_train_raw=np.ascontiguousarray(x_tr),
             stats=CIFAR10_STATS,
+            reader=native_io.describe(),
         )
     return _synthetic(
         "cifar10", synthetic_train, synthetic_val, 10, (32, 32, 3), CIFAR10_STATS

@@ -123,10 +123,31 @@ class FedConfig:
     dnc_iters: int = 3
     dnc_sub_dim: int = 10000
     dnc_c: float = 1.0
+    # "auto" | "xla" | "pallas": the implementation of every kernel a rule
+    # runs (the Weiszfeld steps, the selection, the vote count).  "pallas"
+    # = the hand-written CUDA kernels (ops/kernels.py; refused on the CPU,
+    # which has none), "xla" = their plain torch versions on any device,
+    # "auto" = pallas on the card and xla on the CPU (JAX fed/train.py:215)
+    agg_impl: str = "auto"
+    # "auto" | "on" | "off": fold the OMA channel into median's and
+    # trimmed_mean's one read of the stack (select_columns' epilogue)
+    # instead of applying it to the stack first.  "auto" = fold where the
+    # resolved impl is pallas, nothing else reads the received stack and
+    # the stack is f32; "on" folds under xla too (the plain versions take
+    # the channel); "off" never folds.  Either way the same bits
+    fused_epilogue: str = "auto"
+    # "f32" | "bf16": dtype of the [K, d] stack handed to the rule; bf16
+    # halves the bytes each Weiszfeld step reads, the arithmetic stays f32
+    # and the aggregate comes back f32
+    stack_dtype: str = "f32"
 
     # determinism
     seed: int = 2021
     fix_seed: bool = True
+    # the per-round random streams: "threefry" names the port's own torch
+    # (Philox) streams; JAX's "rbg" / "unsafe_rbg" select a TPU hardware
+    # RNG path with no counterpart on the card, and are refused
+    prng_impl: str = "threefry"
 
     # model / data
     model: str = "MLP"
@@ -429,6 +450,7 @@ class FedConfig:
                 raise ValueError(f"size_skew exponent must be >= 0, got {skew}")
         if self.opt != "SGD":
             raise ValueError(f"opt must be 'SGD' (the only optimizer), got {self.opt!r}")
+        self._validate_impl()
         self._validate_training_options()
         # the rule sees the drawn clients, or their bucket means
         part_h, part_b = self.participant_counts()
@@ -492,6 +514,32 @@ class FedConfig:
         DATASETS.get(self.dataset)
         MODELS.get(self.model)
         return self
+
+    def _validate_impl(self):
+        """The implementation knobs (JAX ``fed/config.py:522-527, :565-567,
+        :657-660``); ``rbg`` and ``unsafe_rbg`` are JAX's own choices,
+        refused here."""
+        if self.agg_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"agg_impl must be 'auto', 'xla' or 'pallas', got {self.agg_impl!r}")
+        if self.agg_impl == "pallas" and not self.use_gpu:
+            raise ValueError(
+                "agg_impl 'pallas' runs the hand-written CUDA kernels, and the CPU has "
+                "none (JAX's interpret mode has no counterpart here): use --agg-impl xla "
+                "or auto on the CPU")
+        if self.fused_epilogue not in ("auto", "on", "off"):
+            raise ValueError(
+                f"fused_epilogue must be 'auto', 'on' or 'off', got {self.fused_epilogue!r}")
+        if self.stack_dtype not in ("f32", "bf16"):
+            raise ValueError(f"stack_dtype must be 'f32' or 'bf16', got {self.stack_dtype!r}")
+        if self.prng_impl not in ("threefry", "rbg", "unsafe_rbg"):
+            raise ValueError(
+                f"prng_impl must be 'threefry', 'rbg' or 'unsafe_rbg', got {self.prng_impl!r}")
+        if self.prng_impl != "threefry":
+            raise ValueError(
+                f"prng_impl {self.prng_impl!r} selects the TPU's hardware RNG path, which "
+                "has no counterpart on this card: the port has one generator family "
+                "(torch's Philox), named by 'threefry', the default")
 
     def _validate_training_options(self):
         """Participation, bucketing, local steps, FedProx, the server
@@ -715,6 +763,17 @@ class FedConfig:
             raise ValueError(
                 "client_momentum carries a resident [K, d] state buffer, exactly "
                 "the allocation the streamed path removes"
+            )
+        if self.stack_dtype != "f32":
+            raise ValueError(
+                "the streamed selection rung bisects f32 total-order keys; bf16 chunks "
+                "are not supported (--cohort-size 0 for bf16)"
+            )
+        if self.fused_epilogue == "on":
+            raise ValueError(
+                "the fused sort-family epilogue reads the resident [K, d] stack in one "
+                "pass; it cannot apply to a streamed round (the cohort scan is the "
+                "single pass); leave it 'auto'"
             )
         rungs = {self.agg}
         if self.defense == "adaptive":

@@ -61,6 +61,10 @@ def dispatch_graph(cfg, device) -> Tuple[bool, str]:
         return False, "one round per dispatch: the per-round loop"
     if device.type != "cuda":
         return False, "CUDA graphs need the card: each round runs eagerly"
+    if cfg.agg_impl == "xla":
+        return False, ("--agg-impl xla runs the plain torch versions, the referee the "
+                       "kernels are held against: its rounds run eagerly (a graph of them "
+                       "is not held bitwise against its eager round on the card)")
     # the configurations with a host read inside their round
     if cfg.service == "on":
         return False, ("service rounds key the per-id link with a host int drawn every "

@@ -151,6 +151,12 @@ def run_title(cfg: FedConfig) -> str:
             title += f"_ev{cfg.eval_interval}"
         if _non_default(cfg, "dispatch_mode"):
             title += f"_{cfg.dispatch_mode}"
+    if _non_default(cfg, "prng_impl"):
+        title += f"_prng{cfg.prng_impl}"
+    if _non_default(cfg, "stack_dtype"):
+        # (JAX fed/harness.py:176-181): prefixed, so that it never reads
+        # as a --mark bf16 of a default-dtype run
+        title += f"_stack{cfg.stack_dtype}"
     if cfg.fault is not None:
         title += f"_fault{cfg.fault}"
         for knob, val in sorted(cfg.fault_overrides().items()):
@@ -180,10 +186,11 @@ _HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds", "async_writer"
 
 # fields skipped while at their default, so that a config that leaves them
 # there hashes as it did before the field was ported: the sign channel's
-# width, the size skew, and the training options
+# width, the size skew, the training options and the implementation knobs
 _HASH_SKIP_AT_DEFAULT = (
     "sign_bits", "size_skew", "local_steps", "fedprox_mu", "server_opt", "server_lr",
     "server_momentum", "client_momentum", "participation", "bucket_size",
+    "agg_impl", "fused_epilogue", "stack_dtype", "prng_impl",
 )
 
 
@@ -250,6 +257,7 @@ def banner(cfg: FedConfig, trainer: Trainer, path: str):
     ds = trainer.dataset
     dev = trainer.device
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    impl_desc = "CUDA kernels" if trainer._agg_impl == "pallas" else "plain torch versions"
     lines = [
         f"[submit task ] {path}",
         "[running info]",
@@ -263,6 +271,10 @@ def banner(cfg: FedConfig, trainer: Trainer, path: str):
         f"[running time]   rounds={cfg.rounds}, displayInterval={cfg.display_interval}",
         f"[torch set   ]  device={dev} ({dev_name}) torch={torch.__version__} "
         f"SEED={cfg.seed}, fixSeed={cfg.fix_seed}",
+        f"[kernels     ]   aggImpl={trainer._agg_impl} ({impl_desc}) "
+        f"channelFold={'on' if trainer.channel_fused else 'off'} "
+        f"stackDtype={cfg.stack_dtype} prng={cfg.prng_impl}",
+        f"[data reader ]   {ds.reader}",
     ]
     if cfg.rounds_per_dispatch > 1:
         graphed, reason = trainer.dispatch_graph
@@ -694,7 +706,6 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
                          straggler_prob=cfg.straggler_prob, rollback=cfg.rollback)
         if cfg.forensics != "off":
             extra.update(forensics=cfg.forensics, forensics_top=cfg.forensics_top)
-        on_card = trainer.device.type == "cuda"
         obs.emit(
             "run_start",
             title=run_title(cfg),
@@ -713,10 +724,10 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
             defense=cfg.defense,
             seed=cfg.seed,
             **extra,
-            # the CUDA kernel on the card (JAX's "pallas"), the plain
-            # torch version on the CPU (JAX's "xla")
+            # the resolved impl: "pallas" the CUDA kernels, "xla" their
+            # plain torch versions
             hbm=hbm_lib.aggregator_hbm_model(
-                cfg.agg, cfg.node_size, trainer.dim, impl="pallas" if on_card else "xla",
+                cfg.agg, cfg.node_size, trainer.dim, impl=trainer._agg_impl,
                 fused=trainer.channel_fused, channel=cfg.noise_var is not None,
                 trim=cfg.byz_size),
         )

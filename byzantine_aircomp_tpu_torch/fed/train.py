@@ -70,6 +70,7 @@ counter is never read on the host inside a round.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
@@ -88,6 +89,7 @@ from ..ops import attacks as attack_lib
 from ..ops import channel as channel_lib
 from ..ops import faults as fault_lib
 from ..ops import flatten as flatten_lib
+from ..ops import kernels
 from ..obs import forensics as forensics_lib
 from ..registry import MODELS
 from . import graphs as graphs_lib
@@ -249,6 +251,18 @@ def bucket_means(w_stack: torch.Tensor, perm: torch.Tensor, s: int) -> torch.Ten
     return total / s
 
 
+def _under_impl(method):
+    """Run a trainer method with every kernel wrapper taking the trainer's
+    resolved ``agg_impl`` (:func:`..ops.kernels.implementation`)."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kw):
+        with kernels.implementation(self._agg_impl):
+            return method(self, *args, **kw)
+
+    return wrapped
+
+
 class Trainer:
     """Drives the main path on one device (``"cuda"`` unless the caller
     passes ``device="cpu"``).  ``params`` (flat [d], JAX layout) replaces
@@ -283,13 +297,32 @@ class Trainer:
         self.fault = fault_lib.resolve(cfg.fault, cfg.fault_overrides())
         # the online defense (None when off: no defense code runs)
         self.defense = defense_lib.from_config(cfg)
+        # the kernels' implementation (JAX fed/train.py:215-217): "auto" is
+        # the CUDA kernels on the card and their plain versions on the CPU,
+        # which has no kernel to run under "pallas"
+        self._agg_impl = cfg.agg_impl
+        if self._agg_impl == "auto":
+            self._agg_impl = "pallas" if self.device.type == "cuda" else "xla"
+        if self._agg_impl == "pallas" and self.device.type != "cuda":
+            raise ValueError(
+                "agg_impl 'pallas' runs the hand-written CUDA kernels, and the CPU has "
+                "none: use agg_impl 'xla' or 'auto' on the CPU")
+        # the dtype of the stack the rule reads (JAX fed/train.py:980)
+        self._stack_dtype = torch.bfloat16 if cfg.stack_dtype == "bf16" else torch.float32
+        # the fused epilogue (JAX fed/train.py:229-239, :834-837): "auto"
+        # folds only where the kernels run, "on" under the plain versions too
+        self._fused_epilogue = cfg.fused_epilogue == "on" or (
+            cfg.fused_epilogue == "auto" and self._agg_impl == "pallas")
         # whether the channel folds into the rule's read (select_columns'
         # epilogue) instead of being applied to the stack first: only where
-        # nothing else reads the received stack before the rule
+        # nothing else reads the received stack before the rule, and on an
+        # f32 stack (a bf16 one carries the received values, rounded)
         self.channel_fused = (
-            cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg)
+            self._fused_epilogue
+            and cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg)
             and agg_lib.supports_fused_epilogue(cfg.agg) and self.fault is None
             and cfg.bucket_size == 1 and cfg.service == "off" and cfg.cohort_size == 0
+            and self._stack_dtype == torch.float32
             and not (self.defense is not None and self.defense.mode == "adaptive"))
         self.num_classes = self.dataset.num_classes
 
@@ -715,6 +748,7 @@ class Trainer:
         )
         return new_flat
 
+    @_under_impl
     def iteration(
         self,
         flat_params: torch.Tensor,
@@ -915,6 +949,9 @@ class Trainer:
 
         degraded = fault is not None or service
         agg_kw = self._agg_kw(flat_params, agg_honest, degraded, gens, draws, terms)
+        # --stack-dtype bf16: the rule reads a bf16 copy of the stack; its
+        # arithmetic stays f32 and the aggregate comes back f32
+        w_agg = w_agg.to(self._stack_dtype)
         if adaptive:
             # rung 0 is cfg.agg, so a quiet run aggregates as --defense off
             aggregated = defense_lib.aggregate_rung(rung, spec.ladder, w_agg, **agg_kw)
@@ -1020,6 +1057,7 @@ class Trainer:
 
         return rebuild_full
 
+    @_under_impl
     def iteration_streamed(
         self,
         flat_params: torch.Tensor,

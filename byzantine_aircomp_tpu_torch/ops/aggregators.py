@@ -7,7 +7,8 @@ reference's ``mean``, ``gm2``, ``gm``, ``median``, ``trimmed_mean`` and
 (fault-mode) variants.  Each Weiszfeld step, each coordinatewise median or
 trimmed mean over a static K and each packed vote count runs through
 :mod:`.kernels`: the hand-written CUDA kernel for a tensor on the card, its
-plain version for one on the CPU.  Krum's Gram product is one matmul, and
+plain version for one on the CPU, or what the trainer's ``agg_impl`` picks
+(:func:`.kernels.implementation`).  Krum's Gram product is one matmul, and
 the degraded rules' dynamic ranks a ``torch.sort``, as the JAX package
 leaves both to XLA.
 

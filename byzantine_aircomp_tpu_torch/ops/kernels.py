@@ -26,7 +26,11 @@ minutes).  The build runs at first use, or through :func:`build`, into
 source and the headers it includes.
 
 Each wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches its kernel or raises.  ``LAUNCHES`` counts kernel
+CUDA tensor it launches its kernel or raises.  Inside
+:func:`implementation` (the trainer's resolved ``FedConfig.agg_impl``) the
+choice is the caller's instead: ``"pallas"`` launches the kernels and
+refuses a CPU tensor (there is no kernel on the CPU), ``"xla"`` runs the
+plain versions on any device and launches nothing.  ``LAUNCHES`` counts kernel
 launches per source (both modes of a Weiszfeld kernel count under its
 source), so a run can show that it went through the kernels; a CUDA-graph
 replay of a round adds the launches its capture recorded
@@ -35,6 +39,7 @@ replay of a round adds the launches its capture recorded
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -112,6 +117,27 @@ _SELECT_PLAN_FIELDS = (
     "path", "strip", "threads", "smem_bytes", "scratch_bytes", "blocks_per_sm",
     "blocks_per_sm_channel", "grid",
 )
+
+
+# the implementation the wrappers take (FedConfig.agg_impl, resolved by the
+# trainer): None lets each tensor's device decide
+_IMPL: Optional[str] = None
+IMPLS = ("pallas", "xla")
+
+
+@contextlib.contextmanager
+def implementation(impl: Optional[str]):
+    """Within the block every wrapper takes ``impl``: ``"pallas"`` (the
+    kernels; a CPU tensor raises), ``"xla"`` (the plain versions on any
+    device) or None (the tensor's device decides)."""
+    global _IMPL
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"implementation must be one of {IMPLS} or None, got {impl!r}")
+    prev, _IMPL = _IMPL, impl
+    try:
+        yield
+    finally:
+        _IMPL = prev
 
 
 def reset_launches():
@@ -488,13 +514,23 @@ def _check_vec(t: torch.Tensor, w: torch.Tensor, n: int, what: str):
         raise ValueError(f"{what} is on {t.device}, the stack on {w.device}")
 
 
-def _cuda_or_cpu(w: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+def _use_kernel(w: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``w`` (else it runs the
+    plain version), under :func:`implementation`: ``"xla"`` never launches;
+    ``"pallas"`` launches for a CUDA tensor and raises for a CPU one; with
+    no choice made a CUDA tensor launches and a CPU one runs plain.  Any
+    other device raises."""
+    if w.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {w.device}")
+    if _IMPL == "xla":
+        return False
     if w.device.type == "cuda":
         return True
-    if w.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {w.device}")
+    if _IMPL == "pallas":
+        raise RuntimeError(
+            "agg_impl 'pallas' runs the CUDA kernels, and a CPU tensor has none: "
+            "use --agg-impl xla (the plain versions) or auto on the CPU")
+    return False
 
 
 def _workspace(name: str, w: torch.Tensor) -> torch.Tensor:
@@ -525,7 +561,7 @@ def _workspace(name: str, w: torch.Tensor) -> torch.Tensor:
 
 def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ideal Weiszfeld step over [K, d]: ``(num [d], den [])``."""
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return weiszfeld_step_ref(w, guess)
     _check_stack(w, guess)
     k, d = w.shape
@@ -558,7 +594,7 @@ def aircomp_weiszfeld_step(
     ``:145-155``).  ``h_sq`` [K] is each client's squared fade magnitude,
     ``scaler`` the RMS of the guess (a one-element tensor, read on the
     device); the caller adds the receiver noise."""
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return aircomp_weiszfeld_step_ref(w, guess, h_sq, scaler, p_max)
     _check_stack(w, guess)
     k, d = w.shape
@@ -607,7 +643,7 @@ def weiszfeld_step_fused(
     them.  On the card the kernel writes the guess into ``g_out`` and
     updates ``active`` (int32) and ``steps`` (int64) in place, and returns
     those tensors; on the CPU ``g_out`` is unused."""
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return weiszfeld_step_fused_ref(w, g_in, active, steps, tol)
     _check_state(w, g_in, g_out, active, steps)
     k, d = w.shape
@@ -651,7 +687,7 @@ def aircomp_weiszfeld_step_fused(
     ``noise_scale`` their std (a float32 0-d tensor), or both None for a
     noiseless receiver.  On the card ``g_out``, ``active``, ``steps`` and
     ``scaler`` are written in place and returned."""
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return aircomp_weiszfeld_step_fused_ref(
             w, g_in, active, steps, tol, h_r, h_i, scaler,
             fade_scale=fade_scale, z=z, noise_scale=noise_scale, p_max=p_max,
@@ -758,7 +794,7 @@ def fused_median(w: torch.Tensor, channel: Optional[OmaTerms] = None) -> torch.T
     """Coordinatewise lower-middle median ``sorted[(K - 1) // 2]`` of a
     [K, d] f32 stack, with ``channel`` (:class:`..channel.OmaTerms`) folded
     into the read as ``w + oma_residual(channel)``."""
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return fused_median_ref(w, channel)
     return _select(w, 0, False, channel)
 
@@ -771,7 +807,7 @@ def fused_trimmed_mean(
     k = w.shape[0]
     if b < 0 or k - 2 * b < 1:
         raise ValueError(f"trimmed mean needs 0 <= b and K - 2b >= 1, got K={k}, b={b}")
-    if not _cuda_or_cpu(w):
+    if not _use_kernel(w):
         return fused_trimmed_mean_ref(w, b, channel)
     return _select(w, b, True, channel)
 
@@ -780,7 +816,7 @@ def packed_vote_counts(words: torch.Tensor, d: int) -> torch.Tensor:
     """Per-coordinate set-bit counts [d] int32 of a [K, W = ceil(d/32)]
     stack of sign words (int32 carrying the uint32 bits, LSB-first):
     ``counts[c] = #{k : bit (c % 32) of words[k, c // 32]}``."""
-    if not _cuda_or_cpu(words):
+    if not _use_kernel(words):
         return packed_vote_counts_ref(words, d)
     if words.dim() != 2 or words.dtype != torch.int32 or not words.is_contiguous():
         raise ValueError(

@@ -37,8 +37,11 @@ sizes (each gate's own by default) cut the gate down for a smoke run
 (``--device cpu`` on a machine without a GPU); a cut run cannot pass the
 bar.  Without ``--gate`` the
 tool runs :func:`paper_configs`, the 8 runs behind the paper's figure,
-through the harness (records pickled under ``--cache-dir``); the plotting
-stays with the JAX package.
+through the harness (records pickled under ``--cache-dir``), and draws the
+figure (JAX ``analysis/reproduce.py``) into ``--out`` (default
+``paper.png``) from exactly the 8 records those runs return, never from a
+glob of the cache directory; the figure can be drawn again later from the
+pickles with ``python -m byzantine_aircomp_tpu_torch.analysis plots``.
 """
 
 from __future__ import annotations
@@ -320,13 +323,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if not args.gate:
+        from ..analysis.plots import paper_figure
         from ..fed import harness
 
+        # without --gate, --out names the figure (paper.png unless given)
+        out = "paper.png" if args.out == ap.get_default("out") else args.out
+        cuts = {k: v for k, v in (("display_interval", args.interval),
+                                  ("agg_maxiter", args.agg_maxiter)) if v is not None}
+        records = {}
         for i, cfg in enumerate(paper_configs(args.rounds or 100, args.cache_dir,
-                                              dataset=args.dataset)):
+                                              dataset=args.dataset, **cuts)):
             harness.log(f"[reproduce] run {i + 1}/8: agg={cfg.agg} attack={cfg.attack} "
                         f"B={cfg.byz_size} var={cfg.noise_var}")
-            harness.run(cfg, device=args.device)
+            # run_title has no Byzantine count, so B=5 and B=10 share one:
+            # the key carries it (JAX analysis/reproduce.py:76-81)
+            records[f"{harness.run_title(cfg)}_B{cfg.byz_size}"] = harness.run(
+                cfg, device=args.device)
+        if len(records) != 8:
+            raise RuntimeError(f"record keys collided: {sorted(records)}")
+        paper_figure(records, out)
+        print(f"wrote {out} ({len(records)} records)")
         return 0
 
     from ..device import resolve_device

@@ -193,6 +193,29 @@
    of the stream; host ms a round on against off, the scrape's ms and
    bytes and the registry's series are printed and go to the ledger;
 
+   the implementation knobs (``run_z13``): (z13) gm2 K=1000, gm --var K=50
+   and median --var K=50, one round each at ``--agg-impl pallas`` and
+   ``xla`` in turns (pallas, xla, pallas, xla) after an untimed warm-up:
+   records and params within 1e-4 (the median's bitwise), the run's kernel
+   launched every iteration under pallas and none of the four under xla
+   (the wrappers' counts and, over one more profiled iteration, the
+   device's by name), rounds/sec of each run; gm2 K=1000 and gm --var K=50
+   at ``--stack-dtype bf16``, graphed R=2 bitwise its eager twin with the
+   device count of ``count_replay_launches``, the final params within
+   rtol/atol 2e-2 of the f32 run, and both fused steps at [1000, 7850] and
+   [50, 7850] timed in f32 and bf16 beside their bounds; median --var K=50
+   at ``--fused-epilogue off`` against auto, bitwise; ``--backend ref``
+   through the CLI (one round of gm2 classflip at K=10, no JAX imported);
+   the native reader built from ``native/dataio.cpp`` and read an IDX file
+   and a CIFAR-10 batch equal to the NumPy path; and a sweep of (gm2,
+   median, signmv --sign-bits 1) x (none, classflip) at K=20, one round a
+   cell, each cell's kernel launched every iteration, with its table;
+
+   In runs z4-z8 and z13 the device count over two replays must be exactly
+   twice the capture's: a profiler session that counts short (a lost
+   record) is profiled again, at most three sessions, and one exact
+   session passes; every session short, or any over, fails;
+
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
    ``--fault`` round of those rules takes) beside the kernel's.
@@ -2260,105 +2283,144 @@ def profile_dispatch(torch, trainer, r0, n):
                 unprofiled_wall_ms=host_ms, unprofiled_event_ms=start_ev.elapsed_time(end_ev))
 
 
-def run_graphed(torch, kernels, harness, FedConfig, card, cache_dir):
-    """(z4)-(z8): each run of :data:`GRAPH_RUNS` as one R=2 dispatch through
-    ``harness.run_with_trainer`` (each round one replay of the round's CUDA
-    graph) and as its eager R=1 twin from the same seed.  The graphed record
-    must be the twin's with the evals repeated within the dispatch, and the
-    final params the twin's, bit for bit; one capture; the run's kernel
-    launched from the graph every iteration.  The launches per round are
-    counted on the device, by kernel name, over one more profiled dispatch
-    of two replays, and must be twice what the wrappers counted at capture.
-    Printed: captures, warm-up and capture seconds, the graph's nodes,
-    rounds/sec of both, the idle share over that dispatch, the launches per
-    round (the Weiszfeld steps run after convergence apart, from the twin's
-    live steps) and both peaks of ``torch.cuda.max_memory_allocated``."""
+# profiler sessions per device count, at most: a session loses kernel
+# records now and then, which can only lower a count
+PROFILE_SESSIONS = 3
+
+
+def count_replay_launches(torch, trainer, r0, at_capture, label):
+    """The device kernels of each wrapper group over one more dispatch of two
+    replays, counted by name, against twice what the wrappers counted at
+    capture: exact.  torch.profiler loses a kernel record now and then (none
+    is ever added), so a session that counts short of the capture is
+    profiled again, at most :data:`PROFILE_SESSIONS` sessions in all.  Passes
+    when one session counts every group exactly and no session counts over;
+    fails when any session counts over, or when every session is short (as a
+    launch missing from the graph would be, every time).  Returns the exact
+    session's profile and every session's counts."""
+    sessions = []
+    for _ in range(PROFILE_SESSIONS):
+        prof = profile_dispatch(torch, trainer, r0, 2)
+        seen = prof["device_launches"]
+        want = {g: 2 * sum(at_capture[k] for k in g.split("+")) for g in seen}
+        over = sorted(g for g in seen if seen[g] > want[g])
+        short = sorted(g for g in seen if seen[g] < want[g])
+        sessions.append(dict(device=seen, want=want, short=short, over=over))
+        if over:
+            _fail(f"run {label}: {over} kernels ran on the device more often over two replays "
+                  f"({seen}) than twice the capture's count ({want})")
+        if not short:
+            break
+    n_short = sum(bool(x["short"]) for x in sessions)
+    print(f"run {label}: device launches over two replays in {len(sessions)} profiler "
+          f"session(s), {n_short} short: {[x['device'] for x in sessions]} against "
+          f"{sessions[0]['want']}")
+    if sessions[-1]["short"]:
+        _fail(f"run {label}: every one of {len(sessions)} profiler sessions counted fewer "
+              f"kernels than twice the capture's count: {sessions}")
+    return prof, sessions
+
+
+def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw, kernel):
+    """One R=2 graphed run of ``kw`` (2 rounds) through
+    ``harness.run_with_trainer`` and its eager R=1 twin from the same seed:
+    the graphed record must be the twin's with the evals repeated within the
+    dispatch, and the final params the twin's, bit for bit; one capture; the
+    run's kernel launched from the graph every iteration, counted on the
+    device (:func:`count_replay_launches`).  Returns (entry, the graphed
+    trainer)."""
     import dataclasses
 
     from byzantine_aircomp_tpu_torch.ops import aggregators
 
+    twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
+                         display_interval=10, cache_dir=cache_dir)
+    cfg = dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with _SolveSteps(aggregators) as live:
+        twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
+    torch.cuda.synchronize()
+    twin_launches = dict(kernels.LAUNCHES)
+    twin_peak = torch.cuda.max_memory_allocated()
+    # only the twin's params stay on the card: the graphed run's peak
+    # is its own
+    twin_params = twin_t.flat_params.clone()
+    del twin_t
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer, record = harness.run_with_trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rg = trainer.round_graph
+    if not trainer.dispatch_graph[0] or rg is None or rg.captures != 1:
+        _fail(f"run {label}: not one capture ({trainer.dispatch_graph})")
+    at_capture = rg.replay_launches
+    want = _replicated(twin, cfg.rounds, cfg.rounds_per_dispatch)
+    same = _same_record(record, want)
+    params_equal = torch.equal(trainer.flat_params, twin_params)
+    if not (same and params_equal):
+        diff = {key: [abs(a - b) for a, b in zip(record[key], want[key])]
+                for key in ("variencePath", "valLossPath")}
+        _fail(f"run {label}: the graphed run differs from its eager twin: record "
+              f"{diff}, params max abs diff "
+              f"{float((trainer.flat_params - twin_params).abs().max())}")
+    del twin_params
+    nodes = _graph_nodes(rg.graph)
+    prof, sessions = count_replay_launches(torch, trainer, cfg.rounds, at_capture, label)
+    per_round = {group: seen / 2 for group, seen in prof["device_launches"].items()}
+    group = next(g for g in per_round if kernel in g.split("+"))
+    if per_round[group] < cfg.display_interval:
+        _fail(f"run {label}: {kernel} ran {per_round[group]} times per replayed round "
+              f"on the device, not every iteration")
+    live_per_round = sum(live.steps) / twin_cfg.rounds if live.steps else None
+    after = (per_round[group] - live_per_round
+             if live_per_round is not None else None)
+    entry = dict(
+        config=dict(dict(attack="classflip"), **kw, rounds=2, display_interval=10,
+                    rounds_per_dispatch=2),
+        records_equal=same, params_bitwise_equal=params_equal, captures=rg.captures,
+        replays=rg.replays, warmup_seconds=rg.warmup_seconds,
+        capture_seconds=rg.capture_seconds, graph_nodes=nodes,
+        rounds_per_sec=record["roundsPerSec"], twin_rounds_per_sec=twin["roundsPerSec"],
+        launches_per_round=per_round, capture_launches_per_round=at_capture,
+        twin_launches_per_round={n: c / twin_cfg.rounds for n, c in twin_launches.items()},
+        weiszfeld_live_steps_per_round=live_per_round,
+        weiszfeld_steps_after_convergence_per_round=after,
+        peak_memory_bytes=peak, twin_peak_memory_bytes=twin_peak, wall_seconds=wall,
+        dispatch_profile=prof, profile_sessions=sessions, card=card)
+    print(f"run {label}: graphed R=2 record == eager R=1 twin (evals repeated in the "
+          f"dispatch)={same}, params bitwise={params_equal}; captures {rg.captures}, "
+          f"warm-up {rg.warmup_seconds:.2f}s, capture+instantiate "
+          f"{rg.capture_seconds:.2f}s, {nodes} graph nodes; rounds/sec graphed "
+          f"{record['roundsPerSec']} eager twin {twin['roundsPerSec']}; launches per "
+          f"replayed round, seen on the device {per_round} (eager twin "
+          f"{entry['twin_launches_per_round']}); Weiszfeld live steps per round "
+          f"{live_per_round}, after convergence {after}; one more dispatch: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']} ms, idle share "
+          f"{prof['idle_share']}, {prof['device_kernels']} device kernels, unprofiled "
+          f"{prof['unprofiled_wall_ms']:.1f} ms wall / {prof['unprofiled_event_ms']:.1f} "
+          f"ms between events; max_memory_allocated graphed {peak / 2**30:.3f} GiB, "
+          f"eager twin {twin_peak / 2**30:.3f} GiB [{card}]")
+    return entry, trainer
+
+
+def run_graphed(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z4)-(z8): each run of :data:`GRAPH_RUNS` as one R=2 dispatch beside
+    its eager R=1 twin (:func:`graphed_pair`).  Printed: captures, warm-up
+    and capture seconds, the graph's nodes, rounds/sec of both, the idle
+    share over one more dispatch, the launches per round (the Weiszfeld
+    steps run after convergence apart, from the twin's live steps) and both
+    peaks of ``torch.cuda.max_memory_allocated``."""
     out = {}
     t_all = time.perf_counter()
     for label, kw, kernel in GRAPH_RUNS:
-        twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
-                             display_interval=10, cache_dir=cache_dir)
-        cfg = dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        with _SolveSteps(aggregators) as live:
-            twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
-        torch.cuda.synchronize()
-        twin_launches = dict(kernels.LAUNCHES)
-        twin_peak = torch.cuda.max_memory_allocated()
-        # only the twin's params stay on the card: the graphed run's peak
-        # is its own
-        twin_params = twin_t.flat_params.clone()
-        del twin_t
-        gc.collect()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        trainer, record = harness.run_with_trainer(cfg, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        rg = trainer.round_graph
-        if not trainer.dispatch_graph[0] or rg is None or rg.captures != 1:
-            _fail(f"run {label}: not one capture ({trainer.dispatch_graph})")
-        at_capture = rg.replay_launches
-        want = _replicated(twin, cfg.rounds, cfg.rounds_per_dispatch)
-        same = _same_record(record, want)
-        params_equal = torch.equal(trainer.flat_params, twin_params)
-        if not (same and params_equal):
-            diff = {key: [abs(a - b) for a, b in zip(record[key], want[key])]
-                    for key in ("variencePath", "valLossPath")}
-            _fail(f"run {label}: the graphed run differs from its eager twin: record "
-                  f"{diff}, params max abs diff "
-                  f"{float((trainer.flat_params - twin_params).abs().max())}")
-        del twin_params
-        nodes = _graph_nodes(rg.graph)
-        prof = profile_dispatch(torch, trainer, cfg.rounds, 2)
-        per_round = {}
-        for group, seen in prof["device_launches"].items():
-            counted = sum(at_capture[k] for k in group.split("+"))
-            if seen != 2 * counted:
-                _fail(f"run {label}: {seen} {group} kernels ran on the device over two "
-                      f"replays, the wrappers counted {counted} per round at capture")
-            per_round[group] = seen / 2
-        group = next(g for g in per_round if kernel in g.split("+"))
-        if per_round[group] < cfg.display_interval:
-            _fail(f"run {label}: {kernel} ran {per_round[group]} times per replayed round "
-                  f"on the device, not every iteration")
-        live_per_round = sum(live.steps) / twin_cfg.rounds if live.steps else None
-        after = (per_round[group] - live_per_round
-                 if live_per_round is not None else None)
-        entry = dict(
-            config=dict(dict(attack="classflip"), **kw, rounds=2, display_interval=10,
-                        rounds_per_dispatch=2),
-            records_equal=same, params_bitwise_equal=params_equal, captures=rg.captures,
-            replays=rg.replays, warmup_seconds=rg.warmup_seconds,
-            capture_seconds=rg.capture_seconds, graph_nodes=nodes,
-            rounds_per_sec=record["roundsPerSec"], twin_rounds_per_sec=twin["roundsPerSec"],
-            launches_per_round=per_round, capture_launches_per_round=at_capture,
-            twin_launches_per_round={n: c / twin_cfg.rounds for n, c in twin_launches.items()},
-            weiszfeld_live_steps_per_round=live_per_round,
-            weiszfeld_steps_after_convergence_per_round=after,
-            peak_memory_bytes=peak, twin_peak_memory_bytes=twin_peak, wall_seconds=wall,
-            dispatch_profile=prof, card=card)
-        out[label] = entry
-        print(f"run {label}: graphed R=2 record == eager R=1 twin (evals repeated in the "
-              f"dispatch)={same}, params bitwise={params_equal}; captures {rg.captures}, "
-              f"warm-up {rg.warmup_seconds:.2f}s, capture+instantiate "
-              f"{rg.capture_seconds:.2f}s, {nodes} graph nodes; rounds/sec graphed "
-              f"{record['roundsPerSec']} eager twin {twin['roundsPerSec']}; launches per "
-              f"replayed round, seen on the device {per_round} (eager twin "
-              f"{entry['twin_launches_per_round']}); Weiszfeld live steps per round "
-              f"{live_per_round}, after convergence {after}; one more dispatch: wall "
-              f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']} ms, idle share "
-              f"{prof['idle_share']}, {prof['device_kernels']} device kernels, unprofiled "
-              f"{prof['unprofiled_wall_ms']:.1f} ms wall / {prof['unprofiled_event_ms']:.1f} "
-              f"ms between events; max_memory_allocated graphed {peak / 2**30:.3f} GiB, "
-              f"eager twin {twin_peak / 2**30:.3f} GiB [{card}]")
+        out[label], trainer = graphed_pair(torch, kernels, harness, FedConfig, card,
+                                           cache_dir, label, kw, kernel)
+        del trainer
     out["wall_seconds"] = time.perf_counter() - t_all
     print(f"runs z4-z8 added {out['wall_seconds']:.1f}s [{card}]")
     return out
@@ -2934,6 +2996,333 @@ def run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir):
     print(f"run z12 added {out['wall_seconds']:.1f}s [{card}]")
     return out
 
+# (z13): the main path's A/B of the kernels against their plain versions,
+# each config at --agg-impl pallas and xla, in turns; ITER_ATOL for the
+# Weiszfeld rules' records and params, the same bits for the median
+AB_RUNS = (
+    ("b_gm2_K1000", dict(agg="gm2", honest_size=900, byz_size=100), "weiszfeld_step",
+     ITER_ATOL),
+    ("a_gm_var_K50", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10),
+     "aircomp_weiszfeld_step", ITER_ATOL),
+    ("c_median_var_K50", dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10),
+     "select_columns", 0.0),
+)
+BF16_RUNS = (
+    ("z13_gm2_bf16_K1000", dict(agg="gm2", honest_size=900, byz_size=100, stack_dtype="bf16"),
+     "weiszfeld_step"),
+    ("z13_gm_var_bf16_K50", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10,
+                                 stack_dtype="bf16"), "aircomp_weiszfeld_step"),
+)
+# JAX's bf16 tolerance (tests/test_aggregators.py:472)
+BF16_TOL = 2e-2
+_RECORD_PATHS = ("trainLossPath", "trainAccPath", "valLossPath", "valAccPath", "variencePath")
+
+
+def _profiled_groups(torch, trainer):
+    """The device kernels of each wrapper group in one more iteration of a
+    finished run, counted by name (:func:`_device_launches`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gens = trainer.iteration_generators(10**6, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.iteration(trainer.flat_params, gens)
+        torch.cuda.synchronize()
+    return _device_launches(torch, prof)
+
+
+def _record_diff(a, b):
+    """The largest absolute difference over the records' float paths."""
+    return max(abs(u - v) for key in _RECORD_PATHS for u, v in zip(a[key], b[key]))
+
+
+def _time_bf16_fused(torch, kernels, card):
+    """Each Weiszfeld kernel's fused step at the main path's shapes, f32 and
+    bf16 from the same values in one call: device ms per call (CUDA-graph
+    replay), the plain version's, and the bound at 4- and 2-byte elements."""
+    from byzantine_aircomp_tpu_torch.ops import channel
+
+    rows = []
+    noise_scale = torch.sqrt(torch.tensor(1e-2, dtype=torch.float32) / 2.0)
+    for name, air, (k, d) in (("weiszfeld_step", False, (1000, 7850)),
+                              ("aircomp_weiszfeld_step", True, (50, 7850))):
+        for dtype in (torch.float32, torch.bfloat16):
+            w, guess, _, _ = _inputs(torch, k, d, dtype, seed=k + d)
+            g = torch.Generator(device="cuda").manual_seed(k * d)
+            draws = dict(h_r=torch.randn(k, device="cuda", generator=g),
+                         h_i=torch.randn(k, device="cuda", generator=g),
+                         fade_scale=channel.FADE_STD,
+                         z=torch.randn(d + 1, device="cuda", generator=g),
+                         noise_scale=noise_scale)
+            state = (torch.ones((), dtype=torch.int32, device="cuda"),
+                     torch.zeros((), dtype=torch.int64, device="cuda"),
+                     kernels.guess_rms(guess))
+            got = _fused_call(torch, kernels, air, w, guess, torch.empty_like(guess), state,
+                              0.0, draws)
+            want = _fused_ref_call(kernels, air, w, guess, state, 0.0, draws)
+            err = float((got[0] - want[0]).abs().max())
+            if not err <= KERNEL_RTOL * float(want[0].abs().max()) + KERNEL_ATOL:
+                _fail(f"{name} fused {dtype} at [{k}, {d}] disagrees with its plain "
+                      f"version: {err}")
+            active, steps, scaler = (t.clone() for t in state)
+            g_out = torch.empty_like(guess)
+
+            def step():
+                if not air:
+                    return kernels.weiszfeld_step_fused(w, guess, g_out, active, steps, -1.0)
+                return kernels.aircomp_weiszfeld_step_fused(
+                    w, guess, g_out, active, steps, -1.0, draws["h_r"], draws["h_i"], scaler,
+                    fade_scale=draws["fade_scale"], z=draws["z"],
+                    noise_scale=draws["noise_scale"])
+
+            ms, host_ms = _time_ms(torch, step, **_reps(k, d))
+            plain_ms, _ = _time_ms(torch, lambda: _fused_ref_call(
+                kernels, air, w, guess, state, -1.0, draws), **_reps(k, d))
+            reads = _stack_reads(torch, k, d, w.element_size())
+            bound_ms, bound_by = _fused_bound(k, d, w.element_size(), air, reads)
+            row = dict(name=name, mode="fused", k=k, d=d, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, stack_reads_in_bound=reads,
+                       card=card)
+            rows.append(row)
+            print(f"kernel {name} fused [{k}, {d}] {row['dtype']}: {ms:.5f} ms (host "
+                  f"{host_ms:.5f}), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}, {reads} read(s) of {w.element_size()}-byte elements), "
+                  f"max_abs_err {err:.3e} [{card}]")
+    return rows
+
+
+def _write_native_inputs(root):
+    """An IDX file (gzipped) and a CIFAR-10 binary batch, from a seed."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    arr = rng.integers(0, 256, size=(64, 28, 28), dtype=np.uint8)
+    idx = os.path.join(root, "train-images-idx3-ubyte.gz")
+    with gzip.open(idx, "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, arr.ndim))
+        for d in arr.shape:
+            f.write(struct.pack(">I", d))
+        f.write(arr.tobytes())
+    labels = rng.integers(0, 10, size=32, dtype=np.uint8)
+    images = rng.integers(0, 256, size=(32, 3, 32, 32), dtype=np.uint8)
+    cifar = os.path.join(root, "data_batch_1.bin")
+    with open(cifar, "wb") as f:
+        for i in range(len(labels)):
+            f.write(bytes([labels[i]]))
+            f.write(images[i].tobytes())
+    return idx, cifar
+
+
+def check_native_reader(card, cache_dir):
+    """The native reader: the library built from ``native/dataio.cpp`` into
+    ``build/native/``, an IDX file and a CIFAR-10 batch read and normalized
+    through it, equal to the NumPy path (the normalization within the
+    library's FMA rounding)."""
+    import numpy as np
+
+    from byzantine_aircomp_tpu_torch.data import datasets, native_io
+
+    t0 = time.perf_counter()
+    lib = native_io.library()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        _fail(f"the native reader did not build: {native_io.describe()}")
+    os.makedirs(cache_dir, exist_ok=True)
+    idx, cifar = _write_native_inputs(cache_dir)
+    native = (datasets._read_idx(idx), datasets._read_cifar_bin(cifar))
+    norm = datasets._normalize(native[0], *datasets.MNIST_STATS)
+    saved = native_io._lib
+    native_io._lib = None
+    os.environ["AIRCOMP_NO_NATIVE"] = "1"
+    native_io._lib_attempted = False
+    try:
+        plain = (datasets._read_idx(idx), datasets._read_cifar_bin(cifar))
+        plain_norm = datasets._normalize(plain[0], *datasets.MNIST_STATS)
+        reader_off = native_io.describe()
+    finally:
+        del os.environ["AIRCOMP_NO_NATIVE"]
+        native_io._lib, native_io._lib_attempted = saved, True
+    same = (np.array_equal(native[0], plain[0]) and np.array_equal(native[1][0], plain[1][0])
+            and np.array_equal(native[1][1], plain[1][1]))
+    norm_err = float(np.abs(norm - plain_norm).max())
+    print(f"native reader: {native_io.describe()} (built or found in {build_s:.2f}s); "
+          f"idx {native[0].shape} and cifar {native[1][0].shape} equal to the numpy path="
+          f"{same}; normalize max abs diff {norm_err:.2e}; without it: {reader_off} [{card}]")
+    if not same or not np.allclose(norm, plain_norm, rtol=1e-6, atol=0):
+        _fail("the native reader disagrees with the numpy path")
+    return dict(reader=native_io.describe(), build_seconds=build_s, equal=same,
+                normalize_max_abs_err=norm_err)
+
+
+def run_z13(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z13): the implementation knobs, the referee, the native reader and
+    the sweep on the card.
+
+    * The main path's A/B: (b) gm2 K=1000, (a) gm --var K=50 and (c) median
+      --var K=50, one round each from one seed, at --agg-impl pallas and
+      xla in turns (pallas, xla, pallas, xla): records and params within
+      ITER_ATOL (the median's the same bits); under pallas the run's
+      kernel launched every iteration (the wrappers' counts) and seen on
+      the device in one more profiled iteration; under xla none of the
+      four launched (the wrappers' counts and the device, by name); the
+      rounds/sec of each run.
+    * bf16: gm2 K=1000 and gm --var K=50 at --stack-dtype bf16, graphed R=2
+      against the eager twin (:func:`graphed_pair`), and the final params
+      within rtol/atol 2e-2 of the f32 eager run; each kernel's fused step
+      at [1000, 7850] and [50, 7850], f32 and bf16, timed with its bound.
+    * The fold: median --var K=50 at --fused-epilogue off against auto,
+      records and params bitwise.
+    * The referee: ``--backend ref`` through the CLI, one round of gm2
+      classflip at K=10, with no JAX imported.
+    * The native reader (:func:`check_native_reader`).
+    * The sweep: (gm2, median, signmv-1) x (none, classflip) at K=20, one
+      round a cell, each cell's kernel launched every iteration."""
+    import dataclasses
+
+    from byzantine_aircomp_tpu_torch import cli
+    from byzantine_aircomp_tpu_torch.analysis import sweep
+    from byzantine_aircomp_tpu_torch.data import datasets
+
+    out = dict(ab={}, bf16={}, card=card)
+    t_all = time.perf_counter()
+    ds = datasets.load("mnist")
+    # a warm-up run, not timed: the turns start from a warm process
+    _drive(torch, kernels, harness, "z13 warm-up", FedConfig(
+        **dict(dict(attack="classflip"), **AB_RUNS[0][1]), rounds=1, display_interval=10,
+        eval_train=False, cache_dir=cache_dir), AB_RUNS[0][2], ds)
+    for label, kw, kernel, atol in AB_RUNS:
+        cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=1, display_interval=10,
+                        eval_train=False, cache_dir=cache_dir)
+        runs = []
+        for turn, impl in enumerate(("pallas", "xla", "pallas", "xla")):
+            c = dataclasses.replace(cfg, agg_impl=impl)
+            trainer, record, launches, wall = _drive(
+                torch, kernels, harness, f"z13 {label} {impl}", c,
+                kernel if impl == "pallas" else None, ds)
+            if trainer._agg_impl != impl:
+                _fail(f"run z13 {label}: the trainer resolved {trainer._agg_impl}, not {impl}")
+            device = _profiled_groups(torch, trainer)
+            group = next(g for g in device if kernel in g.split("+"))
+            if impl == "pallas" and device[group] < 1:
+                _fail(f"run z13 {label} pallas: no {kernel} kernel seen on the device in a "
+                      f"profiled iteration: {device}")
+            if impl == "xla" and (any(launches.values()) or any(device.values())):
+                _fail(f"run z13 {label} xla launched kernels: wrappers {launches}, "
+                      f"device {device}")
+            runs.append(dict(impl=impl, turn=turn, record=record, wall_seconds=wall,
+                             launches=launches, device_launches_profiled_iteration=device,
+                             rounds_per_sec=record["roundsPerSec"][0],
+                             params=trainer.flat_params.clone()))
+            del trainer
+        pallas, xla = runs[0], runs[1]
+        p_err = float((pallas["params"] - xla["params"]).abs().max())
+        r_err = _record_diff(pallas["record"], xla["record"])
+        repeat = {impl: torch.equal(runs[i]["params"], runs[i + 2]["params"])
+                  for i, impl in enumerate(("pallas", "xla"))}
+        if not (p_err <= atol and r_err <= atol):
+            _fail(f"run z13 {label}: pallas and xla differ by {p_err} (params), {r_err} "
+                  f"(records), more than {atol}")
+        rates = [(r["impl"], r["rounds_per_sec"]) for r in runs]
+        print(f"run z13 {label}: pallas vs xla params max abs diff {p_err:.3e}, records "
+              f"{r_err:.3e}; repeat bitwise {repeat}; rounds/sec in turns {rates}; launches "
+              f"pallas {runs[0]['launches']}, xla {runs[1]['launches']}; device, one more "
+              f"iteration: pallas {runs[0]['device_launches_profiled_iteration']}, xla "
+              f"{runs[1]['device_launches_profiled_iteration']} [{card}]")
+        for r in runs:
+            del r["params"], r["record"]
+        out["ab"][label] = dict(params_max_abs_diff=p_err, records_max_abs_diff=r_err,
+                                repeat_bitwise=repeat, runs=runs, tolerance=atol)
+    for label, kw, kernel in BF16_RUNS:
+        entry, trainer = graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir,
+                                      label, kw, kernel)
+        f32_kw = dict(kw, stack_dtype="f32")
+        f32_cfg = FedConfig(**dict(dict(attack="classflip"), **f32_kw), rounds=2,
+                            display_interval=10, cache_dir=cache_dir)
+        f32_t, _ = harness.run_with_trainer(f32_cfg, device="cuda")
+        close = torch.allclose(trainer.flat_params, f32_t.flat_params, rtol=BF16_TOL,
+                               atol=BF16_TOL)
+        diff = float((trainer.flat_params - f32_t.flat_params).abs().max())
+        print(f"run {label}: final params vs the f32 run max abs diff {diff:.3e}, within "
+              f"rtol/atol {BF16_TOL}: {close} [{card}]")
+        if not close:
+            _fail(f"run {label}: the bf16 run's params are not within {BF16_TOL} of the f32 run")
+        entry["params_vs_f32_max_abs_diff"] = diff
+        out["bf16"][label] = entry
+        del trainer, f32_t
+    out["bf16"]["fused_rows"] = _time_bf16_fused(torch, kernels, card)
+    # the fold: median --var with the channel in select_columns' read (auto on
+    # the card) against the channel applied first (off)
+    fold = {}
+    for mode in ("auto", "off"):
+        cfg = FedConfig(agg="median", noise_var=1e-2, attack="classflip", honest_size=40,
+                        byz_size=10, rounds=1, display_interval=10, cache_dir=cache_dir,
+                        fused_epilogue=mode)
+        trainer, record, launches, _ = _drive(torch, kernels, harness, f"z13 fold {mode}",
+                                              cfg, "select_columns", ds)
+        fold[mode] = (trainer.channel_fused, record, trainer.flat_params.clone(), launches)
+        del trainer
+    same = (torch.equal(fold["auto"][2], fold["off"][2])
+            and _same_record(fold["auto"][1], fold["off"][1]))
+    print(f"run z13 fold: median --var K=50 channel folded (auto: {fold['auto'][0]}) vs "
+          f"applied first (off: {fold['off'][0]}): records and params bitwise={same}; "
+          f"launches {fold['auto'][3]} / {fold['off'][3]} [{card}]")
+    if not (same and fold["auto"][0] and not fold["off"][0]):
+        _fail("run z13 fold: the folded median differs from the channel applied first")
+    out["fold"] = dict(bitwise=same, launches={m: fold[m][3] for m in fold})
+    # the referee
+    t0 = time.perf_counter()
+    paths = cli.main(["--backend", "ref", "--agg", "gm2", "--attack", "classflip", "--K",
+                      "10", "--B", "2", "--rounds", "1", "--interval", "10",
+                      "--no-eval-train"])
+    ref_s = time.perf_counter() - t0
+    jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+                        and sys.modules[m] is not None)
+    print(f"run z13 referee: --backend ref gm2 classflip K=10, one round in {ref_s:.1f}s: "
+          f"val acc {paths['valAccPath']}, variance {paths['variencePath']}; JAX modules "
+          f"loaded: {jax_loaded}")
+    if jax_loaded or len(paths["valAccPath"]) != 2 or not all(
+            math.isfinite(v) for v in paths["valAccPath"] + paths["variencePath"]):
+        _fail("run z13 referee: the NumPy referee's run failed or imported JAX")
+    out["referee"] = dict(val_acc_path=paths["valAccPath"], seconds=ref_s)
+    out["native_reader"] = check_native_reader(card, os.path.join(cache_dir, "native"))
+    # the sweep: signmv-1's sign_bits reach no other rule, so it runs apart
+    cells, order = {}, []
+    kernel_of = {"gm2": "weiszfeld_step", "median": "select_columns",
+                 "signmv": "packed_vote_counts"}
+
+    def on_cell(agg, attack, cell):
+        torch.cuda.synchronize()
+        cells[(agg, attack)] = dict(cell, launches=dict(kernels.LAUNCHES))
+        order.append((agg, attack))
+        kernels.reset_launches()
+
+    base = dict(dataset="mnist", honest_size=16, byz_size=4, rounds=1, display_interval=10,
+                batch_size=50, eval_train=False, seed=2021)
+    grid = {}
+    t0 = time.perf_counter()
+    for aggs, extra in ((["gm2", "median"], {}), (["signmv"], dict(sign_bits=1, sign_eta=0.01))):
+        kernels.reset_launches()
+        grid.update(sweep.run_sweep(aggs, [None, "classflip"], dict(base, **extra), dataset=ds,
+                                    on_cell=on_cell))
+    sweep_s = time.perf_counter() - t0
+    table = sweep.markdown_table(grid)
+    print(table)
+    for (agg, attack), cell in cells.items():
+        k = kernel_of[agg]
+        if cell["launches"][k] < base["rounds"] * base["display_interval"]:
+            _fail(f"sweep cell {agg}/{attack}: {k} launched {cell['launches'][k]} times")
+        print(f"sweep cell {agg}/{attack or 'none'}: val_acc {cell['val_acc']} rounds/sec "
+              f"{cell.get('rounds_per_sec')} launches {cell['launches']} [{card}]")
+    out["sweep"] = dict(cells={f"{a}|{t or 'none'}": c for (a, t), c in cells.items()},
+                        table=table, seconds=sweep_s)
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"run z13 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2972,6 +3361,7 @@ def main():
     graphed_runs["j3"] = run_j3(torch, kernels, harness, FedConfig, card, cache_dir)
     obs_runs = run_obs(torch, kernels, harness, FedConfig, card, cache_dir)
     telemetry_runs = run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir)
+    knob_runs = run_z13(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -3016,6 +3406,7 @@ def main():
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
                        obs_runs=obs_runs, telemetry_runs=telemetry_runs,
+                       knob_runs=knob_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

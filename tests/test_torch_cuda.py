@@ -1092,3 +1092,96 @@ def test_telemetry_on_the_card_serves_live_and_leaves_the_run_bitwise(cuda, tmp_
     for key in plain:
         if key != "roundsPerSec":
             assert record[key] == plain[key] or _bits_equal(record[key], plain[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the implementation knobs: --agg-impl, --stack-dtype
+
+
+def _impl_iteration(cfg_kw, impl):
+    """One iteration of a fresh trainer at ``impl`` from the seeded params
+    and one set of draws: (trainer, new params, the four wrappers' launch
+    counts)."""
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    cfg = FedConfig(**dict(dict(attack="classflip", display_interval=1, batch_size=16),
+                           **cfg_kw), agg_impl=impl)
+    t = Trainer(cfg, dataset=_dispatch_ds(), device="cuda")
+    gens = t.iteration_generators(0, 0)
+    before = dict(kernels.LAUNCHES)
+    new, _ = t.iteration(t.flat_params, gens)
+    torch.cuda.synchronize()
+    return t, new, {n: kernels.LAUNCHES[n] - before[n] for n in before}
+
+
+@pytest.mark.parametrize("kw,kernel,exact", [
+    (dict(agg="gm2", honest_size=40, byz_size=10), "weiszfeld_step", False),
+    (dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10, agg_maxiter=200),
+     "aircomp_weiszfeld_step", False),
+    (dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10), "select_columns", True),
+    (dict(agg="signmv", sign_bits=1, sign_eta=0.01, noise_var=1e-2, honest_size=40,
+          byz_size=10), "packed_vote_counts", True),
+], ids=["gm2", "gm_var", "median_var", "signmv1"])
+def test_pallas_and_xla_iterations_agree_and_only_pallas_launches(cuda, kw, kernel, exact):
+    """--agg-impl pallas launches the rule's kernel, xla launches none of the
+    four on the same card, and one iteration from the same params and draws
+    agrees: within 1e-4 (the Weiszfeld sums run in other orders), the same
+    bits for the selections and the votes."""
+    tp, p_new, p_launches = _impl_iteration(kw, "pallas")
+    tx, x_new, x_launches = _impl_iteration(kw, "xla")
+    assert tp._agg_impl == "pallas" and tx._agg_impl == "xla"
+    assert p_launches[kernel] >= 1
+    assert not any(x_launches.values()), x_launches
+    if exact:
+        assert torch.equal(p_new, x_new)
+    else:
+        torch.testing.assert_close(p_new, x_new, rtol=0, atol=1e-4)
+
+
+def test_auto_on_the_card_is_pallas(cuda):
+    kw = dict(agg="median", noise_var=1e-2, honest_size=40, byz_size=10)
+    ta, a_new, a_launches = _impl_iteration(kw, "auto")
+    tp, p_new, p_launches = _impl_iteration(kw, "pallas")
+    assert ta._agg_impl == "pallas" and ta.channel_fused and tp.channel_fused
+    assert a_launches == p_launches and a_launches["select_columns"] == 1
+    assert torch.equal(a_new, p_new)
+
+
+def test_xla_on_the_card_is_refused_a_graph(cuda):
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=8, byz_size=2, rounds=2,
+                    rounds_per_dispatch=2, agg_impl="xla")
+    t = Trainer(cfg, dataset=_dispatch_ds(), device="cuda")
+    assert not t.dispatch_graph[0] and "plain torch versions" in t.dispatch_graph[1]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(agg="gm2", honest_size=900, byz_size=100),
+    dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10),
+], ids=["gm2_K1000", "gm_var_K50"])
+def test_bf16_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
+    """--stack-dtype bf16: two rounds replayed from one CUDA graph against
+    the eager dispatch, bit for bit, the Weiszfeld kernel reading the bf16
+    stack from the graph."""
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2, rounds_per_dispatch=2,
+                    display_interval=5, eval_train=False, stack_dtype="bf16")
+    graphed = Trainer(cfg, dataset=ds, device="cuda")
+    eager = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+    assert graphed.dispatch_graph[0] and graphed._stack_dtype == torch.bfloat16
+    pg = graphed.train()
+    pe = eager.train()
+    torch.cuda.synchronize()
+    assert graphed.round_graph.captures == 1
+    for key in pg:
+        if key != "roundsPerSec":
+            assert _bits_equal(pg[key], pe[key]), (key, pg[key], pe[key])
+    assert torch.equal(graphed.flat_params, eager.flat_params)
+    kernel = "weiszfeld_step" if cfg.agg == "gm2" else "aircomp_weiszfeld_step"
+    assert graphed.round_graph.replay_launches[kernel] == cfg.display_interval * cfg.agg_maxiter

@@ -73,13 +73,25 @@ def test_emnist_idx_files_on_disk_are_read(tmp_path, monkeypatch):
     assert b.source == a.source == "disk" and b.num_classes == 62
     for field in ("y_train", "y_val", "x_train_raw"):
         assert getattr(a, field).tobytes() == getattr(b, field).tobytes(), field
-    # the JAX package normalizes through its native C++ helper where it is
-    # built, which rounds otherwise than the numpy formula the port uses:
-    # within 1 ulp of the largest values (|x| < 4, 1 ulp = 2.4e-7)
+    # both packages read and normalize through the native C++ reader where
+    # it is built: the same bits
+    assert b.reader.startswith("native C++")
     for field in ("x_train", "x_val"):
-        np.testing.assert_allclose(getattr(b, field), getattr(a, field), rtol=0, atol=2.4e-7)
+        assert np.array_equal(getattr(b, field), getattr(a, field)), field
+    # the numpy path (AIRCOMP_NO_NATIVE) is the formula, which the native
+    # helper rounds otherwise: within 1 ulp of the largest values (|x| < 4,
+    # 1 ulp = 2.4e-7)
+    from byzantine_aircomp_tpu_torch.data import native_io
+
+    monkeypatch.setenv("AIRCOMP_NO_NATIVE", "1")
+    monkeypatch.setattr(native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "_lib_attempted", False)
+    c = tdata.load("emnist")
+    assert c.reader.startswith("numpy")
+    for field in ("x_train", "x_val"):
+        np.testing.assert_allclose(getattr(c, field), getattr(a, field), rtol=0, atol=2.4e-7)
     m, sd = np.float32(tdata.EMNIST_STATS[0]), np.float32(tdata.EMNIST_STATS[1])
-    assert np.array_equal(b.x_train, (b.x_train_raw.astype(np.float32) / 255.0 - m) / sd)
+    assert np.array_equal(c.x_train, (c.x_train_raw.astype(np.float32) / 255.0 - m) / sd)
 
 
 def test_emnist_cache_dir_follows_the_name(tmp_path, monkeypatch):

@@ -118,7 +118,8 @@ def test_config_fields_mirror_jax_fedconfig():
     for f in dataclasses.fields(FedConfig):
         assert f.name in jax_fields, f"{f.name} is not a JAX FedConfig field"
         assert f.default == jax_fields[f.name], f.name
-    assert "agg_impl" not in {f.name for f in dataclasses.fields(FedConfig)}
+    assert {"agg_impl", "fused_epilogue", "stack_dtype", "prng_impl"} <= {
+        f.name for f in dataclasses.fields(FedConfig)}
 
 
 @pytest.mark.parametrize("kw,match", [
