@@ -6,7 +6,10 @@ The port's copies of the JAX package's readers
 :mod:`.perf_gate` print for a port stream what their JAX twins print for
 the same stream, with no JAX installed; :mod:`.plots` draws the paper's
 figure from pickled records and :mod:`.trajectory_plot` the trajectory
-files; :mod:`.sweep` runs the (aggregator x attack) matrix::
+files; :mod:`.sweep` runs the (aggregator x attack) matrix,
+:mod:`.fault_matrix` (aggregator x fault x attack), :mod:`.bits_matrix`
+(sign-channel width x attack) and :mod:`.adaptive_matrix` (attack x
+defense mode)::
 
     python -m byzantine_aircomp_tpu_torch.analysis obs_report runs/
     python -m byzantine_aircomp_tpu_torch.analysis plots --cache-dir recs --out fig.png
@@ -17,4 +20,4 @@ figure with no reader name; here the reader is always named.
 """
 
 READERS = ("obs_report", "defense_trace", "trace_view", "tail", "audit", "perf_gate",
-           "plots")
+           "plots", "fault_matrix", "bits_matrix", "adaptive_matrix")

@@ -33,6 +33,13 @@ Byzantine counts; mean, median, trimmed_mean or gm2) with
 ``--cohort-quantile exact|sketch`` and ``--cohort-sketch-bins``; the two
 compose.
 
+Multiple cards, one process each: ``--multihost --coordinator host:port
+--num-processes N --process-id i`` starts the ``torch.distributed`` process
+group (NCCL; gloo with ``--device cpu``), and the run then shards its
+clients over the N ranks (``--sharding auto|on|off``, ``--model-parallel
+M`` ranks along d) or, with ``--pop-shards N`` on a streamed service round,
+its cohort chunks; rank 0 writes the record.
+
 Multi-round dispatch: ``--rounds-per-dispatch R`` (R divides ``--rounds``)
 runs R rounds per dispatch, on the card each round one replay of a CUDA
 graph of the round where the configuration allows it (the run's banner says
@@ -87,8 +94,8 @@ from .fed.config import FedConfig
 def add_knob_flags(p) -> None:
     """The attack and defense magnitudes, the data split, the training
     options, the fault channel, the defense, cohort streaming, service
-    rounds and multi-round dispatch: shared by the run CLI and the sweep
-    (JAX ``cli.py:31``, without ``--pop-shards``, which is not ported)."""
+    rounds and their population shards, and multi-round dispatch: shared by
+    the run CLI and the sweep (JAX ``cli.py:31``)."""
     p.add_argument("--partition", choices=["contiguous", "dirichlet"],
                    default="contiguous",
                    help="client data split (dirichlet = label-skewed non-IID, "
@@ -216,6 +223,12 @@ def add_knob_flags(p) -> None:
                    help="trim-fraction multiplier of each rollback")
     p.add_argument("--rollback-max", type=int, default=3,
                    help="rollbacks per run")
+    p.add_argument("--pop-shards", type=int, default=1,
+                   help="split the streamed service round's cohort chunks over this "
+                        "many owners: one rank each in a process group of that size "
+                        "(parallel/popmesh.py), a sequential engine otherwise; 1 = the "
+                        "single chunk loop (> 1 requires --service on with "
+                        "--cohort-size)")
     # multi-round dispatch; the granularity knobs require
     # --rounds-per-dispatch > 1
     p.add_argument("--rounds-per-dispatch", type=int, default=1,
@@ -253,15 +266,24 @@ ARG_TO_FIELD = {
     "eval_train": "eval_train", "checkpoint_dir": "checkpoint_dir",
     "dataset": "dataset", "model": "model", "resnet_width": "resnet_width",
     "remat": "remat", "agg_impl": "agg_impl", "fused_epilogue": "fused_epilogue",
-    "prng_impl": "prng_impl", "stack_dtype": "stack_dtype",
+    "prng_impl": "prng_impl", "stack_dtype": "stack_dtype", "sharding": "sharded",
+    "model_parallel": "model_parallel",
 }
+# --sharding's words -> the sharded field (JAX cli.py:26)
+_SHARDING = {"auto": None, "on": True, "off": False}
+_CONVERT = {"sharding": _SHARDING.get}
+
+
+def _field_value(args: argparse.Namespace, dest: str):
+    value = getattr(args, dest)
+    return _CONVERT[dest](value) if dest in _CONVERT else value
 _KNOB_FIELDS = (
     "partition", "dirichlet_alpha", "size_skew", "participation", "client_momentum",
     "bucket_size", "cohort_size", "cohort_quantile", "cohort_sketch_bins", "attack_param",
     "krum_m", "clip_tau", "clip_iters", "sign_eta", "sign_bits", "dnc_iters",
     "dnc_sub_dim", "dnc_c", "fault", "dropout_prob", "fade_floor", "csi_std",
     "corrupt_prob", "corrupt_mode", "corrupt_size", "defense",
-    *FedConfig._DEFENSE_KNOBS, "service", *FedConfig._SERVICE_KNOBS,
+    *FedConfig._DEFENSE_KNOBS, "service", *FedConfig._SERVICE_KNOBS, "pop_shards",
     "rounds_per_dispatch", "eval_interval", "dispatch_mode", "dispatch_prefetch",
     "async_writer", *FedConfig._OBS_FIELDS,
 )
@@ -387,6 +409,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "command line override the preset")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default) or cpu")
+    # the execution layout (parallel/): the clients over the process group's
+    # ranks, and the multi-process start-up, one process per card.  Any of
+    # the last four brings the process group up (NCCL on the card, gloo with
+    # --device cpu) before the trainer is built
+    p.add_argument("--sharding", choices=["auto", "on", "off"], default="auto",
+                   help="shard the clients over the process group's ranks (auto: when "
+                        "there are several and K divides evenly)")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="ranks along the model (d) axis of the grid")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the torch.distributed process group (from the "
+                        "launcher's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK when the "
+                        "explicit flags are left out)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0's TCPStore")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -437,12 +476,13 @@ def config_from_args(args: argparse.Namespace,
                 "--preset is used: which flags are explicit comes from it"
             )
         given = _explicit_dests(argv)
-        overrides = {field: getattr(args, dest) for dest, field in ARG_TO_FIELD.items()
+        overrides = {field: _field_value(args, dest) for dest, field in ARG_TO_FIELD.items()
                      if dest in given}
         cfg = presets.get(args.preset, use_gpu=device == "cuda", **overrides)
     else:
         cfg = FedConfig(use_gpu=device == "cuda",
-                        **{field: getattr(args, dest) for dest, field in ARG_TO_FIELD.items()})
+                        **{field: _field_value(args, dest)
+                           for dest, field in ARG_TO_FIELD.items()})
     # reference --K/--B override: honestSize = K - B (:531-533); with K
     # alone the total node count becomes K, keeping the Byzantine count
     if args.K is not None and args.B is not None:
@@ -462,6 +502,15 @@ def main(argv: Optional[Sequence[str]] = None):
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(argv)
+    if (args.multihost or args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        # (JAX cli.py:718-731) before anything touches a device
+        from .parallel import multihost
+
+        multihost.initialize(coordinator=args.coordinator, num_processes=args.num_processes,
+                             process_id=args.process_id,
+                             device=resolve_device_flags(args.device, args.use_gpu))
+        print(multihost.process_summary())
     cfg = config_from_args(args, argv)
     if args.backend == "ref":
         # the NumPy referee (JAX cli.py:733-736): no torch device
@@ -469,5 +518,9 @@ def main(argv: Optional[Sequence[str]] = None):
 
         return run_ref(cfg)
     from .fed import harness
+    from .parallel import multihost
 
-    return harness.run(cfg, device="cuda" if cfg.use_gpu else "cpu")
+    try:
+        return harness.run(cfg, device="cuda" if cfg.use_gpu else "cpu")
+    finally:
+        multihost.shutdown()

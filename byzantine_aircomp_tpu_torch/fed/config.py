@@ -1,18 +1,19 @@
 """Run configuration of the port.
 
-A subset of ``byzantine_aircomp_tpu/fed/config.py`` (the main path, every
-aggregation rule's knobs, the fault channel's, the models' widths, the
-client partition, the training options, the online defense, cohort
-streaming and service rounds): the same field names
-and defaults, which mirror the reference's ``optConfig`` / CLI
-surface (``MNIST_Air_weight.py:16-28, :516-544``): K=50 honest clients, 100
-rounds x displayInterval 10, batch 50, gamma 1e-2, weight_decay 0, seed
-2021, gm/gm2 maxiter 1000 tol 1e-5 (``:350``).  There is no ``agg_impl``:
-on CUDA the hand-written kernels always run, on the CPU their plain
-versions.  Multi-round dispatch (``rounds_per_dispatch`` and its knobs) is
-here; the JAX package's population sharding (``pop_shards``) is not ported
-yet, nor are its observability, profiling and execution-layout fields.
+The JAX package's ``byzantine_aircomp_tpu/fed/config.py`` field for field
+(the main path, every aggregation rule's knobs, the fault channel's, the
+models' widths, the client partition, the training options, the online
+defense, cohort streaming, service rounds and their population shards,
+multi-round dispatch, the implementation knobs, the observability fields
+and the execution layout), with the same names and defaults, plus
+``use_gpu``, the reference's ``--use-gpu``.  The defaults mirror the
+reference's ``optConfig`` / CLI surface (``MNIST_Air_weight.py:16-28,
+:516-544``): K=50 honest clients, 100 rounds x displayInterval 10, batch
+50, gamma 1e-2, weight_decay 0, seed 2021, gm/gm2 maxiter 1000 tol 1e-5
+(``:350``).  ``agg_impl`` picks the hand-written CUDA kernels
+(``pallas``) or their plain torch versions (``xla``).
 """
+
 
 from __future__ import annotations
 
@@ -209,6 +210,15 @@ class FedConfig:
     rollback_cusum: float = 0.0
     rollback_widen: float = 1.5
     rollback_max: int = 3
+    # population shards of a streamed service round (JAX fed/config.py:
+    # 284-296): the round's cohort chunks split over S owners, each scanning
+    # its own chunk range, the partial carries merged by the fixed algebra
+    # of ops/shardctx.py (one rank each when a process group of S ranks is
+    # up, the sequential engine otherwise).  1 (default) is the single
+    # chunk loop bit for bit and is skipped from the config hash; > 1 needs
+    # --service on with a streamed cohort and forks the title (_psS) and
+    # hash, since the float partial sums add in another order
+    pop_shards: int = 1
 
     # multi-round dispatch (fed/train.py Trainer._train_multi): R rounds per
     # dispatch, on the card one CUDA-graph replay per round (fed/graphs.py)
@@ -242,6 +252,12 @@ class FedConfig:
 
     # federated optimizer (reference --opt, only SGD exists)
     opt: str = "SGD"
+
+    # execution layout (parallel/sharded.py): None = auto (shard the clients
+    # over the process group's ranks when there are several and K divides
+    # evenly), True/False = force; model_parallel splits the d axis
+    sharded: Optional[bool] = None
+    model_parallel: Optional[int] = None
 
     # checkpoint / resume (the reference's --inherit is dead; this one
     # works): the params and the extra state are written after every round
@@ -497,6 +513,7 @@ class FedConfig:
         attack = attack_lib.resolve(self.attack)
         self._validate_cohort(part_h, part_b, attack, spec)
         self._validate_service()
+        self._validate_pop_shards()
         self._validate_dispatch()
         if attack is not None and attack.defense_aware and self.defense == "off":
             raise ValueError(
@@ -797,6 +814,34 @@ class FedConfig:
                 "(dropout_prob > 0), exactly the allocation the streamed path "
                 "removes; deep_fade/csi/corrupt stream fine"
             )
+
+    def _validate_pop_shards(self):
+        """Population shards (JAX ``fed/config.py:1040-1068``)."""
+        if self.pop_shards < 1:
+            raise ValueError(f"pop_shards must be >= 1, got {self.pop_shards}")
+        if self.model_parallel is not None and self.model_parallel < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {self.model_parallel}")
+        if self.pop_shards == 1:
+            return
+        if self.service != "on":
+            raise ValueError(
+                "--pop-shards > 1 shards the service population's cohort chunks over "
+                "owners — it requires --service on")
+        if self.cohort_size <= 0:
+            raise ValueError(
+                "--pop-shards > 1 shards the STREAMED chunk scan; set --cohort-size > 0 "
+                "(the resident path has its own client-axis sharding via --sharded)")
+        n_chunks = self.node_size // self.cohort_size
+        if n_chunks % self.pop_shards:
+            raise ValueError(
+                f"pop_shards {self.pop_shards} must divide the per-round chunk count "
+                f"{n_chunks} (node_size {self.node_size} / cohort_size "
+                f"{self.cohort_size}) so every shard owns the same number of cohort "
+                "chunks")
+        if self.forensics != "off":
+            raise ValueError(
+                "--forensics needs the round's full top-M merge stream, which is not "
+                "shard-mergeable; use --pop-shards 1 for forensic runs")
 
     def _validate_dispatch(self):
         """Multi-round dispatch (JAX ``fed/config.py:1070-1145``)."""

@@ -35,6 +35,7 @@ from . import checkpoint
 from .config import FedConfig
 from ..defense import events as defense_events
 from .train import FAULT_PATHS, SERVICE_PATHS, Trainer
+from ..parallel import multihost
 
 
 # the log's routing, set per run by configure_log: the --log-file tee and
@@ -143,6 +144,10 @@ def run_title(cfg: FedConfig) -> str:
         for knob in FedConfig._SERVICE_KNOBS:
             if knob != "population" and _non_default(cfg, knob):
                 title += f"_{knob.replace('_', '')}{getattr(cfg, knob)}"
+    if cfg.pop_shards > 1:
+        # (JAX fed/harness.py:161-165): the shard fold adds the float
+        # partial sums in another order, so the lineage forks
+        title += f"_ps{cfg.pop_shards}"
     if cfg.rounds_per_dispatch > 1:
         # (JAX fed/harness.py:166-175): boundary eval and checkpoints, so
         # its runs never alias the per-round loop's
@@ -186,11 +191,12 @@ _HASH_SKIP = ("checkpoint_dir", "cache_dir", "inherit", "rounds", "async_writer"
 
 # fields skipped while at their default, so that a config that leaves them
 # there hashes as it did before the field was ported: the sign channel's
-# width, the size skew, the training options and the implementation knobs
+# width, the size skew, the training options, the implementation knobs and
+# the execution layout
 _HASH_SKIP_AT_DEFAULT = (
     "sign_bits", "size_skew", "local_steps", "fedprox_mu", "server_opt", "server_lr",
     "server_momentum", "client_momentum", "participation", "bucket_size",
-    "agg_impl", "fused_epilogue", "stack_dtype", "prng_impl",
+    "agg_impl", "fused_epilogue", "stack_dtype", "prng_impl", "sharded", "model_parallel",
 )
 
 
@@ -223,6 +229,10 @@ def config_hash(cfg: FedConfig) -> str:
         # (JAX fed/harness.py:280-286): an R = 1 config hashes as it did
         # before the dispatch fields were ported
         skip += ("rounds_per_dispatch",) + FedConfig._DISPATCH_KNOBS
+    if cfg.pop_shards == 1:
+        # (JAX fed/harness.py:265-270): the single chunk loop hashes as it
+        # did before population shards were ported
+        skip += ("pop_shards",)
     items = sorted(
         (f.name, repr(getattr(cfg, f.name)))
         for f in dataclasses.fields(cfg)
@@ -276,6 +286,9 @@ def banner(cfg: FedConfig, trainer: Trainer, path: str):
         f"stackDtype={cfg.stack_dtype} prng={cfg.prng_impl}",
         f"[data reader ]   {ds.reader}",
     ]
+    layout = getattr(trainer, "layout_desc", None)
+    if layout is not None:
+        lines.append(f"[layout      ]   {layout}")
     if cfg.rounds_per_dispatch > 1:
         graphed, reason = trainer.dispatch_graph
         lines.append(
@@ -359,12 +372,13 @@ def extra_state(t: Trainer) -> list:
     checkpoint contract: the JAX package reads a port checkpoint of the
     same config leaf for leaf, and the reverse."""
     leaves = []
+    client_m, fault_state = t.checkpoint_carries()
     if t.server_opt_state is not None:
         leaves += list(t.server_opt_state)
-    if t.client_m is not None:
-        leaves.append(t.client_m)
-    if t.fault_state is not None:
-        leaves += [x for x in t.fault_state if x is not None]
+    if client_m is not None:
+        leaves.append(client_m)
+    if fault_state is not None:
+        leaves += [x for x in fault_state if x is not None]
     if t.defense_state is not None:
         det, pol = t.defense_state
         leaves += list(det) + list(pol)
@@ -395,12 +409,13 @@ def restore_trainer(trainer: Trainer, restored, log_fn=None) -> int:
         )
         if trainer.server_opt_state is not None:
             trainer.server_opt_state = tuple(next(leaves) for _ in trainer.server_opt_state)
-        if trainer.client_m is not None:
-            trainer.client_m = next(leaves)
-        if trainer.fault_state is not None:
-            trainer.fault_state = fault_lib.FaultState(
-                *(None if x is None else next(leaves) for x in trainer.fault_state)
-            )
+        client_m, fault_state = trainer.checkpoint_carries()
+        if client_m is not None:
+            client_m = next(leaves)
+        if fault_state is not None:
+            fault_state = fault_lib.FaultState(
+                *(None if x is None else next(leaves) for x in fault_state))
+        trainer.restore_carries(client_m, fault_state)
         if trainer.defense_state is not None:
             det, pol = trainer.defense_state
             trainer.defense_state = (tuple(next(leaves) for _ in det),
@@ -572,10 +587,15 @@ def modeled_peak(cfg: FedConfig, trainer: Trainer) -> Tuple[int, Dict[str, int]]
     modeled = hbm_lib.cuda_peak_bytes(
         rows, trainer.dim, client_bytes=client, data_bytes=data, channel_copies=channel,
         param_copies=6 if streamed else 4, state_bytes=state_pc * cfg.node_size)
+    # population shards (JAX obs/hbm.py streamed_peak_bytes): the merge
+    # holds the S partial carries (the [d] float sums, the per-client rows)
+    # at once, on each rank of the process group as in one process
+    merge = (cfg.pop_shards - 1) * (6 * trainer.dim * 4 + state_pc * cfg.node_size)
     terms = dict(rows=rows, data_bytes=data, stack_bytes=rows * trainer.dim * 4,
                  channel_copies=channel, client_step_bytes=client,
-                 input_bytes_per_sample=input_bytes, activation_bytes_per_sample=act_bytes)
-    return modeled, terms
+                 input_bytes_per_sample=input_bytes, activation_bytes_per_sample=act_bytes,
+                 pop_shard_merge_bytes=merge)
+    return modeled + merge, terms
 
 
 def _memory_block(cfg: FedConfig, trainer: Trainer, baseline: Optional[int]) -> Dict:
@@ -589,12 +609,14 @@ def _memory_block(cfg: FedConfig, trainer: Trainer, baseline: Optional[int]) -> 
 
     memory = dict(profile_lib.device_memory(trainer.device))
     modeled, terms = modeled_peak(cfg, trainer)
-    memory["hbm_model"] = "streamed" if cfg.cohort_size > 0 else "resident"
+    memory["hbm_model"] = ("resident" if cfg.cohort_size == 0 else
+                           "streamed_per_host" if cfg.pop_shards > 1 else "streamed")
     memory["modeled_peak_bytes"] = modeled
     memory["model_terms"] = terms
     memory["jax_modeled_peak_bytes"] = (
         hbm_lib.streamed_peak_bytes(cfg.node_size, trainer.dim, cfg.cohort_size,
-                                    data_bytes=terms["data_bytes"])
+                                    data_bytes=terms["data_bytes"],
+                                    pop_shards=cfg.pop_shards)
         if cfg.cohort_size > 0 else
         hbm_lib.modeled_peak_bytes(cfg.node_size, trainer.dim, data_bytes=terms["data_bytes"]))
     memory["warn_factor"] = cfg.hbm_warn_factor
@@ -649,6 +671,55 @@ def _telemetry_epilogue(cfg: FedConfig, obs) -> None:
                  alerts=alert_summary)
 
 
+# the rules whose collective form ``--sharding auto`` does not pick: each
+# Weiszfeld step of it is host-launched ops and an all_reduce, which on one
+# H100 rank ran an iteration 3.1x (gm2 K=1000) to 10x (gm --var K=50) slower
+# than the one-device loop (PERF.md, run z14b), and no run over several
+# cards shows the split paying; ``--sharding on`` still picks it
+AUTO_UNSHARDED_RULES = ("gm", "gm2")
+
+
+def make_trainer(cfg: FedConfig, dataset=None, device: str = "cuda") -> Trainer:
+    """Pick the execution layout as the JAX harness's ``_make_trainer``
+    (``fed/harness.py:372-405``) does, keyed on the process group's world
+    size where JAX reads its device count: population shards over the
+    group's ranks (``pop_shards`` > 1 and a group of exactly that size; the
+    sequential engine with fewer ranks or ``sharded=False``; a larger group
+    is refused, where JAX runs on its first ``pop_shards`` devices); else
+    the clients sharded over the (clients, model) grid of ranks when that
+    buys parallelism (``sharded=None`` is auto: several ranks, K divisible
+    by the clients axis, and a rule not in :data:`AUTO_UNSHARDED_RULES`) or
+    when forced; else the one-device trainer."""
+    from ..parallel import PopShardedFedTrainer, ShardedFedTrainer
+    from ..parallel import mesh as mesh_lib
+
+    n_dev = multihost.process_count()
+    if cfg.pop_shards > 1:
+        if cfg.sharded is not False and n_dev > cfg.pop_shards:
+            raise ValueError(
+                f"pop_shards={cfg.pop_shards} runs one shard per rank, but the process "
+                f"group has {n_dev} ranks: start {cfg.pop_shards} processes, or use the "
+                "sequential engine with --sharding off")
+        if cfg.sharded is not False and n_dev == cfg.pop_shards:
+            log(f"Population-sharded execution over {cfg.pop_shards} ranks")
+            return PopShardedFedTrainer(cfg, dataset=dataset, device=device)
+        log(f"Population shards x{cfg.pop_shards} (sequential engine)")
+        return Trainer(cfg, dataset=dataset, device=device)
+    n_model = cfg.model_parallel or 1
+    n_clients_axis = n_dev // n_model if n_dev % n_model == 0 else 0
+    auto = n_dev > 1 and bool(n_clients_axis) and cfg.node_size % n_clients_axis == 0
+    if auto and cfg.sharded is None and cfg.agg in AUTO_UNSHARDED_RULES:
+        log(f"One-device execution on every rank: --sharding auto keeps {cfg.agg} "
+            "unsharded (its per-step all_reduce costs more than the step; "
+            "--sharding on splits it)")
+        auto = False
+    if auto if cfg.sharded is None else cfg.sharded:
+        mesh = mesh_lib.make_mesh(model_parallel=cfg.model_parallel)
+        log(f"Sharded execution over mesh {mesh.describe()}")
+        return ShardedFedTrainer(cfg, dataset=dataset, device=device, mesh=mesh)
+    return Trainer(cfg, dataset=dataset, device=device)
+
+
 def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
     from ..device import resolve_device
     from ..obs import hbm as hbm_lib
@@ -662,7 +733,11 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
         torch.cuda.reset_peak_memory_stats(dev)
         baseline = torch.cuda.memory_allocated(dev)
     with obs.span("setup", stage="trainer_init"):
-        trainer = Trainer(cfg, dataset=dataset, device=device)
+        trainer = make_trainer(cfg, dataset=dataset, device=device)
+    # in a process group every rank runs the whole schedule; rank 0 alone
+    # writes the record and the npz checkpoints
+    primary = multihost.process_index() == 0
+    record_in_file = record_in_file and primary
     path = cache_path(cfg, trainer.dataset.name)
     banner(cfg, trainer, path)
 
@@ -674,8 +749,11 @@ def _run_inner(cfg, device, record_in_file, dataset, on_round, writer, obs):
         def checkpoint_fn(r, t, so_far):
             if resume_prefix:
                 so_far = merge_paths(resume_prefix, so_far)
-            checkpoint.save(cfg.checkpoint_dir, title, r, t.flat_params,
-                            extra_state(t), meta=json.dumps(so_far), writer=writer)
+            # every rank gathers the carries a layout keeps by rows
+            leaves = extra_state(t)
+            if primary:
+                checkpoint.save(cfg.checkpoint_dir, title, r, t.flat_params,
+                                leaves, meta=json.dumps(so_far), writer=writer)
             if on_round is not None:
                 on_round(r, t)
 

@@ -2,10 +2,18 @@
 
 Port of the rounds of ``byzantine_aircomp_tpu/fed/train.py``: the resident
 ``_iteration`` (:605), with or without service rounds, and the
-cohort-streamed ``_iteration_streamed`` (:1103) with the one-device (LOCAL)
-context, and the multi-round dispatch driver ``_train_multi`` (:2337), whose
-rounds on the card replay one CUDA graph of a round (:mod:`.graphs`);
-population sharding is not ported.  One resident global iteration is
+cohort-streamed ``_iteration_streamed`` (:1103), whose chunk passes run through a
+population-shard context (:mod:`..ops.shardctx`; the process-group engine
+is ``parallel.popmesh``), and the multi-round dispatch driver
+``_train_multi`` (:2337), whose rounds on the card replay one CUDA graph of
+a round (:mod:`.graphs`).  The client step's rows, the straggler replay and
+the stack's assembly, the message attack, the OMA link's terms, the
+rule's call and the honest variance are hooks (:meth:`Trainer._client_stage`,
+:meth:`Trainer._dropout_stage`, :meth:`Trainer._whole_stack`,
+:meth:`Trainer._attack_stage`, :meth:`Trainer._held_terms`,
+:meth:`Trainer._aggregate`, :meth:`Trainer._variance`) that the sharded
+layout (``parallel.sharded``) runs on a rank's block of the stack.  One resident
+global iteration is
 
     flat_params [d] [--participants: m of K drawn-->]
       --per-client local SGD steps (FedAvg, FedProx, client momentum)-->
@@ -90,6 +98,7 @@ from ..ops import channel as channel_lib
 from ..ops import faults as fault_lib
 from ..ops import flatten as flatten_lib
 from ..ops import kernels
+from ..ops import shardctx as shardctx_lib
 from ..obs import forensics as forensics_lib
 from ..registry import MODELS
 from . import graphs as graphs_lib
@@ -487,6 +496,15 @@ class Trainer:
         # seeds once a restore happened (0: never, the unsalted streams)
         self._rollback_epoch = 0
         self._rollbacks_done = 0
+        # the streamed round's population-shard context (ops/shardctx.py):
+        # LOCAL at pop_shards 1, the sequential engine above, the process
+        # group's engine in parallel/popmesh.py
+        self._pop_ctx = self._make_pop_ctx()
+
+    def _make_pop_ctx(self):
+        """LOCAL (pop_shards 1) or the sequential reference engine (JAX
+        ``fed/train.py:437-446``)."""
+        return shardctx_lib.make_ctx(self.cfg.pop_shards)
 
     # ------------------------------------------------------------------
     # one iteration
@@ -706,6 +724,74 @@ class Trainer:
             return x.reshape(batch + self._sample_shape), y.reshape(batch)
         return x.reshape(x.shape[:2] + self._sample_shape), y
 
+    def _client_stage(self, flat_params, idx, is_byz, part):
+        """The clients' rows of the stack from the batch indices ``idx``
+        [m, E*B]: their local steps, with client momentum read and written
+        back (the participants' rows under ``part``).  A layout that splits
+        the rows (``parallel.sharded``) computes its own."""
+        x, y = self._batches(idx)
+        if self.client_m is None:
+            return self.client_stack(flat_params, x, y, is_byz)
+        m_prev = self.client_m if part is None else self.client_m[part]
+        w_stack, m_rows = self.client_stack_momentum(flat_params, x, y, is_byz, m_prev)
+        # the drawn rows written back (distinct indices: no accumulation)
+        self.client_m = m_rows if part is None else self.client_m.index_put((part,), m_rows)
+        return w_stack
+
+    def _dropout_stage(self, w_rows, gens, fault_draws):
+        """The fault's straggler replay on the rows of :meth:`_client_stage`,
+        against the stale buffer, which becomes what they delivered:
+        ``(rows, n_dropped)``."""
+        stale, ge_bad = self.fault_state
+        w_rows, stale, n_dropped = fault_lib.apply_dropout(
+            self.fault, w_rows, stale, generator=gens.fault,
+            dropped=fault_draws.get("dropped"))
+        self.fault_state = fault_lib.FaultState(stale, ge_bad)
+        return w_rows, n_dropped
+
+    def _whole_stack(self, w_rows):
+        """The [m, d] stack the later stages read, from the rows this
+        trainer computed (all of them here)."""
+        return w_rows
+
+    def _attack_stage(self, w_stack, gens, draws, view):
+        """The message attack on the stack (its last ``m_b`` rows are the
+        Byzantine ones)."""
+        return self.attack.apply_message(
+            w_stack, self._part_b, gens.message, param=self.cfg.attack_param,
+            noise=draws.get("message"), defense=view,
+        )
+
+    def _held_terms(self, terms):
+        """The OMA link's terms of the rows of :meth:`_whole_stack` (all)."""
+        return terms
+
+    def _aggregate(self, w_agg, agg_kw):
+        """The rule on the stack: the [d] f32 aggregate."""
+        return self.agg_fn(w_agg, **agg_kw).to(torch.float32)
+
+    def _variance(self, w_stack, m_h, terms, service):
+        """The honest dispersion of the received stack (its first ``m_h``
+        rows); ``terms`` when the channel folds into the rule's read."""
+        w_h = w_stack[:m_h]
+        if terms is not None:
+            # the received honest rows, bitwise those channel.oma makes
+            w_h = w_h + channel_lib.oma_residual(
+                channel_lib.OmaTerms(*(t[:m_h] for t in terms))
+            )
+        # under service the missed rows are NaN: the dispersion of what the
+        # round received
+        return masked_honest_variance(w_h) if service else honest_variance(w_h, m_h)
+
+    def checkpoint_carries(self):
+        """``(client momentum [K, d], fault state)`` whole, as a checkpoint
+        holds them."""
+        return self.client_m, self.fault_state
+
+    def restore_carries(self, client_m, fault_state):
+        """Install whole carries read from a checkpoint."""
+        self.client_m, self.fault_state = client_m, fault_state
+
     def _agg_kw(self, flat_params, honest_size, degraded, gens, draws, terms=None):
         cfg = self.cfg
         kw = dict(
@@ -834,46 +920,31 @@ class Trainer:
             offsets, sizes, cfg.local_steps * cfg.batch_size,
             generator=gens.batch, u=draws.get("u"),
         )
-        x, y = self._batches(idx)
         # one device bool gates every Byzantine behavior until the onset
         is_byz, attack_on = self._part_mask, None
         if self._attack_onset is not None:
             attack_on = self.attack_iter >= self._attack_onset
             is_byz = is_byz & attack_on
         with torch.profiler.record_function(CLIENT_STEP_RANGE):
-            if self.client_m is not None:
-                m_prev = self.client_m if part is None else self.client_m[part]
-                w_stack, m_rows = self.client_stack_momentum(flat_params, x, y, is_byz,
-                                                             m_prev)
-                # the drawn rows written back (distinct indices: no accumulation)
-                self.client_m = (m_rows if part is None
-                                 else self.client_m.index_put((part,), m_rows))
-            else:
-                w_stack = self.client_stack(flat_params, x, y, is_byz)
-
+            w_stack = self._client_stage(flat_params, idx, is_byz, part)
         if fault is not None:
             # before the attack: the buffer keeps what the clients sent
-            stale, ge_bad = self.fault_state
-            w_stack, stale, n_dropped = fault_lib.apply_dropout(
-                fault, w_stack, stale, generator=gens.fault,
-                dropped=fault_draws.get("dropped"),
-            )
+            w_stack, n_dropped = self._dropout_stage(w_stack, gens, fault_draws)
+            ge_bad = self.fault_state.ge_bad
+        w_stack = self._whole_stack(w_stack)
         if self.attack is not None:
             # a defense-aware attack reads the detector state published
             # after the previous iteration (under service, the drawn ids')
             view = (self._defense_view(flat_params, pop_ids)
                     if self.attack.defense_aware else None)
-            w_att = self.attack.apply_message(
-                w_stack, m_b, gens.message, param=cfg.attack_param,
-                noise=draws.get("message"), defense=view,
-            )
+            w_att = self._attack_stage(w_stack, gens, draws, view)
             w_stack = w_att if attack_on is None else torch.where(attack_on, w_att, w_stack)
         if fault is not None:
             # after it: corruption and the channel's faults hit every row
             w_stack, ge_bad, n_erased, n_corrupt = fault_lib.apply_transmission(
                 fault, w_stack, ge_bad, generator=gens.fault, draws=fault_draws,
             )
-            self.fault_state = fault_lib.FaultState(stale, ge_bad)
+            self.fault_state = fault_lib.FaultState(self.fault_state.stale, ge_bad)
         adaptive = spec is not None and spec.mode == "adaptive"
         terms = None
         if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
@@ -885,11 +956,11 @@ class Trainer:
                 terms = None
             else:
                 if terms is None:
-                    k, d = w_stack.shape
                     terms = channel_lib.oma_terms(
-                        k, d, cfg.noise_var, generator=gens.channel,
+                        m_h + m_b, self.dim, cfg.noise_var, generator=gens.channel,
                         device=w_stack.device,
                     )
+                terms = self._held_terms(terms)
                 if not self.channel_fused:
                     w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
                     terms = None
@@ -957,7 +1028,7 @@ class Trainer:
             aggregated = defense_lib.aggregate_rung(rung, spec.ladder, w_agg, **agg_kw)
         else:
             # reference semantics (:354-358)
-            aggregated = self.agg_fn(w_agg, **agg_kw).to(torch.float32)
+            aggregated = self._aggregate(w_agg, agg_kw)
         if degraded:
             # the receiver's finite guard: a coordinate that no finite row
             # reached keeps its previous value
@@ -970,15 +1041,7 @@ class Trainer:
         new_flat = self._server_step(flat_params, aggregated)
         variance = None
         if want_variance:
-            w_h = w_stack[:m_h]
-            if terms is not None:
-                # the received honest rows, bitwise those channel.oma makes
-                w_h = w_h + channel_lib.oma_residual(
-                    channel_lib.OmaTerms(*(t[:m_h] for t in terms))
-                )
-            # under service the missed rows are NaN: the dispersion of what
-            # the round received
-            variance = masked_honest_variance(w_h) if service else honest_variance(w_h, m_h)
+            variance = self._variance(w_stack, m_h, terms, service)
         if self.attack_iter is not None:
             self.attack_iter = self.attack_iter + 1
         return new_flat, variance
@@ -1117,22 +1180,44 @@ class Trainer:
         rebuild_full = self.make_rebuild(flat_params, gens, idx_all, attack_on, pop_ids,
                                          missed, ge_bad, defense_in, draws)
 
-        # the observation pass
+        # the observation pass, one carry through the population-shard
+        # context (JAX fed/train.py:1440-1580): float sums fold in shard
+        # order, integer sums and extrema merge exactly, the detector rows
+        # stack for the disjoint-row merge below; () marks a slot that is off
+        ctx = self._pop_ctx
+        sharded = ctx.n_shards > 1
+        want_topm = spec is not None and self._forensics_on
         zeros = torch.zeros(d, dtype=torch.float32, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        s_all = s_fin = s_h = zeros
-        ssq_h = n_h_fin = n_er = n_co = max_sc = zero
-        n_fin = torch.zeros((), dtype=torch.int32, device=dev)
-        n_flag = torch.zeros((), dtype=torch.int64, device=dev)
-        ge_new = None if ge_bad is None else ge_bad.clone()
-        topm = None
+        det_rows0 = ()
         if spec is not None:
             # copies: rebuild's defense-aware view reads the snapshot
             det0, pol = defense_in
-            ema, dv, cus = (t.clone() for t in det0[1:])
-            if self._forensics_on:
-                topm = forensics_lib.stream_init(cfg.forensics_top, device=dev)
-        for c in range(n_chunks):
+            det_rows0 = tuple(t.clone() for t in det0[1:])
+            if sharded:
+                # the rows each shard updated (the draw is without
+                # replacement, so the shards' rows never overlap)
+                det_rows0 += (torch.zeros(det0[1].shape, dtype=torch.bool, device=dev),)
+        obs_init = (
+            zeros, zeros, torch.zeros((), dtype=torch.int32, device=dev), zeros, zero,
+            zero if service else (),
+            () if ge_bad is None else ge_bad.clone(),
+            zero, zero, det_rows0,
+            torch.zeros((), dtype=torch.int64, device=dev) if spec is not None else (),
+            zero if spec is not None else (),
+            forensics_lib.stream_init(cfg.forensics_top, device=dev) if want_topm else (),
+        )
+        obs_spec = (
+            "sum", "sum", "sum", "sum", "sum", "sum" if service else (),
+            "stack" if ge_bad is not None else (), "sum", "sum",
+            ("stack",) * len(det_rows0) if spec is not None else (),
+            "sum" if spec is not None else (), "max" if spec is not None else (),
+            "stack" if want_topm else (),
+        )
+
+        def obs_body(carry, c):
+            (s_all, s_fin, n_fin, s_h, ssq_h, n_h_fin, ge_new, n_er, n_co, det_rows,
+             n_flag, max_sc, topm) = carry
             chunk, ge_c, er, co = rebuild_full(c)
             fin = agg_lib._finite_rows(chunk)
             c32 = chunk.to(torch.float32)
@@ -1155,23 +1240,26 @@ class Trainer:
             if spec is not None:
                 # per-client rows updated chunk by chunk under the step of the
                 # iteration's start (advanced once after the pass)
+                ema, dv, cus = det_rows[:3]
                 score, score_fin, parts = defense_lib.client_score_components(
                     chunk, flat_params)
-                det_c = (det0[0], ema, dv, cus)
                 rows = slice(c * cohort, (c + 1) * cohort)
                 ids_c = pop_ids[rows] if service else None
-                if topm is not None:
+                if want_topm:
                     # the chunk's rows' baselines from before their update
                     ema_pre, dev_pre = ((ema[ids_c], dv[ids_c]) if service
                                         else (ema[rows].clone(), dv[rows].clone()))
                 if service:
                     (ema, dv, cus), flags = detector_update_by_id(
-                        det_c, score, score_fin, ids_c, spec.detector)
+                        (det0[0], ema, dv, cus), score, score_fin, ids_c, spec.detector)
+                    det_rows = (ema, dv, cus) + (
+                        (det_rows[3].index_put((ids_c,), torch.ones_like(ids_c, dtype=torch.bool)),)
+                        if sharded else ())
                 else:
                     (_, ema[rows], dv[rows], cus[rows]), flags = defense_lib.detector_update(
                         (det0[0], ema[rows], dv[rows], cus[rows]), score, score_fin,
                         spec.detector)
-                if topm is not None:
+                if want_topm:
                     # the chunk's candidates against the running top-M
                     # (population ids under service, participant rows else)
                     ids_f = ids_c if service else torch.arange(
@@ -1183,15 +1271,32 @@ class Trainer:
                             spec.detector), cfg.forensics_top)
                 n_flag = n_flag + torch.sum(flags)
                 max_sc = torch.maximum(max_sc, torch.max(score))
-            del chunk, c32, c_fin
+            return (s_all, s_fin, n_fin, s_h, ssq_h, n_h_fin, ge_new, n_er, n_co, det_rows,
+                    n_flag, max_sc, topm)
+
+        (s_all, s_fin, n_fin, s_h, ssq_h, n_h_fin, ge_new, n_er, n_co, det_rows, n_flag,
+         max_sc, topm) = ctx.scan_idx_merge(n_chunks, obs_body, obs_init, obs_spec)
 
         rung = None
         if spec is not None:
+            if sharded:
+                # the disjoint-row merge of the stacked [S, rows] partials:
+                # a shard's touched rows take its values, the rest keep the
+                # round-start ones
+                ema_s, dev_s, cus_s, touched_s = det_rows
+                ema, dv, cus = det0[1], det0[2], det0[3]
+                for p in range(ctx.n_shards):
+                    t_p = touched_s[p]
+                    ema = torch.where(t_p, ema_s[p], ema)
+                    dv = torch.where(t_p, dev_s[p], dv)
+                    cus = torch.where(t_p, cus_s[p], cus)
+            else:
+                ema, dv, cus = det_rows
             det = (det0[0] + 1, ema, dv, cus)
             pol, suspicious = defense_lib.policy_update(pol, n_flag, spec.policy)
             rung = pol[0]
             self.defense_state = (det, pol)
-            if topm is not None:
+            if want_topm:
                 # the rung at flag time, stamped once the policy has updated
                 self.iteration_forensic = forensics_lib.with_rung(topm, rung)
             self.iteration_defense_metrics = torch.stack([
@@ -1199,7 +1304,7 @@ class Trainer:
                 suspicious.to(torch.float32), max_sc, torch.max(det[3]),
             ])
         if fault is not None:
-            self.fault_state = fault_lib.FaultState(None, ge_new)
+            self.fault_state = fault_lib.FaultState(None, ge_new if ge_bad is not None else None)
 
         def rebuild(c):
             return rebuild_full(c)[0]
@@ -1208,7 +1313,7 @@ class Trainer:
         kw = dict(k=m_h + m_b, d=d, n_chunks=n_chunks, device=dev, degraded=degraded,
                   sum_all=s_all, sum_finite=s_fin, n_finite=n_fin, guess=flat_params,
                   maxiter=cfg.agg_maxiter, tol=cfg.agg_tol, quantile=cfg.cohort_quantile,
-                  sketch_bins=cfg.cohort_sketch_bins)
+                  sketch_bins=cfg.cohort_sketch_bins, ctx=ctx)
         if service:
             kw["trim_ratio"] = self._trim_ratio()
         if spec is not None and spec.mode == "adaptive":

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from ..registry import AGGREGATORS
 from . import channel
 from . import kernels
+from . import shardctx
 
 # Weiszfeld steps between host checks of the stopping rule
 WEISZFELD_CHUNK = 16
@@ -776,7 +777,10 @@ def supports_fused_epilogue(name: str) -> bool:
 # package scans the chunks with ``lax.scan``; here a pass is a Python loop
 # over the chunk indices.  Float partial sums add in chunk order; integer
 # counts merge by plain addition, so the exact median is bitwise the
-# resident selection.
+# resident selection.  Every pass runs through a population-shard context
+# (:mod:`.shardctx`, ``ctx``): LOCAL (the default) is one loop over all the
+# chunks; under ``--pop-shards`` each shard passes over its own chunk range
+# and the partial carries merge by their tags.
 
 
 def streamable(name: str) -> bool:
@@ -785,14 +789,14 @@ def streamable(name: str) -> bool:
     return bool(AGGREGATORS.meta(name).get("streamable", False))
 
 
-def _chunk_pass(rebuild, n_chunks: int, body, carry):
-    """``carry <- body(carry, rebuild(c))`` for c = 0 .. n_chunks - 1."""
-    for c in range(n_chunks):
-        carry = body(carry, rebuild(c))
-    return carry
+def _chunk_pass(rebuild, n_chunks: int, body, carry, spec, ctx):
+    """``carry <- body(carry, rebuild(c))`` over the chunks, under ``ctx``
+    (``ctx.scan_merge``) with the carry's merge tags ``spec``."""
+    return ctx.scan_merge(rebuild, n_chunks, lambda cy, chunk, _c: body(cy, chunk), carry,
+                          spec)
 
 
-def stream_stats(rebuild, n_chunks: int, d: int, device):
+def stream_stats(rebuild, n_chunks: int, d: int, device, ctx=shardctx.LOCAL):
     """One pass: (sum over all rows [d], sum over the finite rows [d], the
     finite-row count): what mean and gm2 need, also supplied by the
     trainer's observation pass so that they cost no extra pass."""
@@ -807,10 +811,11 @@ def stream_stats(rebuild, n_chunks: int, d: int, device):
 
     zeros = torch.zeros(d, dtype=torch.float32, device=device)
     return _chunk_pass(rebuild, n_chunks, acc,
-                       (zeros, zeros, torch.zeros((), dtype=torch.int32, device=device)))
+                       (zeros, zeros, torch.zeros((), dtype=torch.int32, device=device)),
+                       ("sum", "sum", "sum"), ctx)
 
 
-def _stream_count_le(rebuild, n_chunks: int, degraded: bool):
+def _stream_count_le(rebuild, n_chunks: int, degraded: bool, ctx=shardctx.LOCAL):
     """``count_le(mids [r, d] int32) -> [r, d]`` int32 counts of the
     total-order keys <= mid per column (of the finite rows when degraded),
     one pass over the chunks."""
@@ -823,7 +828,7 @@ def _stream_count_le(rebuild, n_chunks: int, degraded: bool):
                 le = le & _finite_rows(chunk)[None, :, None]
             return cnt + torch.sum(le, dim=1, dtype=torch.int32)
 
-        return _chunk_pass(rebuild, n_chunks, acc, torch.zeros_like(mids))
+        return _chunk_pass(rebuild, n_chunks, acc, torch.zeros_like(mids), "sum", ctx)
 
     return count_le
 
@@ -852,7 +857,7 @@ def _f32_to_key(x: torch.Tensor) -> torch.Tensor:
 
 
 def _stream_sketch_keys(rebuild, n_chunks: int, d: int, ns: torch.Tensor, r: int,
-                        bins: int, degraded: bool, device) -> torch.Tensor:
+                        bins: int, degraded: bool, device, ctx=shardctx.LOCAL) -> torch.Tensor:
     """A mergeable quantile sketch over total-order keys (JAX
     ``_stream_sketch_keys``): a min/max pass, a [bins, d] int32 histogram
     pass, and the ranks' bucket upper edges from its cumulative sum, each
@@ -873,7 +878,8 @@ def _stream_sketch_keys(rebuild, n_chunks: int, d: int, ns: torch.Tensor, r: int
 
     kmin, kmax = _chunk_pass(rebuild, n_chunks, minmax, (
         torch.full((d,), kernels.KEY_MAX, dtype=torch.int32, device=device),
-        torch.full((d,), kernels.KEY_MIN, dtype=torch.int32, device=device)))
+        torch.full((d,), kernels.KEY_MIN, dtype=torch.int32, device=device)),
+        ("min", "max"), ctx)
     kminf = kmin.to(torch.float32)
     span = torch.clamp(kmax.to(torch.float32) - kminf, min=1.0)
     col = torch.arange(d, dtype=torch.int64, device=device)
@@ -889,7 +895,7 @@ def _stream_sketch_keys(rebuild, n_chunks: int, d: int, ns: torch.Tensor, r: int
         return hist
 
     hist = _chunk_pass(rebuild, n_chunks, hist_pass,
-                       torch.zeros((bins, d), dtype=torch.int32, device=device))
+                       torch.zeros((bins, d), dtype=torch.int32, device=device), "sum", ctx)
     cum = torch.cumsum(hist, dim=0, dtype=torch.int32)
     targets = ns.to(torch.int32).reshape(r, 1, 1)
     # the first bucket whose cumulative count passes the rank (0 if none)
@@ -899,7 +905,7 @@ def _stream_sketch_keys(rebuild, n_chunks: int, d: int, ns: torch.Tensor, r: int
 
 
 def _stream_trimmed_tail(rebuild, n_chunks: int, lo_k, hi_k, n, b,
-                         degraded: bool) -> torch.Tensor:
+                         degraded: bool, ctx=shardctx.LOCAL) -> torch.Tensor:
     """The trimmed mean's last pass given the kept band's boundary keys
     [d] (JAX ``_stream_trimmed_tail``): the strict interior's sum plus each
     boundary value times its kept multiplicity, over the actual kept count
@@ -927,7 +933,7 @@ def _stream_trimmed_tail(rebuild, n_chunks: int, lo_k, hi_k, n, b,
 
     total, lt_lo, le_lo, lt_hi, le_hi = _chunk_pass(rebuild, n_chunks, acc, (
         torch.zeros(d, dtype=torch.float32, device=lo_k.device),
-        zero_i, zero_i, zero_i, zero_i))
+        zero_i, zero_i, zero_i, zero_i), ("sum",) * 5, ctx)
     last = n - b - 1  # the highest kept rank
 
     def kept_copies(n_lt, n_le):
@@ -948,24 +954,26 @@ def _stream_trimmed_tail(rebuild, n_chunks: int, lo_k, hi_k, n, b,
 
 
 def _stream_quantile_keys(rebuild, n_chunks, d, ns, r, *, quantile, sketch_bins,
-                          degraded, device):
+                          degraded, device, ctx=shardctx.LOCAL):
     if quantile == "sketch":
-        return _stream_sketch_keys(rebuild, n_chunks, d, ns, r, sketch_bins, degraded, device)
-    return _stream_bisect_keys(_stream_count_le(rebuild, n_chunks, degraded), ns, r, d, device)
+        return _stream_sketch_keys(rebuild, n_chunks, d, ns, r, sketch_bins, degraded, device,
+                                   ctx)
+    return _stream_bisect_keys(_stream_count_le(rebuild, n_chunks, degraded, ctx), ns, r, d,
+                               device)
 
 
-def _stats_or(rebuild, n_chunks, d, device, sum_all, sum_finite, n_finite):
+def _stats_or(rebuild, n_chunks, d, device, sum_all, sum_finite, n_finite, ctx):
     if sum_all is None or sum_finite is None or n_finite is None:
-        return stream_stats(rebuild, n_chunks, d, device)
+        return stream_stats(rebuild, n_chunks, d, device, ctx)
     return sum_all, sum_finite, n_finite
 
 
 def stream_mean(rebuild, *, k, d, n_chunks, device, degraded=False, sum_all=None,
-                sum_finite=None, n_finite=None, **_) -> torch.Tensor:
+                sum_finite=None, n_finite=None, ctx=shardctx.LOCAL, **_) -> torch.Tensor:
     """Streamed :func:`mean`, exact up to the chunk sums' order; the sums
     normally come from the trainer's observation pass (no extra pass)."""
     sum_all, sum_finite, n_finite = _stats_or(rebuild, n_chunks, d, device,
-                                              sum_all, sum_finite, n_finite)
+                                              sum_all, sum_finite, n_finite, ctx)
     if degraded:
         return _nan_unless(n_finite > 0,
                            sum_finite / torch.clamp(n_finite, min=1).to(torch.float32))
@@ -974,22 +982,25 @@ def stream_mean(rebuild, *, k, d, n_chunks, device, degraded=False, sum_all=None
 
 def stream_gm2_solve(rebuild, *, k, d, n_chunks, device, guess=None, maxiter=1000,
                      tol=1e-5, sum_all=None, sum_finite=None, n_finite=None,
-                     **_) -> Tuple[torch.Tensor, int]:
+                     ctx=shardctx.LOCAL, **_) -> Tuple[torch.Tensor, int]:
     """:func:`stream_gm2` returning ``(aggregate, Weiszfeld steps run)``."""
     if guess is None:
         _, sum_finite, n_finite = _stats_or(rebuild, n_chunks, d, device,
-                                            sum_all, sum_finite, n_finite)
+                                            sum_all, sum_finite, n_finite, ctx)
         g = sum_finite / torch.clamp(n_finite, min=1).to(torch.float32)
     else:
         g = guess.to(torch.float32)
     steps = 0
     with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
         while steps < maxiter:
-            num = torch.zeros(d, dtype=torch.float32, device=device)
-            den = torch.zeros((), dtype=torch.float32, device=device)
-            for c in range(n_chunks):
-                n_c, d_c = kernels.weiszfeld_step(rebuild(c).contiguous(), g)
-                num, den = num + n_c, den + d_c
+            def acc(carry, chunk, _c, g=g):
+                n_c, d_c = kernels.weiszfeld_step(chunk.contiguous(), g)
+                return carry[0] + n_c, carry[1] + d_c
+
+            num, den = ctx.scan_merge(
+                rebuild, n_chunks, acc,
+                (torch.zeros(d, dtype=torch.float32, device=device),
+                 torch.zeros((), dtype=torch.float32, device=device)), ("sum", "sum"))
             g_next = num / den
             movement = torch.linalg.vector_norm(g - g_next)
             g = g_next
@@ -1009,37 +1020,42 @@ def stream_gm2(rebuild, **kw) -> torch.Tensor:
     ``||g - g_next||`` is not above ``tol``, or after ``maxiter`` steps.
     Since every step rebuilds every chunk anyway, the movement is read on
     the host once per step.  Starts from ``guess`` (the trainer passes the
-    pre-iteration params), else the finite rows' mean."""
+    pre-iteration params), else the finite rows' mean.  Under a shard
+    context the (num, den) partials of the shards merge by the canonical
+    shard-order fold, so every engine walks the same guesses and takes the
+    same number of steps (JAX ``stream_gm2``)."""
     return stream_gm2_solve(rebuild, **kw)[0]
 
 
 def stream_median(rebuild, *, k, d, n_chunks, device, degraded=False, n_finite=None,
-                  quantile="exact", sketch_bins=512, **_) -> torch.Tensor:
+                  quantile="exact", sketch_bins=512, ctx=shardctx.LOCAL,
+                  **_) -> torch.Tensor:
     """Streamed :func:`median` (the lower middle): the ``(n-1)//2`` rank key
     by bisection (exact: bitwise the resident selection) or the sketch, and
     back to its value; n is the finite-row count when degraded."""
     if degraded:
         if n_finite is None:
-            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device)
+            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device, ctx)
         n = n_finite.to(torch.int32)
     else:
         n = torch.tensor(k, dtype=torch.int32, device=device)
     rank = torch.clamp(n - 1, min=0) // 2
     key = _stream_quantile_keys(rebuild, n_chunks, d, rank.reshape(1), 1, quantile=quantile,
-                                sketch_bins=sketch_bins, degraded=degraded, device=device)
+                                sketch_bins=sketch_bins, degraded=degraded, device=device,
+                                ctx=ctx)
     return kernels.total_order_vals(key[0])
 
 
 def stream_trimmed_mean(rebuild, *, k, d, n_chunks, device, trim_ratio=0.1, beta=None,
                         degraded=False, n_finite=None, quantile="exact",
-                        sketch_bins=512, **_) -> torch.Tensor:
+                        sketch_bins=512, ctx=shardctx.LOCAL, **_) -> torch.Tensor:
     """Streamed :func:`trimmed_mean`: the kept band's boundary ranks by
     bisection or sketch, then one pass of the interior and the boundary
     multiplicities.  Degraded, the trim adapts to the finite-row count as
     the resident sort path does (``trim_ratio`` may be a device scalar)."""
     if degraded:
         if n_finite is None:
-            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device)
+            _, _, n_finite = stream_stats(rebuild, n_chunks, d, device, ctx)
         n = n_finite.to(torch.int32)
         if beta is None:
             b = (n.to(torch.float32) * _f32_scalar(trim_ratio)).to(torch.int32)
@@ -1051,8 +1067,9 @@ def stream_trimmed_mean(rebuild, *, k, d, n_chunks, device, trim_ratio=0.1, beta
                          dtype=torch.int32, device=device)
     ns = torch.stack([b, torch.clamp(n - b - 1, min=0)])
     keys = _stream_quantile_keys(rebuild, n_chunks, d, ns, 2, quantile=quantile,
-                                 sketch_bins=sketch_bins, degraded=degraded, device=device)
-    out = _stream_trimmed_tail(rebuild, n_chunks, keys[0], keys[1], n, b, degraded)
+                                 sketch_bins=sketch_bins, degraded=degraded, device=device,
+                                 ctx=ctx)
+    out = _stream_trimmed_tail(rebuild, n_chunks, keys[0], keys[1], n, b, degraded, ctx)
     return _nan_unless(n > 0, out) if degraded else out
 
 
@@ -1068,8 +1085,9 @@ def stream_aggregate(name: str, rebuild, **kw) -> torch.Tensor:
     """The streamed realization of a streamable rule.  ``rebuild(c) ->
     [cohort, d]`` must be pure in c.  The keywords are the resident rules'
     (guess, maxiter, tol, trim_ratio, degraded) plus ``k``, ``d``,
-    ``n_chunks``, ``device``, ``quantile``, ``sketch_bins`` and the optional
-    observation-pass stats ``sum_all``, ``sum_finite``, ``n_finite``."""
+    ``n_chunks``, ``device``, ``quantile``, ``sketch_bins``, the optional
+    observation-pass stats ``sum_all``, ``sum_finite``, ``n_finite``, and
+    the population-shard context ``ctx`` (default LOCAL)."""
     fn = AGGREGATORS.get(name)
     for stream_name, stream_fn in _STREAM_FNS.items():
         if fn is AGGREGATORS.get(stream_name):

@@ -10,9 +10,9 @@ reference's own MNIST MLP K=50 runs (the reference README) up to the
 
 Memory note for the two K=1000 ResNet-18 rungs: the [K, d] client stack is
 1000 x 11,173,962 floats, ~45 GB, and the round holds three such stacks
-(``obs/hbm.py::cuda_peak_bytes``), more than one 80 GB card: they build
-and validate here, and run once the port splits the stack over several
-cards (ROADMAP queue A item 5).
+(``obs/hbm.py::cuda_peak_bytes``), more than one 80 GB card: they run
+with the stack's rows split over several cards, one process per card
+(``--multihost``, ``parallel/sharded.py``).
 """
 
 from __future__ import annotations

@@ -211,6 +211,19 @@
    median, signmv --sign-bits 1) x (none, classflip) at K=20, one round a
    cell, each cell's kernel launched every iteration, with its table;
 
+   the multi-GPU layouts (``run_z14``): (z14) (a) z2's streamed service
+   gm2 at ``--pop-shards`` 1 (its record bitwise z2's) and 5 on the
+   sequential engine, in turns, the device's ``weiszfeld_step`` count equal
+   to steps x chunks, rounds/sec to the perf ledger keyed with pop_shards,
+   and one pop_shards-4 iteration card vs CPU; (b) on a one-rank NCCL group,
+   ``ShardedFedTrainer`` for run (b)'s gm2 K=1000 and run (a)'s gm --var
+   K=50 within 1e-4 of the one-device trainer, its kernel counted on the
+   device, NCCL's kernels counted, an all_reduce and a steady iteration
+   timed; (c) several ranks where the machine has the cards, else a line
+   that says so; (d) a DCP round trip of card params, bitwise; (e)
+   ``fault_matrix``, ``bits_matrix`` and ``adaptive_matrix`` on the card,
+   each kernel's launches counted, the two smoke gates passing;
+
    In runs z4-z8 and z13 the device count over two replays must be exactly
    twice the capture's: a profiler session that counts short (a lost
    record) is profiled again, at most three sessions, and one exact
@@ -2012,7 +2025,8 @@ def run_z2(torch, kernels, harness, FedConfig, card, cache_dir):
         _fail("run z2 ended with non-finite params")
     return dict(stats, profiled_iteration=prof, weiszfeld_loop=loop, shapes=shapes,
                 steps_per_solve=steps_per_solve, host_ms_per_step=host_ms_per_step,
-                resident_twin=dict(twin, max_abs_err=err, same_paths=same_paths), card=card)
+                resident_twin=dict(twin, max_abs_err=err, same_paths=same_paths), card=card,
+                record=record)
 
 
 def run_z3(torch, kernels, harness, FedConfig, card, cache_dir):
@@ -3323,6 +3337,347 @@ def run_z13(torch, kernels, harness, FedConfig, card, cache_dir):
     return out
 
 
+# (z14): population shards, the sharded trainer on a process group, the
+# multi-rank runs, the distributed checkpoint and the offline matrices.
+# z2's 10 chunks split over 5 sequential shards (4 would not divide them:
+# the config refuses it, as JAX's does)
+Z14_SHARDS = 5
+Z14_SHARDED_RUNS = (
+    ("b_gm2_K1000", dict(agg="gm2", honest_size=900, byz_size=100), "weiszfeld_step"),
+    ("a_gm_var_K50", dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10),
+     "aircomp_weiszfeld_step"),
+)
+
+
+def _nccl_kernels(torch, trainer):
+    """The device kernels of one more iteration of ``trainer`` whose names
+    are NCCL's, and the four wrappers' groups (:func:`_device_launches`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gens = trainer.iteration_generators(10**6, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.iteration(trainer.flat_params, gens)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in _device_kernels(torch, prof)]
+    nccl = sorted({_short(n) for n in names if "nccl" in n.lower()})
+    return sum("nccl" in n.lower() for n in names), nccl, _device_launches(torch, prof)
+
+
+def _z14_rank(rank, world, port, out_dir):
+    """(z14 c) one rank of an NCCL group of ``world`` cards: z2's streamed
+    service gm2 at pop_shards ``world`` on the process-group engine, and
+    run (b)'s gm2 K=1000 on the sharded trainer, one round each; rank 0
+    writes the params."""
+    import torch
+
+    from byzantine_aircomp_tpu_torch.fed import harness
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.parallel import multihost
+
+    multihost.initialize(coordinator=f"127.0.0.1:{port}", num_processes=world,
+                         process_id=rank, device="cuda", timeout_s=300)
+    try:
+        out = {}
+        for label, cfg in (
+                ("pop", FedConfig(agg="gm2", attack="classflip", honest_size=900,
+                                  byz_size=100, service="on", population=5000,
+                                  straggler_prob=0.05, noise_var=1e-2, cohort_size=100,
+                                  pop_shards=world, rounds=1, display_interval=10,
+                                  eval_train=False)),
+                ("sharded", FedConfig(agg="gm2", attack="classflip", honest_size=900,
+                                      byz_size=100, rounds=1, display_interval=10,
+                                      eval_train=False, sharded=True))):
+            trainer, record = harness.run_with_trainer(cfg, device="cuda",
+                                                       record_in_file=False)
+            out[label] = dict(params=trainer.flat_params.cpu(), layout=trainer.layout_desc,
+                              val_acc=record["valAccPath"][-1])
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "z14_ranks.pt"))
+    finally:
+        multihost.shutdown()
+
+
+def run_z14(torch, kernels, harness, FedConfig, card, cache_dir, z2_record):
+    """(z14): population shards and the multi-GPU layouts on the card.
+
+    * (a) z2's streamed service gm2 (K=1000, cohort 100) at pop_shards 1
+      (its record bitwise z2's in this call) and 5 (the sequential engine;
+      4 does not divide the 10 chunks), one round each in turns (1, 5, 5,
+      1): rounds/sec of each, and over
+      one more profiled iteration of each the ``weiszfeld_step`` kernels on
+      the device equal to the wrapper's count, a whole number of steps x
+      chunks; each turn's rounds/sec goes to the perf ledger, keyed with
+      its pop_shards; one iteration at pop_shards 4 (K=400, B=100, four chunks, no
+      ``--var``: the per-id link needs the iteration's generators, which
+      the shared-draw check does not pass) on the card against the CPU,
+      within 1e-4.
+    * (b) a one-rank NCCL group (a TCPStore on 127.0.0.1 at a free port):
+      run (b)'s gm2 K=1000 and run (a)'s gm --var K=50, one round each on
+      ``ShardedFedTrainer`` (the stack kept split, the rule's collective
+      form) against the one-device trainer: records and params within
+      1e-4, the kernel launched every iteration, and over one more
+      profiled iteration the kernel's and NCCL's device kernels counted;
+      the host ms of one all_reduce, and of an iteration of each trainer
+      in the steady state.
+    * (c) with two cards or more, one rank per card (``torch.
+      multiprocessing``): (a) at pop_shards 2 on the process-group engine
+      and (b) sharded, each within 1e-4 of this process's sequential
+      engine and one-device trainer; with one card, one line says so.
+    * (d) ``utils/checkpoint.py``: a DCP save and load of CUDA params
+      ([1000, 7850] f32 and [7850] bf16), bitwise.
+    * (e) the matrices: ``fault_matrix`` at K=20, (gm2, trimmed_mean) x
+      (none, dropout) x (none, classflip), one round of 10 iterations a
+      cell; ``bits_matrix --bits 1,32`` over every attack for 12
+      iterations (``--assert-smoke``); ``adaptive_matrix`` over signflip,
+      mimic, under_radar and duty_cycle x (off, monitor, adaptive)
+      (``--assert-smoke``); each prints its cells and its kernels' launches.
+    """
+    import dataclasses
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    from byzantine_aircomp_tpu_torch.analysis import adaptive_matrix, bits_matrix, fault_matrix
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.parallel import multihost
+    from byzantine_aircomp_tpu_torch.registry import ATTACKS
+    from byzantine_aircomp_tpu_torch.utils import checkpoint as dcp_ckpt
+
+    out = dict(card=card)
+    t_all = time.perf_counter()
+    # (a) population shards
+    base = FedConfig(agg="gm2", attack="classflip", honest_size=900, byz_size=100,
+                     service="on", population=5000, straggler_prob=0.05, noise_var=1e-2,
+                     cohort_size=100, rounds=1, display_interval=10, cache_dir=cache_dir)
+    n_chunks = base.node_size // base.cohort_size
+    turns = []
+    for shards in (1, Z14_SHARDS, Z14_SHARDS, 1):
+        cfg = dataclasses.replace(base, pop_shards=shards)
+        gc.collect()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer, record = harness.run_with_trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["weiszfeld_step"]
+        before = launches
+        device = _profiled_groups(torch, trainer)["weiszfeld_step+aircomp_weiszfeld_step"]
+        counted = kernels.LAUNCHES["weiszfeld_step"] - before
+        entry = dict(pop_shards=shards, rounds_per_sec=record["roundsPerSec"][0],
+                     wall_seconds=wall, launches=launches,
+                     profiled_iteration=dict(device=device, wrapper=counted,
+                                             steps=counted / n_chunks),
+                     bitwise_z2=_same_record(record, z2_record) if shards == 1 else None)
+        turns.append(entry)
+        print(f"run z14a pop_shards={shards}: rounds/sec {entry['rounds_per_sec']:.4f}, wall "
+              f"{wall:.1f}s, weiszfeld_step launches {launches} over 10 iterations; one more "
+              f"iteration: {device} on the device, {counted} by the wrapper = "
+              f"{counted / n_chunks:g} steps x {n_chunks} chunks; record bitwise z2: "
+              f"{entry['bitwise_z2']} [{card}]")
+        if device != counted or counted % n_chunks or launches % n_chunks or launches < 10 * n_chunks:
+            _fail(f"run z14a pop_shards={shards}: weiszfeld_step counted {device} on the device, "
+                  f"{counted} by the wrapper, {launches} in the run ({n_chunks} chunks)")
+        if shards == 1 and not entry["bitwise_z2"]:
+            _fail("run z14a: the pop_shards=1 record is not bitwise z2's")
+        if not bool(torch.isfinite(trainer.flat_params).all()):
+            _fail(f"run z14a pop_shards={shards}: non-finite params")
+        del trainer
+    # the perf ledger's rows: pop_shards is part of their configuration key
+    from byzantine_aircomp_tpu_torch import obs as obs_lib
+
+    ledger = obs_lib.PerfLedger(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             obs_lib.ledger.DEFAULT_LEDGER_PATH))
+    name, power = [x.strip() for x in card.split(",")][:2]
+    for t in turns:
+        key = obs_lib.config_key(dict(k=base.node_size, b=base.byz_size, agg=base.agg,
+                                      attack=base.attack, model="MLP", dataset="mnist",
+                                      pop_shards=t["pop_shards"]))
+        ledger.append("rounds_per_sec_z14a_streamed_service_gm2", t["rounds_per_sec"],
+                      unit="rounds/s", platform="cuda", key=key, card=name, power_limit=power,
+                      population=base.population, cohort_size=base.cohort_size)
+    rate = {s: [t["rounds_per_sec"] for t in turns if t["pop_shards"] == s]
+            for s in (1, Z14_SHARDS)}
+    ratio = (sum(rate[Z14_SHARDS]) / 2) / (sum(rate[1]) / 2)
+    print(f"run z14a: rounds/sec pop_shards {Z14_SHARDS} over 1 (means of two turns each) "
+          f"{ratio:.4f} (prediction: within 10%) [{card}]")
+    out["a"] = dict(turns=turns, rate_ratio_shards_over_1=ratio, shards=Z14_SHARDS)
+    ds_small = datasets.load("mnist", synthetic_train=20000, synthetic_val=1000)
+    out["a"]["card_vs_cpu_s4"] = iteration_card_vs_cpu(
+        torch, dataclasses.replace(base, honest_size=300, byz_size=100, population=2000,
+                                   pop_shards=4, noise_var=None, cache_dir=""), ds_small,
+        "z14a_pop_shards4_K400")
+    print(f"run z14a pop_shards 4, K=400, one iteration card vs CPU: max_abs_err "
+          f"{out['a']['card_vs_cpu_s4']['max_abs_err']:.3e} (tolerance {ITER_ATOL}) [{card}]")
+
+    # (b) a one-rank NCCL group
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    multihost.initialize(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                         device="cuda", timeout_s=300)
+    out["b"] = {}
+    try:
+        # one rank's all_reduce of a [7851] f32 vector (gm's [num, den]),
+        # host clock over 200 calls ending in a synchronize
+        import torch.distributed as dist
+
+        vec = torch.zeros(7851, device="cuda")
+        for _ in range(20):
+            dist.all_reduce(vec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(vec)
+        torch.cuda.synchronize()
+        out["b"]["all_reduce_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        print(f"run z14b: one-rank NCCL all_reduce of [7851] f32: "
+              f"{out['b']['all_reduce_ms']:.4f} ms a call (host clock, 200 calls) [{card}]")
+        ds = datasets.load("mnist")
+        for label, kw, kernel in Z14_SHARDED_RUNS:
+            cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=1,
+                            display_interval=10, eval_train=False, cache_dir=cache_dir)
+            single, rec_single, _, _ = _drive(torch, kernels, harness, f"z14b {label} one device",
+                                              cfg, kernel, ds)
+            sharded, rec_sharded, launches, wall = _drive(
+                torch, kernels, harness, f"z14b {label} sharded",
+                dataclasses.replace(cfg, sharded=True), kernel, ds)
+            if type(sharded).__name__ != "ShardedFedTrainer" or sharded.gathers:
+                _fail(f"run z14b {label}: {type(sharded).__name__} "
+                      f"{getattr(sharded, 'layout_desc', '')}")
+            p_err = float((sharded.flat_params - single.flat_params).abs().max())
+            r_err = _record_diff(rec_sharded, rec_single)
+            n_nccl, nccl_names, device = _nccl_kernels(torch, sharded)
+            # steady state: three more iterations of each trainer, host clock
+            # ending in a synchronize (the run's rate holds its first
+            # iteration and the group's first collective)
+            steady = {}
+            for side, tr in (("sharded", sharded), ("one_device", single)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for it in range(3):
+                    tr.flat_params, _ = tr.iteration(tr.flat_params,
+                                                     tr.iteration_generators(10**6 + 1, it))
+                torch.cuda.synchronize()
+                steady[side] = (time.perf_counter() - t0) / 3 * 1e3
+            print(f"run z14b {label}: {sharded.layout_desc}; vs the one-device trainer params "
+                  f"max abs diff {p_err:.3e}, records {r_err:.3e} (tolerance {ITER_ATOL}); "
+                  f"launches {launches}; one more iteration on the device: {device}, NCCL "
+                  f"kernels {n_nccl} {nccl_names}; rounds/sec {rec_sharded['roundsPerSec'][0]:.3f}"
+                  f" vs {rec_single['roundsPerSec'][0]:.3f}; steady ms an iteration "
+                  f"{steady['sharded']:.2f} vs {steady['one_device']:.2f} [{card}]")
+            group = next(g for g in device if kernel in g.split("+"))
+            if not (p_err <= ITER_ATOL and r_err <= ITER_ATOL) or device[group] < 1:
+                _fail(f"run z14b {label}: the sharded run disagrees or launched no {kernel}")
+            out["b"][label] = dict(params_max_abs_diff=p_err, records_max_abs_diff=r_err,
+                                   launches=launches, device=device, nccl_kernels=n_nccl,
+                                   nccl_names=nccl_names, wall_seconds=wall,
+                                   rounds_per_sec=rec_sharded["roundsPerSec"][0],
+                                   steady_ms_per_iteration=steady,
+                                   one_device_rounds_per_sec=rec_single["roundsPerSec"][0])
+            del single, sharded
+    finally:
+        multihost.shutdown()
+
+    # (c) several ranks need as many cards
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"run z14c: skipped, {n_cards} card on this machine: NCCL needs one card per "
+              "rank (two ranks on one GPU are refused, and gloo cannot all_gather CUDA "
+              f"tensors) [{card}]")
+        out["c"] = dict(skipped=f"{n_cards} card")
+    else:
+        world = min(n_cards, 4)
+        res_dir = os.path.join(cache_dir, "z14c")
+        os.makedirs(res_dir, exist_ok=True)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        tmp.start_processes(_z14_rank, args=(world, port, res_dir), nprocs=world,
+                            start_method="spawn")
+        ranks = torch.load(os.path.join(res_dir, "z14_ranks.pt"))
+        out["c"] = {}
+        for label, cfg in (("pop", dataclasses.replace(base, pop_shards=world, eval_train=False)),
+                           ("sharded", FedConfig(agg="gm2", attack="classflip",
+                                                 honest_size=900, byz_size=100, rounds=1,
+                                                 display_interval=10, eval_train=False))):
+            ref, _ = harness.run_with_trainer(cfg, device="cuda", record_in_file=False)
+            err = float((ranks[label]["params"] - ref.flat_params.cpu()).abs().max())
+            print(f"run z14c {label} on {world} ranks: {ranks[label]['layout']}; vs this "
+                  f"process max abs diff {err:.3e} (tolerance {ITER_ATOL}) [{card}]")
+            if not err <= ITER_ATOL:
+                _fail(f"run z14c {label}: {world} ranks disagree with one process")
+            out["c"][label] = dict(max_abs_err=err, world=world)
+
+    # (d) the distributed checkpoint
+    g = torch.Generator(device="cuda").manual_seed(14)
+    params = {"w": torch.randn(1000, 7850, device="cuda", generator=g),
+              "bias": torch.randn(7850, device="cuda", generator=g).to(torch.bfloat16)}
+    t0 = time.perf_counter()
+    path = dcp_ckpt.save(os.path.join(cache_dir, "dcp"), "z14", 3, params)
+    save_s = time.perf_counter() - t0
+    r, back = dcp_ckpt.load(os.path.join(cache_dir, "dcp"), "z14",
+                            {k: torch.zeros_like(v) for k, v in params.items()})
+    same = r == 3 and all(torch.equal(back[k], params[k]) for k in params)
+    print(f"run z14d: DCP save of [1000, 7850] f32 + [7850] bf16 card params in {save_s:.2f}s, "
+          f"load bitwise={same}, files {sorted(os.listdir(path))} [{card}]")
+    if not same:
+        _fail("run z14d: the DCP round trip is not bitwise")
+    out["d"] = dict(bitwise=same, save_seconds=save_s)
+
+    # (e) the matrices, each kernel's launches counted around it
+    quiet = lambda s: None  # noqa: E731
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fgrid = fault_matrix.run_matrix(
+        ["gm2", "trimmed_mean"], [None, "dropout"], [None, "classflip"],
+        dict(dataset="mnist", honest_size=16, byz_size=4, rounds=1, display_interval=10,
+             batch_size=50, eval_train=False, seed=2021), dataset=ds, log=quiet)
+    torch.cuda.synchronize()
+    f_launch = dict(kernels.LAUNCHES)
+    print(fault_matrix.markdown_table(fgrid))
+    print(f"run z14e fault_matrix: {len(fgrid)} cells in {time.perf_counter() - t0:.1f}s, "
+          f"launches {f_launch} [{card}]")
+    if f_launch["weiszfeld_step"] < 40 or f_launch["select_columns"] < 20 or not all(
+            c["finite_all_rounds"] for c in fgrid.values()):
+        _fail(f"run z14e fault_matrix: kernels not launched or a cell diverged: {f_launch}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bgrid = bits_matrix.run_matrix(sorted(ATTACKS.names()), [1, 32], iters=12, seed=0,
+                                   device="cuda", log=quiet)
+    torch.cuda.synchronize()
+    b_launch = dict(kernels.LAUNCHES)
+    bits_matrix.assert_smoke(bgrid)
+    print(bits_matrix.markdown_table(bgrid))
+    print(f"run z14e bits_matrix: {len(bgrid)} cells in {time.perf_counter() - t0:.1f}s, "
+          f"under_radar {bits_matrix.under_radar_verdict(bgrid)}, launches {b_launch} [{card}]")
+    if b_launch["packed_vote_counts"] < 12:
+        _fail(f"run z14e bits_matrix: packed_vote_counts launched {b_launch}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    agrid = adaptive_matrix.run_matrix(["signflip", "mimic", "under_radar", "duty_cycle"],
+                                       ["off", "monitor", "adaptive"], seed=0, device="cuda",
+                                       log=quiet)
+    torch.cuda.synchronize()
+    a_launch = dict(kernels.LAUNCHES)
+    adaptive_matrix.assert_smoke(agrid)
+    print(adaptive_matrix.markdown_table(agrid))
+    print(f"run z14e adaptive_matrix: {len(agrid)} cells in {time.perf_counter() - t0:.1f}s, "
+          f"launches {a_launch} [{card}]")
+    if a_launch["select_columns"] < 1:
+        _fail(f"run z14e adaptive_matrix: the ladder's trimmed_mean never launched {a_launch}")
+    out["e"] = dict(
+        fault={f"{a}|{f or 'none'}|{t or 'none'}": c for (a, f, t), c in fgrid.items()},
+        fault_launches=f_launch, bits={f"{a}|{b}": c for (a, b), c in bgrid.items()},
+        bits_launches=b_launch, adaptive={"|".join(k): c for k, c in agrid.items()},
+        adaptive_launches=a_launch)
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"run z14 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -3362,6 +3717,8 @@ def main():
     obs_runs = run_obs(torch, kernels, harness, FedConfig, card, cache_dir)
     telemetry_runs = run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir)
     knob_runs = run_z13(torch, kernels, harness, FedConfig, card, cache_dir)
+    layout_runs = run_z14(torch, kernels, harness, FedConfig, card, cache_dir,
+                          service_runs["z2"].pop("record"))
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -3406,7 +3763,7 @@ def main():
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
                        obs_runs=obs_runs, telemetry_runs=telemetry_runs,
-                       knob_runs=knob_runs,
+                       knob_runs=knob_runs, layout_runs=layout_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

@@ -1185,3 +1185,65 @@ def test_bf16_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
     assert torch.equal(graphed.flat_params, eager.flat_params)
     kernel = "weiszfeld_step" if cfg.agg == "gm2" else "aircomp_weiszfeld_step"
     assert graphed.round_graph.replay_launches[kernel] == cfg.display_interval * cfg.agg_maxiter
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A one-rank NCCL process group on this card (a TCPStore on 127.0.0.1
+    at a free port), torn down after the test."""
+    import socket
+
+    from byzantine_aircomp_tpu_torch.parallel import multihost
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    multihost.initialize(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                         device="cuda", timeout_s=120)
+    try:
+        yield cuda
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(agg="gm2", honest_size=900, byz_size=100), "weiszfeld_step"),
+    (dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10), "aircomp_weiszfeld_step"),
+    (dict(agg="signmv", sign_bits=1, sign_eta=0.01, noise_var=1e-2, honest_size=40,
+          byz_size=10), "packed_vote_counts"),
+], ids=["gm2_K1000", "gm_var_K50", "signmv1_K50"])
+def test_one_rank_nccl_sharded_round_matches_the_trainer(nccl_rank, kw, kernel):
+    """ShardedFedTrainer on a one-rank NCCL group keeps the stack split and
+    runs the rule's collective form: its kernel launches on the rank's rows,
+    and one round lands within 1e-4 of the one-device trainer."""
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+    from byzantine_aircomp_tpu_torch.parallel import ShardedFedTrainer
+
+    ds = _dispatch_ds()
+    cfg = dict(attack="classflip", rounds=1, display_interval=2, eval_train=False, **kw)
+    single = Trainer(FedConfig(**cfg), dataset=ds, device="cuda")
+    sharded = ShardedFedTrainer(FedConfig(**cfg), dataset=ds, device="cuda")
+    assert sharded.mesh.distributed and sharded.gathers is None
+    single.run_round(0)
+    before = dict(kernels.LAUNCHES)
+    sharded.run_round(0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernel] > before[kernel]
+    torch.testing.assert_close(sharded.flat_params, single.flat_params, rtol=0, atol=1e-4)
+
+
+def test_dcp_round_trip_of_card_params_is_bitwise(cuda, tmp_path):
+    from byzantine_aircomp_tpu_torch.utils import checkpoint as tckpt
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    params = {"w": torch.randn(1000, 7850, device=cuda, generator=g),
+              "b": {"bias": torch.randn(7850, device=cuda, generator=g).to(torch.bfloat16)}}
+    tckpt.save(str(tmp_path), "card", 3, params)
+    template = {"w": torch.zeros(1000, 7850, device=cuda),
+                "b": {"bias": torch.zeros(7850, device=cuda, dtype=torch.bfloat16)}}
+    round_idx, back = tckpt.load(str(tmp_path), "card", template)
+    assert round_idx == 3 and back["w"].device.type == "cuda"
+    assert torch.equal(back["w"], params["w"]) and torch.equal(back["b"]["bias"],
+                                                                params["b"]["bias"])

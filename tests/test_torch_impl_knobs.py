@@ -61,11 +61,10 @@ KNOBS = {"agg_impl": ("auto", ("auto", "xla", "pallas")),
          "fused_epilogue": ("auto", ("auto", "on", "off")),
          "stack_dtype": ("f32", ("f32", "bf16")),
          "prng_impl": ("threefry", ("threefry", "rbg", "unsafe_rbg"))}
-# the JAX fields and run-parser flags the port has yet to port (ROADMAP
-# queue A item 5)
-UNPORTED_FIELDS = {"pop_shards", "sharded", "model_parallel"}
-UNPORTED_FLAGS = {"--sharding", "--model-parallel", "--pop-shards", "--multihost",
-                  "--coordinator", "--num-processes", "--process-id"}
+# the JAX fields and run-parser flags the port has yet to port: none since
+# the layout fields and the multi-process flags came
+UNPORTED_FIELDS = set()
+UNPORTED_FLAGS = set()
 
 
 def test_fields_are_the_jax_fields_but_three():
@@ -73,7 +72,7 @@ def test_fields_are_the_jax_fields_but_three():
     jax_fields = {f.name: f.default for f in dataclasses.fields(JaxFedConfig)}
     assert len(jax_fields) == 109
     assert set(jax_fields) - set(port) == UNPORTED_FIELDS
-    assert len(set(jax_fields) & set(port)) == 106
+    assert len(set(jax_fields) & set(port)) == 109
     assert set(port) - set(jax_fields) == {"use_gpu"}
     for name, (default, _) in KNOBS.items():
         assert port[name] == jax_fields[name] == default

@@ -432,7 +432,7 @@ def test_obs_fields_are_the_jax_fields_with_jax_defaults():
     assert len(FedConfig._OBS_FIELDS) == 15
     for name in FedConfig._OBS_FIELDS:
         assert port[name] == jax_fields[name], name
-    assert len(set(jax_fields) & set(port)) == 106
+    assert len(set(jax_fields) & set(port)) == 109
 
 
 ARGV = ["--profile-dir", "pd", "--profile-rounds", "2:5", "--hbm-warn-factor", "3.5",

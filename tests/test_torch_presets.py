@@ -54,7 +54,7 @@ def test_each_preset_is_jax_s_field_for_field(name):
     assert presets.PRESETS[name] == jpresets.PRESETS[name]
     shared = ({f.name for f in dataclasses.fields(port)}
               & {f.name for f in dataclasses.fields(want)})
-    assert len(shared) == 106
+    assert len(shared) == 109
     for field in sorted(shared):
         assert getattr(port, field) == getattr(want, field), (name, field)
     assert port.validate() is port

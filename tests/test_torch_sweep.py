@@ -107,7 +107,7 @@ def test_the_sweep_shares_the_run_cli_s_knob_flags():
 
     jax_knobs(jp)
     theirs = {s for a in jp._actions for s in a.option_strings} - {"-h", "--help"}
-    assert theirs - ours == {"--pop-shards"} and ours <= theirs
+    assert theirs == ours
 
 
 @pytest.fixture
