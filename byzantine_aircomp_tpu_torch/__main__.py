@@ -1,3 +1,7 @@
+import sys
+
 from .cli import main
 
-main()
+rc = main()
+# the tune subcommand returns its exit code; a run returns its record
+sys.exit(rc if isinstance(rc, int) else 0)

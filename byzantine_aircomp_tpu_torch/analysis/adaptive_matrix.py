@@ -30,9 +30,12 @@ The draws come from torch generators seeded from ``(--seed, stream)`` with
 the JAX tool's stream numbers (1 and 2 the fixture, 7 and 8 the drift,
 100 + t the stack, 200 + t the attack, 300 + t the rule, 400 + t the drift
 magnitude), not from threefry: :func:`normals` and :func:`gammas` are the
-draw sites.  The JAX tool's ``--batched`` mode (every mode of an
-(attack, ladder) family from one traced scan) rides its experiment
-server's batch runner, which the port does not have yet; it is refused.
+draw sites.  ``--batched`` (JAX's one-scan mode) runs every mode of an
+(attack, ladder) family from one pass over the iterations
+(:func:`simulate_cells_batched`); with ``--expect-speedup X`` or
+``--perf-row PATH`` the per-cell loop is timed too, its batched/eager
+ratio printed (and written as a ``matrix_wallclock`` row), and the run
+fails below X.
 
 Output: one JSON line per cell on stdout (kind ``adaptive_cell``), a
 markdown table per (mode, ladder) on stderr, optionally an atomic pickle
@@ -47,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,11 +70,6 @@ MODES = ("off", "monitor", "adaptive")
 
 Cell = Tuple[str, str, str]  # (attack, mode, ladder)
 CubeCell = Tuple[str, str, str, str, str]  # ... + (alpha label, constants)
-
-BATCHED_REFUSAL = (
-    "--batched runs every mode of an (attack, ladder) family as lanes of the JAX "
-    "package's serve.batch runner, which the port does not have yet; run the "
-    "per-cell loop (drop --batched)")
 
 DEFENSE_AWARE_OFF_SKIP = (
     "defense-aware attack observes the published detector state; --defense off "
@@ -182,16 +181,7 @@ def make_branches(ladder):
 def simulate_cell(
     attack_name: str,
     mode: str,
-    *,
-    iters: int = 40,
-    onset: int = 10,
-    stop: Optional[int] = 30,
-    ladder: Tuple[str, ...] = ("mean", "trimmed_mean", "multi_krum"),
-    det: Optional[defense_lib.DetectorParams] = None,
-    pol: Optional[defense_lib.PolicyParams] = None,
-    seed: int = 0,
-    hetero: Optional[torch.Tensor] = None,
-    device: str = "cuda",
+    **sim_kw,
 ) -> Dict[str, object]:
     """One (attack, mode) cell: the defense loop for ``iters`` iterations
     with the attack on during ``[onset, stop)``.  Reports the detection
@@ -202,13 +192,48 @@ def simulate_cell(
     (``agg_err``), the final aggregate's distance to the last stack's
     honest mean (``final_dist``), and the forensic columns against the
     cell's ground truth (rows ``[-B:]`` attack): ``precision``, ``recall``
-    and ``time_to_detect``."""
+    and ``time_to_detect``.  ``sim_kw`` are :func:`simulate_cells_batched`'s
+    keywords."""
+    return simulate_cells_batched(attack_name, [mode], **sim_kw)[mode]
+
+
+def simulate_cells_batched(
+    attack_name: str,
+    modes: List[str],
+    *,
+    iters: int = 40,
+    onset: int = 10,
+    stop: Optional[int] = 30,
+    ladder: Tuple[str, ...] = ("mean", "trimmed_mean", "multi_krum"),
+    det: Optional[defense_lib.DetectorParams] = None,
+    pol: Optional[defense_lib.PolicyParams] = None,
+    seed: int = 0,
+    hetero: Optional[torch.Tensor] = None,
+    device: str = "cuda",
+) -> Dict[str, Dict[str, object]]:
+    """Every requested mode of one (attack, ladder) family from ONE pass
+    over the iterations, the ``--batched`` path (JAX
+    ``simulate_cells_batched``, ``adaptive_matrix.py:386``).  The
+    aggregate never feeds back into the synthetic stack, so the
+    detector/policy trajectory is the same for ``monitor`` and
+    ``adaptive`` (and unused by ``off``): the pass runs it once, plus the
+    rung-0 aggregate (off, monitor) and the live rung's (adaptive), each
+    with the cell's own draws, and every mode's cell is read off the
+    shared trajectory.  :func:`simulate_cell` is this pass for one mode,
+    so a batched cell equals its eager one."""
     spec = attack_lib.resolve(attack_name)
     meta = spec.meta()
-    if mode == "off" and meta["defense_aware"]:
-        return skip(DEFENSE_AWARE_OFF_SKIP)
-    if meta["data_level"] and spec.grad_scale == 1.0:
-        return skip(DATA_LEVEL_SKIP)
+    out: Dict[str, Dict[str, object]] = {}
+    run_modes = []
+    for mode in modes:
+        if mode == "off" and meta["defense_aware"]:
+            out[mode] = skip(DEFENSE_AWARE_OFF_SKIP)
+        elif meta["data_level"] and spec.grad_scale == 1.0:
+            out[mode] = skip(DATA_LEVEL_SKIP)
+        else:
+            run_modes.append(mode)
+    if not run_modes:
+        return out
     dev = torch.device(device)
     det = det or defense_lib.DetectorParams()
     # min_flagged=2: a burst from the B=3 attackers flags all three, while a
@@ -224,13 +249,15 @@ def simulate_cell(
     _, base = honest_stack(seed, dev)
     if hetero is not None:
         hetero = hetero.to(dev)
+    detect = any(m != "off" for m in run_modes)
+    # the aggregates each mode reads: rung 0's (off, monitor), the live
+    # rung's (adaptive)
+    kinds = sorted({"live" if m == "adaptive" else "rung0" for m in run_modes})
     d_state = defense_lib.init_detector(K, dev)
     p_state = defense_lib.init_policy(dev)
-    detect_iter = time_to_detect = None
-    tp = fp = 0
-    detected_rows: set = set()
-    rounds_susp = max_rung = transitions = prev_rung = rung_at_stop = 0
-    max_seen_at = min_rung_post = agg_err = final_dist = None
+    rungs, susp_t, flags_t = [], [], []
+    err = {k: None for k in kinds}
+    dist = dict(err)
     for t in range(iters):
         w = base[None, :] + 1e-3 * normals(seed, 100 + t, (K, D), dev)
         w = _hetero_stack(w, hetero, seed, t)
@@ -242,59 +269,77 @@ def simulate_cell(
                     step=d_state[0], ema=d_state[1], dev=d_state[2], cusum=d_state[3],
                     rung=p_state[0], detector=det, policy=pol, guess=base)
             w = attacked(spec, w, base, generator(seed, 200 + t, dev), defense=d_view)
-        if mode == "off":
-            rung = 0
-        else:
+        rung = 0
+        if detect:
             score, finite = defense_lib.client_scores(w, base)
             d_state, flags = defense_lib.detector_update(d_state, score, finite, det)
             p_state, susp = defense_lib.policy_update(p_state, torch.sum(flags), pol)
             rung = int(p_state[0])
-            rounds_susp += int(bool(susp))
-            flags = flags.tolist()
-            if detect_iter is None and active and sum(flags) > 0:
-                detect_iter = t - onset
-            # the confusion ledger against the cell's ground truth
-            byz_hits = [K - B + i for i in range(B) if flags[K - B + i]]
-            fp += sum(flags[:HONEST])
+            susp_t.append(bool(susp))
+            flags_t.append(flags.tolist())
+        rungs.append(rung)
+        aggs = {}
+        for kind in kinds:
+            r = rung if kind == "live" else 0
+            if r not in aggs:
+                # each aggregate from the cell's own draws of iteration t
+                aggs[r] = branches[r](w, base, generator(seed, 300 + t, dev))
+            agg = aggs[r]
             if active:
-                tp += len(byz_hits)
-                detected_rows.update(byz_hits)
-                if byz_hits and time_to_detect is None:
-                    time_to_detect = t - onset
-            else:
-                fp += len(byz_hits)
-        if rung > max_rung:
-            max_rung, max_seen_at = rung, t
-        transitions += int(rung != prev_rung)
-        prev_rung = rung
-        if stop is not None and t == stop - 1:
-            rung_at_stop = rung
-        if max_seen_at is not None and t > max_seen_at:
-            min_rung_post = rung if min_rung_post is None else min(min_rung_post, rung)
-        act_rung = rung if mode == "adaptive" else 0
-        agg = branches[act_rung](w, base, generator(seed, 300 + t, dev))
+                err[kind] = float(torch.linalg.vector_norm(agg - base))
+            if t == iters - 1:
+                dist[kind] = float(torch.linalg.vector_norm(
+                    agg - torch.mean(w[:HONEST], dim=0)))
+    # the confusion ledger against the cell's ground truth (mode-independent)
+    detect_iter = time_to_detect = None
+    tp = fp = 0
+    detected_rows: set = set()
+    for t, flags in enumerate(flags_t):
+        active = onset <= t and (stop is None or t < stop)
+        if detect_iter is None and active and sum(flags) > 0:
+            detect_iter = t - onset
+        byz_hits = [K - B + i for i in range(B) if flags[K - B + i]]
+        fp += sum(flags[:HONEST])
         if active:
-            agg_err = float(torch.linalg.vector_norm(agg - base))
-        if t == iters - 1:
-            final_dist = float(torch.linalg.vector_norm(agg - torch.mean(w[:HONEST], dim=0)))
-    final_rung = int(p_state[0])
+            tp += len(byz_hits)
+            detected_rows.update(byz_hits)
+            if byz_hits and time_to_detect is None:
+                time_to_detect = t - onset
+        else:
+            fp += len(byz_hits)
     n_flags = tp + fp
-    cell: Dict[str, object] = {
-        "detect_iter": detect_iter,
-        "precision": round(tp / n_flags, 5) if (mode != "off" and n_flags) else None,
-        "recall": round(len(detected_rows) / B, 5) if mode != "off" else None,
-        "time_to_detect": time_to_detect,
-        "rounds_suspicious": rounds_susp,
-        "max_rung": max_rung,
-        "min_rung_post": min_rung_post,
-        "final_rung": final_rung,
-        "transitions": transitions,
-        "deescalated": stop is not None and final_rung < rung_at_stop,
-        "final_dist": round(final_dist, 5),
-    }
-    if agg_err is not None:
-        cell["agg_err"] = round(agg_err, 5)
-    return cell
+    for mode in run_modes:
+        rt = [0] * iters if mode == "off" else rungs
+        max_rung = transitions = prev_rung = rung_at_stop = 0
+        max_seen_at = min_rung_post = None
+        for t, rung in enumerate(rt):
+            if rung > max_rung:
+                max_rung, max_seen_at = rung, t
+            transitions += int(rung != prev_rung)
+            prev_rung = rung
+            if stop is not None and t == stop - 1:
+                rung_at_stop = rung
+            if max_seen_at is not None and t > max_seen_at:
+                min_rung_post = rung if min_rung_post is None else min(min_rung_post, rung)
+        kind = "live" if mode == "adaptive" else "rung0"
+        on = mode != "off"
+        cell: Dict[str, object] = {
+            "detect_iter": detect_iter if on else None,
+            "precision": round(tp / n_flags, 5) if (on and n_flags) else None,
+            "recall": round(len(detected_rows) / B, 5) if on else None,
+            "time_to_detect": time_to_detect if on else None,
+            "rounds_suspicious": sum(susp_t) if on else 0,
+            "max_rung": max_rung,
+            "min_rung_post": min_rung_post,
+            "final_rung": rt[-1],
+            "transitions": transitions,
+            "deescalated": stop is not None and rt[-1] < rung_at_stop,
+            "final_dist": round(dist[kind], 5),
+        }
+        if err[kind] is not None:
+            cell["agg_err"] = round(err[kind], 5)
+        out[mode] = cell
+    return out
 
 
 def run_matrix(
@@ -306,8 +351,9 @@ def run_matrix(
     batched: bool = False,
     **sim_kw,
 ) -> Dict[Cell, Dict[str, object]]:
-    if batched:
-        raise NotImplementedError(BATCHED_REFUSAL)
+    """The matrix over ladders x modes x attacks.  ``batched`` runs every
+    mode of an (attack, ladder) family from one pass
+    (:func:`simulate_cells_batched`); the cells equal the per-cell loop's."""
     for a in attacks:
         attack_lib.resolve(a)  # fail fast on typos (onset syntax included)
     if ladders is None:
@@ -320,6 +366,17 @@ def run_matrix(
     grid: Dict[Cell, Dict[str, object]] = {}
     for lad in ladders:
         lad_name = ",".join(lad)
+        if batched:
+            # one pass per (attack, ladder); every mode from its trajectory
+            for attack in attacks:
+                cells = simulate_cells_batched(attack, modes, ladder=lad, **sim_kw)
+                for mode in modes:
+                    grid[(attack, mode, lad_name)] = cells[mode]
+                    log(f"[adaptive_matrix] attack={attack} mode={mode} ladder={lad_name}: "
+                        f"{cells[mode]}")
+                    if on_cell is not None:
+                        on_cell(attack, mode, lad_name, cells[mode])
+            continue
         for mode in modes:
             for attack in attacks:
                 cell = simulate_cell(attack, mode, ladder=lad, **sim_kw)
@@ -469,16 +526,23 @@ def main(argv=None) -> None:
                     help="exit nonzero unless a defense-aware cell detects and "
                          "duty_cycle stays escalated")
     ap.add_argument("--batched", action="store_true",
-                    help="the JAX package's one-scan mode over every mode: refused, "
-                         "the port has no batch runner yet")
+                    help="every mode of an (attack, ladder) family from one pass "
+                         "(simulate_cells_batched)")
+    ap.add_argument("--expect-speedup", type=float, default=None,
+                    help="with --batched: also time the per-cell loop and exit nonzero "
+                         "unless batched is at least this many times faster")
+    ap.add_argument("--perf-row", default=None, metavar="PATH",
+                    help="with --batched: write a matrix_wallclock perf row here (value "
+                         "= eager/batched wall-clock ratio)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    if args.batched:
-        ap.error(BATCHED_REFUSAL)
+    if (args.expect_speedup is not None or args.perf_row) and not args.batched:
+        ap.error("--expect-speedup/--perf-row require --batched")
+    if args.alphas and (args.assert_smoke or args.expect_speedup or args.perf_row):
+        ap.error("--assert-smoke/--expect-speedup/--perf-row gate the plain matrix; "
+                 "run them without --alphas")
     if args.tuned and not args.alphas:
         ap.error("--tuned requires --alphas (it names levels of the sweep)")
-    if args.alphas and args.assert_smoke:
-        ap.error("--assert-smoke gates the plain matrix; run it without --alphas")
 
     attacks = ([a for a in args.attacks.split(",") if a] if args.attacks
                else sorted(ATTACKS.names()))
@@ -509,23 +573,46 @@ def main(argv=None) -> None:
     if args.obs_dir:
         sinks.append(obs_lib.JsonlSink(obs_lib.events_path(args.obs_dir, "adaptive_matrix")))
     sink = obs_lib.MultiSink(sinks) if len(sinks) > 1 else sinks[0]
+    t0 = time.perf_counter()
     try:
         if alphas is not None:
             grid = run_cube(
                 attacks, modes, ladders, alphas, tuned, hetero_scale=args.hetero_scale,
-                hetero_classes=args.hetero_classes,
+                hetero_classes=args.hetero_classes, batched=args.batched,
                 on_cell=lambda attack, mode, lad, alabel, var, cell: sink.emit(
                     obs_lib.make_event("adaptive_cell", attack=attack, mode=mode,
                                        ladder=lad, alpha=alabel, constants=var, **cell)),
                 **sim_kw)
         else:
             grid = run_matrix(
-                attacks, modes, ladders=ladders,
+                attacks, modes, ladders=ladders, batched=args.batched,
                 on_cell=lambda attack, mode, lad, cell: sink.emit(obs_lib.make_event(
                     "adaptive_cell", attack=attack, mode=mode, ladder=lad, **cell)),
                 **sim_kw)
     finally:
         sink.close()
+    primary_secs = time.perf_counter() - t0
+    wallclock = None
+    if args.expect_speedup is not None or args.perf_row:
+        # the reference timing: the per-cell loop over the same grid (no
+        # events, no log: the batched pass above emitted them)
+        t0 = time.perf_counter()
+        eager_grid = run_matrix(attacks, modes, ladders=ladders, batched=False,
+                                log=lambda s: None, **sim_kw)
+        eager_secs = time.perf_counter() - t0
+        speedup = eager_secs / max(primary_secs, 1e-9)
+        wallclock = {"batched_secs": round(primary_secs, 3),
+                     "eager_secs": round(eager_secs, 3), "speedup": round(speedup, 3)}
+        print(f"[adaptive_matrix] wall-clock: eager {eager_secs:.2f}s / batched "
+              f"{primary_secs:.2f}s = {speedup:.2f}x", file=sys.stderr, flush=True)
+        drift = [(k, col) for k, cell in grid.items()
+                 for col in ("detect_iter", "time_to_detect", "rounds_suspicious", "max_rung",
+                             "min_rung_post", "final_rung", "transitions", "deescalated",
+                             "recall")
+                 if cell.get(col) != eager_grid[k].get(col)]
+        if drift:
+            print(f"[adaptive_matrix] WARNING: batched/eager drift on {len(drift)} integer "
+                  f"column(s): {drift[:5]}", file=sys.stderr)
     if alphas is not None:
         # one table block per cube slice, in sweep order
         for label, _alpha in alphas:
@@ -541,10 +628,26 @@ def main(argv=None) -> None:
         io_lib.atomic_pickle(args.out, {"|".join(k): c for k, c in grid.items()})
         print(f"[adaptive_matrix] grid pickled to {args.out}", file=sys.stderr)
     if args.json:
+        dump = {"|".join(k): c for k, c in grid.items()}
+        if wallclock is not None:
+            # the one clock-dependent key, absent in the default invocation
+            dump["_wallclock"] = wallclock
         with open(args.json, "w") as f:
-            json.dump({"|".join(k): c for k, c in grid.items()}, f, sort_keys=True, indent=1)
+            json.dump(dump, f, sort_keys=True, indent=1)
             f.write("\n")
         print(f"[adaptive_matrix] grid dumped to {args.json}", file=sys.stderr)
+    if args.perf_row:
+        row = {"metric": "matrix_wallclock", "value": wallclock["speedup"], "unit": "x",
+               "platform": args.device,
+               "note": "eager/batched wall-clock ratio (adaptive_matrix)"}
+        with open(args.perf_row, "w") as f:
+            json.dump(row, f, indent=1)
+            f.write("\n")
+        print(f"[adaptive_matrix] perf row written to {args.perf_row}", file=sys.stderr)
+    if args.expect_speedup is not None and wallclock["speedup"] < args.expect_speedup:
+        raise SystemExit(
+            f"[adaptive_matrix] batched speedup {wallclock['speedup']}x below the "
+            f"--expect-speedup {args.expect_speedup}x bar")
     if args.assert_smoke:
         assert_smoke(grid)
 

@@ -13,9 +13,10 @@ Each cell trains from scratch (same seed, same dataset object, loaded
 once) on the card (``--device cpu`` for the CPU) and reports final val
 accuracy/loss and rounds/sec.  Output: one JSON line per cell on stdout
 plus a markdown table on stderr, and optionally a pickle of the full grid
-(``--out``) for downstream plotting.  Each cell is one solo trainer: the
-JAX package's ``--batched`` seed lanes ride its experiment server's batch
-runner, which the port does not have yet, and are refused.
+(``--out``) for downstream plotting.  Each cell is one solo trainer, or
+with ``--batched`` its ``--seeds`` replicas as the lanes of one
+:class:`..serve.batch.BatchRunner` (one set-up for the seed axis; each
+lane bitwise its solo cell).
 """
 
 from __future__ import annotations
@@ -31,13 +32,6 @@ from ..fed.config import FedConfig
 from ..fed.train import Trainer
 from ..registry import AGGREGATORS, ATTACKS
 from ..utils import io as io_lib
-
-BATCHED_REFUSAL = (
-    "--batched runs each cell's seeds as lanes of the JAX package's "
-    "serve.batch.BatchRunner, which the port does not have yet (ROADMAP queue A "
-    "item 6); run the solo cells (drop --batched)"
-)
-
 
 def _cell_kw(
     agg: str, attack: Optional[str], cfg_kw: dict
@@ -100,6 +94,43 @@ def run_cell(
     return metrics
 
 
+def run_cell_batched(
+    agg: str, attack: Optional[str], cfg_kw: dict, dataset, seeds: int
+) -> List[Dict[str, float]]:
+    """Every seed replica of one cell as lanes of ONE
+    :class:`..serve.batch.BatchRunner` (JAX ``run_cell_batched``): one
+    set-up for the seed axis instead of one trainer each.  Each lane's
+    trajectory is bitwise its solo cell's; ``rounds_per_sec`` is the
+    group's rate (every lane's round of a group step, the same value on
+    every replica), past the warm-up round."""
+    from ..serve.batch import BatchRunner
+
+    kw, effective = _cell_kw(agg, attack, cfg_kw)
+    base_seed = kw.get("seed", 2021)
+    cfgs = [FedConfig(**dict(kw, seed=base_seed + s)) for s in range(seeds)]
+    batch = BatchRunner(cfgs, dataset=dataset)
+    batch.run_round(0)  # the warm-up: the group's one set-up
+    batch.template._sync()
+    rps = None
+    if cfgs[0].rounds > 1:
+        t0 = time.perf_counter()
+        for r in range(1, cfgs[0].rounds):
+            batch.run_round(r)
+        batch.template._sync()
+        rps = round((cfgs[0].rounds - 1) / (time.perf_counter() - t0), 3)
+    runs = []
+    for lane in range(seeds):
+        loss, acc = batch.evaluate(lane, "val")
+        metrics: Dict[str, float] = {}
+        if rps is not None:
+            metrics["rounds_per_sec"] = rps
+        metrics.update(val_acc=round(acc, 4), val_loss=round(loss, 4))
+        if effective:
+            metrics["effective"] = effective
+        runs.append(metrics)
+    return runs
+
+
 def run_sweep(
     aggs: List[str],
     attacks: List[Optional[str]],
@@ -114,14 +145,13 @@ def run_sweep(
     ``on_cell(agg, attack, metrics)`` fires as each cell completes, so
     callers can stream results and a late-cell crash loses nothing.
     ``seeds > 1`` repeats each cell at consecutive seeds and reports the
-    mean, plus ``val_acc_std`` across seeds.  ``batched=True`` is refused
-    (:data:`BATCHED_REFUSAL`)."""
+    mean, plus ``val_acc_std`` across seeds.  ``batched=True`` runs the seed
+    axis of each cell as the lanes of one batch runner
+    (:func:`run_cell_batched`); the eager per-seed loop stays the default."""
     from ..data import datasets as data_lib
 
     if seeds < 1:
         raise ValueError(f"seeds must be >= 1, got {seeds}")
-    if batched:
-        raise NotImplementedError(BATCHED_REFUSAL)
     for a in aggs:
         AGGREGATORS.get(a)  # fail fast on typos, before any training
     for t in attacks:
@@ -133,8 +163,12 @@ def run_sweep(
     grid: Dict[Tuple[str, Optional[str]], Dict[str, float]] = {}
     for attack in attacks:
         for agg in aggs:
-            runs = [run_cell(agg, attack, dict(cfg_kw, seed=base_seed + s), dataset)
-                    for s in range(seeds)]
+            if batched:
+                runs = run_cell_batched(agg, attack, dict(cfg_kw, seed=base_seed), dataset,
+                                        seeds)
+            else:
+                runs = [run_cell(agg, attack, dict(cfg_kw, seed=base_seed + s), dataset)
+                        for s in range(seeds)]
             cell = {
                 k: round(sum(r[k] for r in runs) / len(runs), 4)
                 for k in runs[0]
@@ -187,8 +221,8 @@ def main(argv=None) -> None:
                     help="repeat each cell at N consecutive seeds; reports "
                          "the mean (+ val_acc_std)")
     ap.add_argument("--batched", action="store_true",
-                    help="the JAX package's seed lanes of one batch runner: "
-                         "refused, the port has no batch runner yet")
+                    help="run each cell's --seeds replicas as lanes of one "
+                         "batch runner (one set-up; each lane bitwise its solo cell)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) or cpu")
     add_knob_flags(ap)  # shared with the main CLI (incl. help text)
@@ -196,8 +230,6 @@ def main(argv=None) -> None:
     ap.add_argument("--obs-dir", default=None,
                     help="also append sweep_cell events (JSONL) here")
     args = ap.parse_args(argv)
-    if args.batched:
-        ap.error(BATCHED_REFUSAL)
 
     aggs = [a for a in args.aggs.split(",") if a]
     attacks: List[Optional[str]] = [
@@ -281,6 +313,7 @@ def main(argv=None) -> None:
             attacks,
             cfg_kw,
             seeds=args.seeds,
+            batched=args.batched,
             on_cell=lambda agg, attack, cell: sink.emit(
                 obs_lib.make_event(
                     "sweep_cell", agg=agg, attack=attack or "none", **cell

@@ -10,9 +10,10 @@ alert edges (``obs/alerts.py``), and a failed retrace audit:
     python -m byzantine_aircomp_tpu_torch.analysis.tail runs/          # follow
     python -m byzantine_aircomp_tpu_torch.analysis.tail runs/ --once   # replay
 
-The port's copy of ``byzantine_aircomp_tpu/analysis/tail.py``, without
-its ``--run`` option, which narrows the JAX experiment server's obs root
-to one tenant (the port has no server yet).
+The port's copy of ``byzantine_aircomp_tpu/analysis/tail.py``.  ``--run
+RUN_ID`` tails one tenant of an experiment server's obs root
+(``serve/``): it narrows the target to ``<target>/<run_id>/``, the run's
+private subtree.
 
 Append-aware and seq-ordered: rotated ``.NNNN`` segments (from
 ``--obs-rotate-mb``) are replayed oldest-first before the live file, the
@@ -345,11 +346,21 @@ def main(argv=None) -> int:
                     help="poll interval in seconds while following")
     ap.add_argument("--max-seconds", type=float, default=None,
                     help="stop following after this long (smoke tests)")
+    ap.add_argument("--run", type=str, default=None, metavar="RUN_ID",
+                    help="tail one tenant of an experiment-server obs "
+                         "root: narrows target to <target>/<run_id>/ "
+                         "(the run's private subtree)")
     ap.add_argument("--slow-factor", type=float, default=4.0,
                     help="flag a round whose traced span exceeds this "
                          "multiple of the running median (--trace on "
                          "streams only)")
     args = ap.parse_args(argv)
+    if args.run is not None:
+        if not os.path.isdir(args.target):
+            print(f"--run needs a server obs-root directory, got "
+                  f"{args.target}", file=sys.stderr)
+            return 1
+        args.target = os.path.join(args.target, args.run)
     renderer = Renderer(slow_factor=args.slow_factor)
     if args.once:
         stream = discover_stream(args.target)

@@ -81,6 +81,13 @@ works: with ``--checkpoint-dir D`` every round is checkpointed under D, and
 ``--inherit`` resumes from there.  ``--use-gpu false`` asks for the CPU, as
 ``--device cpu`` does; the two must not disagree.  A run never goes to the
 CPU for want of a card.
+
+Subcommands: ``serve`` boots the multi-tenant experiment server
+(``serve/``; ``--host``, ``--port``, ``--obs-root``, ``--backend``,
+``--batch-window``, ``--queue-cap``, ``--run-retries``, ``--run-backoff``,
+``--wedge-secs``, ``--auth-token``, ``--device``), ``tune`` the defense
+tuner (``tune/tuner.py``).  ``root`` and ``edge``, the two-tier
+aggregation, are ported in the next slice and refused.
 """
 
 from __future__ import annotations
@@ -496,11 +503,95 @@ def config_from_args(args: argparse.Namespace,
     return cfg
 
 
+#: the subcommands the next slice ports (JAX ``cli.py:704-709``)
+TWO_TIER_REFUSAL = (
+    "the two-tier aggregation (serve/root.py and serve/edge.py) is ported in the "
+    "next slice; this port serves one experiment server (`serve`)")
+
+
+def serve_main(argv: Sequence[str]):
+    """``python -m byzantine_aircomp_tpu_torch serve``: boot the multi-tenant
+    experiment server (JAX ``cli.py:633-701``) on the card (``--device cpu``
+    for the CPU) and block until interrupted."""
+    import time
+
+    p = argparse.ArgumentParser("byzantine_aircomp_tpu_torch serve")
+    p.add_argument("--port", type=int, default=0,
+                   help="HTTP port for the run API + /metrics + /healthz "
+                        "(0 = OS-assigned ephemeral, printed at boot)")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--obs-root", type=str, default="./serve_runs",
+                   help="root of the per-run output subtrees "
+                        "(<obs-root>/<run_id>/ holds each tenant's events, "
+                        "checkpoints, caches)")
+    p.add_argument("--backend", choices=["vmap", "map"], default="vmap",
+                   help="the lanes' backend; both run a group's lanes in turn, "
+                        "on one stream (serve/batch.py)")
+    p.add_argument("--batch-window", type=float, default=0.25,
+                   help="seconds to wait after a submission before draining, "
+                        "so concurrent tenants coalesce into one group")
+    p.add_argument("--queue-cap", type=int, default=0,
+                   help="max queued runs before POST /runs answers 429 "
+                        "(0 = unbounded)")
+    p.add_argument("--run-retries", type=int, default=1,
+                   help="watchdog requeues per wedged run before it is "
+                        "failed for good")
+    p.add_argument("--run-backoff", type=float, default=2.0,
+                   help="base seconds of the watchdog's exponential "
+                        "requeue backoff (delay = backoff * 2^(retry-1))")
+    p.add_argument("--wedge-secs", type=float, default=0.0,
+                   help="seconds without a completed round before a "
+                        "running run counts as wedged (0 = watchdog off); "
+                        "/healthz reports 503 while any run is wedged")
+    p.add_argument("--auth-token", type=str, default=None,
+                   help="bearer token required on the mutating endpoints "
+                        "(POST /runs, /cancel, /knobs return 401 without "
+                        "'Authorization: Bearer <token>'); /metrics and "
+                        "/healthz stay open for scrapes")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="the tenants' device: cuda (default; start-up fails "
+                        "without a GPU) or cpu")
+    args = p.parse_args(list(argv))
+    from .serve.server import ExperimentServer
+
+    server = ExperimentServer(
+        args.obs_root,
+        port=args.port,
+        host=args.host,
+        backend=args.backend,
+        batch_window=args.batch_window,
+        queue_cap=args.queue_cap,
+        run_retries=args.run_retries,
+        run_backoff=args.run_backoff,
+        wedge_secs=args.wedge_secs,
+        auth_token=args.auth_token,
+        device=args.device,
+    ).start()
+    print(f"experiment server on {args.host}:{server.port} "
+          f"(obs root: {args.obs_root}; device {args.device}; backend {args.backend}: "
+          "a group's lanes run in turn on one stream)", flush=True)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+
+
 def main(argv: Optional[Sequence[str]] = None):
     import sys
 
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:])
+    if argv and argv[0] == "tune":
+        from .tune.tuner import main as tune_main
+
+        return tune_main(list(argv[1:]))
+    if argv and argv[0] in ("root", "edge"):
+        raise SystemExit(f"byzantine_aircomp_tpu_torch {argv[0]}: {TWO_TIER_REFUSAL}")
     args = build_parser().parse_args(argv)
     if (args.multihost or args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):

@@ -17,6 +17,8 @@ reference's ``optConfig`` / CLI surface (``MNIST_Air_weight.py:16-28,
 
 from __future__ import annotations
 
+import dataclasses
+import typing
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -959,3 +961,74 @@ class FedConfig:
             )
         if self.rollback_max < 1:
             raise ValueError(f"rollback_max must be >= 1, got {self.rollback_max}")
+
+
+#: fields a tenant's mapping may not set: the server's device decides them
+SERVER_FIELDS = ("use_gpu",)
+
+
+def coerce_field(name: str, raw: str):
+    """Coerce a ``key=value`` string by the FedConfig field's annotation
+    (JAX ``fed/config.py:1148-1166``): bools accept true/false/1/yes,
+    Optional fields accept "none"/"null"."""
+    hints = typing.get_type_hints(FedConfig)
+    if name not in hints:
+        raise ValueError(f"unknown FedConfig field {name!r}")
+    tp = hints[name]
+    if typing.get_origin(tp) is typing.Union:  # Optional[...]
+        if raw.lower() in ("none", "null"):
+            return None
+        tp = [a for a in typing.get_args(tp) if a is not type(None)][0]
+    if tp is bool:
+        return raw.lower() in ("1", "true", "yes")
+    return tp(raw)
+
+
+def config_from_mapping(body: dict, use_gpu: bool = True) -> FedConfig:
+    """A validated FedConfig from a JSON-ish mapping, the experiment
+    server's ``POST /runs`` body (JAX ``fed/config.py:1169-1199``): strings
+    go through :func:`coerce_field`, JSON numbers are cast by the field's
+    annotation (``{"gamma": 1}`` stores a float), bools and None pass
+    through.  An unknown field raises ``ValueError`` with JAX's message, so
+    a misspelled knob is a 400, not a silent default.  ``use_gpu`` is the
+    server's (its device), not a tenant's: the caller passes it, and a body
+    that names it is refused."""
+    hints = typing.get_type_hints(FedConfig)
+    kwargs = {}
+    for name, value in body.items():
+        if name in SERVER_FIELDS:
+            raise ValueError(
+                f"FedConfig field {name!r} is the server's (its --device), not a tenant's")
+        if name not in hints:
+            raise ValueError(f"unknown FedConfig field {name!r}")
+        if isinstance(value, str):
+            kwargs[name] = coerce_field(name, value)
+        elif isinstance(value, bool) or value is None:
+            kwargs[name] = value
+        elif isinstance(value, (int, float)):
+            tp = hints[name]
+            if typing.get_origin(tp) is typing.Union:  # Optional[...]
+                tp = [a for a in typing.get_args(tp) if a is not type(None)][0]
+            kwargs[name] = tp(value) if tp in (int, float) else value
+        else:
+            kwargs[name] = value
+    cfg = FedConfig(use_gpu=use_gpu, **kwargs)
+    cfg.validate()
+    return cfg
+
+
+def config_to_mapping(cfg: FedConfig) -> dict:
+    """The JSON-safe inverse of :func:`config_from_mapping` (JAX
+    ``fed/config.py:1202-1230``): every field whose value differs from the
+    dataclass default, ``use_gpu`` left out (the server's).  The server's
+    journal stores each submission so, and
+    ``config_from_mapping(config_to_mapping(cfg), cfg.use_gpu) == cfg``
+    holds for any valid config."""
+    out = {}
+    for f in dataclasses.fields(FedConfig):
+        if f.name in SERVER_FIELDS:
+            continue
+        value = getattr(cfg, f.name)
+        if value != f.default:
+            out[f.name] = value
+    return out

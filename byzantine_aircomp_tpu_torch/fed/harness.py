@@ -248,6 +248,24 @@ def ckpt_title(cfg: FedConfig) -> str:
     return f"{run_title(cfg)}_c{config_hash(cfg)}"
 
 
+def run_namespace(cfg: FedConfig, run_id: str, root: str) -> FedConfig:
+    """Rebase every output path onto the run's private subtree
+    ``<root>/<run_id>/``, the experiment server's tenancy boundary (JAX
+    ``fed/harness.py:303-322``).  Every rewritten field is one the config
+    hash skips, so the namespaced config keeps the submitted one's
+    identity."""
+    ns = os.path.join(root, run_id)
+    os.makedirs(ns, exist_ok=True)
+    return dataclasses.replace(
+        cfg,
+        obs_dir=ns,
+        checkpoint_dir=os.path.join(ns, "ckpt"),
+        cache_dir=os.path.join(ns, "cache"),
+        profile_dir=os.path.join(ns, "profile"),
+        log_file="",
+    )
+
+
 def cache_path(cfg: FedConfig, dataset_name: str) -> str:
     cache_dir = cfg.cache_dir or f"./{dataset_name.upper()}_Air_weight_torch/"
     os.makedirs(cache_dir, exist_ok=True)

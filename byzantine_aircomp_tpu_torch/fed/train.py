@@ -260,6 +260,10 @@ def bucket_means(w_stack: torch.Tensor, perm: torch.Tensor, s: int) -> torch.Ten
     return total / s
 
 
+#: the trainer's device tensors that hold the dataset, lent by ``data_from``
+DATA_TENSORS = ("x_train", "y_train", "offsets", "sizes", "_norm_scale", "_norm_bias")
+
+
 def _under_impl(method):
     """Run a trainer method with every kernel wrapper taking the trainer's
     resolved ``agg_impl`` (:func:`..ops.kernels.implementation`)."""
@@ -279,7 +283,12 @@ class Trainer:
     package (:mod:`..interop`).  Under ``rounds_per_dispatch > 1`` a
     configuration that :func:`.graphs.dispatch_graph` admits replays one
     CUDA graph per round; ``graphs=False`` runs its dispatches eagerly
-    instead, the referee the graphed rounds are held against."""
+    instead, the referee the graphed rounds are held against.
+    ``data_from`` (a trainer on the same device and data layout) lends its
+    device-resident train rows, labels, partition and eval arrays, so the
+    lanes of one batch group hold one dataset on the device
+    (``serve/batch.py``); ``staged_data`` says whether this trainer
+    uploaded its own."""
 
     def __init__(
         self,
@@ -288,6 +297,7 @@ class Trainer:
         device: str = "cuda",
         params: Optional[torch.Tensor] = None,
         graphs: bool = True,
+        data_from: Optional["Trainer"] = None,
     ):
         self.cfg = cfg.validate()
         self.device = resolve_device(device)
@@ -363,41 +373,14 @@ class Trainer:
             tuple(ds.input_shape) if getattr(type(self.model), "SPATIAL_INPUT", True)
             else (-1,)
         )
-        # the client partition (JAX fed/train.py:138-178): the reference's
-        # contiguous equal slices, or the label-Dirichlet split, whose
-        # shards are made contiguous by permuting the train rows and labels
-        # once on the host; then the Zipf re-cut of that index stream
-        y_host = np.asarray(ds.y_train)
-        perm = None
-        if cfg.partition == "dirichlet":
-            perm, sharding = data_lib.dirichlet_shards(
-                y_host, cfg.node_size, cfg.dirichlet_alpha, seed=cfg.seed
-            )
-            y_host = y_host[perm]
+        #: whether this trainer uploaded the dataset itself (its set-up's
+        #: costly part), rather than reading ``data_from``'s copy
+        self.staged_data = data_from is None
+        if data_from is None:
+            self._stage_data(cfg, ds)
         else:
-            sharding = data_lib.contiguous_shards(len(y_host), cfg.node_size)
-        skew = data_lib.parse_size_skew(cfg.size_skew)
-        if skew is not None:
-            sharding = data_lib.zipf_shards(len(y_host), cfg.node_size, skew)
-        if ds.x_train_raw is not None:
-            raw = ds.x_train_raw if perm is None else ds.x_train_raw[perm]
-            raw = raw.reshape(len(raw), -1)
-            self.x_train = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
-            mean, std = ds.stats
-            m = np.broadcast_to(np.asarray(mean, np.float32), ds.input_shape).reshape(-1)
-            s = np.broadcast_to(np.asarray(std, np.float32), ds.input_shape).reshape(-1)
-            self._norm_scale = torch.from_numpy(1.0 / (255.0 * s)).to(self.device)
-            self._norm_bias = torch.from_numpy(-m / s).to(self.device)
-        else:
-            x = np.asarray(ds.x_train, np.float32)
-            if perm is not None:
-                x = x[perm]
-            x = x.reshape(len(x), -1)
-            self.x_train = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            self._norm_scale = self._norm_bias = None
-        self.y_train = torch.from_numpy(y_host.astype(np.int64)).to(self.device)
-        self.offsets = torch.from_numpy(sharding.offsets).to(self.device)
-        self.sizes = torch.from_numpy(sharding.sizes).to(self.device)
+            for name in DATA_TENSORS:
+                setattr(self, name, getattr(data_from, name))
 
         # static per-client Byzantine mask: LAST byz_size clients (:291)
         mask = np.zeros(cfg.node_size, bool)
@@ -428,7 +411,7 @@ class Trainer:
         self._per_client_grad = vmap(grad(self._loss), in_dims=(None, 0, 0))
         # local steps past the first: every client carries its own params
         self._per_client_grad_own = vmap(grad(self._loss), in_dims=(0, 0, 0))
-        self._eval_cache: Dict[str, tuple] = {}
+        self._eval_cache: Dict[str, tuple] = {} if data_from is None else data_from._eval_cache
 
         # the fault channel's carried state (stale buffer, Gilbert-Elliott
         # states), and the [4] counts of FAULT_PATHS: of the last iteration,
@@ -500,6 +483,44 @@ class Trainer:
         # LOCAL at pop_shards 1, the sequential engine above, the process
         # group's engine in parallel/popmesh.py
         self._pop_ctx = self._make_pop_ctx()
+
+    def _stage_data(self, cfg: FedConfig, ds) -> None:
+        """Upload the dataset to the device, in the client partition's order."""
+        # the client partition (JAX fed/train.py:138-178): the reference's
+        # contiguous equal slices, or the label-Dirichlet split, whose
+        # shards are made contiguous by permuting the train rows and labels
+        # once on the host; then the Zipf re-cut of that index stream
+        y_host = np.asarray(ds.y_train)
+        perm = None
+        if cfg.partition == "dirichlet":
+            perm, sharding = data_lib.dirichlet_shards(
+                y_host, cfg.node_size, cfg.dirichlet_alpha, seed=cfg.seed
+            )
+            y_host = y_host[perm]
+        else:
+            sharding = data_lib.contiguous_shards(len(y_host), cfg.node_size)
+        skew = data_lib.parse_size_skew(cfg.size_skew)
+        if skew is not None:
+            sharding = data_lib.zipf_shards(len(y_host), cfg.node_size, skew)
+        if ds.x_train_raw is not None:
+            raw = ds.x_train_raw if perm is None else ds.x_train_raw[perm]
+            raw = raw.reshape(len(raw), -1)
+            self.x_train = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
+            mean, std = ds.stats
+            m = np.broadcast_to(np.asarray(mean, np.float32), ds.input_shape).reshape(-1)
+            s = np.broadcast_to(np.asarray(std, np.float32), ds.input_shape).reshape(-1)
+            self._norm_scale = torch.from_numpy(1.0 / (255.0 * s)).to(self.device)
+            self._norm_bias = torch.from_numpy(-m / s).to(self.device)
+        else:
+            x = np.asarray(ds.x_train, np.float32)
+            if perm is not None:
+                x = x[perm]
+            x = x.reshape(len(x), -1)
+            self.x_train = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            self._norm_scale = self._norm_bias = None
+        self.y_train = torch.from_numpy(y_host.astype(np.int64)).to(self.device)
+        self.offsets = torch.from_numpy(sharding.offsets).to(self.device)
+        self.sizes = torch.from_numpy(sharding.sizes).to(self.device)
 
     def _make_pop_ctx(self):
         """LOCAL (pop_shards 1) or the sequential reference engine (JAX

@@ -26,9 +26,10 @@ The port of the core of ``byzantine_aircomp_tpu/obs/``:
 ``obs.span(...)`` / ``obs.round(...)`` / ``obs.emit(...)``.  The disabled
 path is :data:`NULL` (a null sink): with ``--obs-dir`` / ``--obs-stdout``
 unset no file is touched, and the records, params and random streams are
-bitwise those of a run without this package.  The JAX façade's
-``span_event`` and ``trace_root``, which serve the JAX package's serving
-layer, are not ported yet.
+bitwise those of a run without this package.  ``span_event`` and
+``trace_root`` serve the experiment server (``serve/``): retrospectively
+timed spans (queue wait, a lane's slice of a group round) hung off a
+tenant's pre-minted root span.
 """
 
 from __future__ import annotations
@@ -88,6 +89,9 @@ class Observability:
         self.metrics_sink = metrics_sink
         self.alert_engine = alert_engine
         self.exporter = None
+        # (trace_id, root_span_id) under --trace on for serve-managed runs:
+        # the identity every retrospective span_event hangs off
+        self.trace_root = None
 
     @property
     def traced(self) -> bool:
@@ -102,6 +106,31 @@ class Observability:
 
     def span(self, name: str, sync=None, **fields):
         return self._spans.span(name, sync=sync, **fields)
+
+    def span_event(self, name: str, ms: float, **fields) -> None:
+        """Emit a span timed outside a context manager (queue wait, a
+        lane's slice of a group round; JAX ``obs/__init__.py:118-150``).
+
+        A no-op unless the façade is traced, so ``--trace off`` streams
+        stay as they were.  ``trace_id``/``span_id``/``parent_span_id`` in
+        ``fields`` win; otherwise the ids come from :attr:`trace_root` (the
+        span id minted fresh, the parent defaulting to the root span, so a
+        run's spans assemble into one tree)."""
+        if not self._spans.traced:
+            return
+        if "trace_id" not in fields:
+            if self.trace_root is not None:
+                fields["trace_id"] = self.trace_root[0]
+            else:
+                ctx = trace.current()
+                fields["trace_id"] = ctx[0] if ctx is not None else trace.new_trace_id()
+        fields.setdefault("span_id", trace.new_span_id())
+        if ("parent_span_id" not in fields and self.trace_root is not None
+                and self.trace_root[0] == fields["trace_id"]
+                and self.trace_root[1] is not None
+                and fields["span_id"] != self.trace_root[1]):
+            fields["parent_span_id"] = self.trace_root[1]
+        self.sink.emit(make_event("span", name=name, ms=round(float(ms), 3), **fields))
 
     def round(self, round_idx: int, **metrics) -> None:
         self.collector.round_event(round_idx, **metrics)

@@ -14,8 +14,14 @@ run end and crash both shut the port down and join the thread.  ``port=0``
 binds a port the OS picks (tests); the bound port is on ``.port`` after
 ``start()``.  A failed bind raises from ``start()``.
 
-The JAX exporter's ``routes`` hook (extra endpoints on the same port)
-serves its experiment server and aggregation root; it comes with them.
+``routes`` mounts extra endpoints on the same port without subclassing
+the handler: a callable ``(method, raw_path, body, headers) ->
+Optional[(status, content_type, body_bytes)]`` tried before the built-in
+``/metrics``/``/healthz`` handling (``None`` falls through).  ``raw_path``
+keeps the query string and ``headers`` is a plain lower-cased dict (the
+experiment server's bearer-token check reads ``authorization``).  The
+experiment server (``serve/server.py``) rides this hook, so one socket
+serves both its run API and the scrape surface.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from .metrics import MetricsRegistry
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
+#: extra-route hook: (method, raw_path_with_query, body, headers) ->
+#: (status, content_type, body) or None to fall through to the built-ins
+RouteFn = Callable[[str, str, bytes, Dict[str, str]], Optional[tuple]]
+
 
 class MetricsExporter:
     """Background /metrics + /healthz server over one registry."""
@@ -39,11 +49,13 @@ class MetricsExporter:
         port: int = 0,
         host: str = "0.0.0.0",
         health_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+        routes: Optional[RouteFn] = None,
     ) -> None:
         self.registry = registry
         self._requested_port = port
         self._host = host
         self._health_fn = health_fn
+        self._routes = routes
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -67,9 +79,27 @@ class MetricsExporter:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _try_routes(self, method: str) -> bool:
+                if exporter._routes is None:
+                    return False
+                length = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(length) if length else b""
+                headers = {k.lower(): v for k, v in self.headers.items()}
+                hit = exporter._routes(method, self.path, body, headers)
+                if hit is None:
+                    return False
+                self._reply(*hit)
+                return True
+
+            def do_POST(self) -> None:
+                if not self._try_routes("POST"):
+                    self._reply(404, "text/plain", b"")
+
             def do_GET(self) -> None:
                 route = self.path.split("?", 1)[0]
-                if route == "/metrics":
+                if self._try_routes("GET"):
+                    pass
+                elif route == "/metrics":
                     self._reply(200, CONTENT_TYPE, exporter.registry.render().encode())
                 elif route == "/healthz":
                     health = exporter._health_fn() if exporter._health_fn else {"ok": True}

@@ -195,7 +195,7 @@
 
    the implementation knobs (``run_z13``): (z13) gm2 K=1000, gm --var K=50
    and median --var K=50, one round each at ``--agg-impl pallas`` and
-   ``xla`` in turns (pallas, xla, pallas, xla) after an untimed warm-up:
+   ``xla`` in turns (pallas, xla) after an untimed warm-up:
    records and params within 1e-4 (the median's bitwise), the run's kernel
    launched every iteration under pallas and none of the four under xla
    (the wrappers' counts and, over one more profiled iteration, the
@@ -2312,26 +2312,39 @@ def count_replay_launches(torch, trainer, r0, at_capture, label):
     fails when any session counts over, or when every session is short (as a
     launch missing from the graph would be, every time).  Returns the exact
     session's profile and every session's counts."""
-    sessions = []
-    for _ in range(PROFILE_SESSIONS):
+    def measure():
         prof = profile_dispatch(torch, trainer, r0, 2)
         seen = prof["device_launches"]
-        want = {g: 2 * sum(at_capture[k] for k in g.split("+")) for g in seen}
+        return seen, {g: 2 * sum(at_capture[k] for k in g.split("+")) for g in seen}, prof
+
+    return _exact_sessions(label, "over two replays", "twice the capture's count", measure)
+
+
+def _exact_sessions(label, over_what, against, measure):
+    """Up to :data:`PROFILE_SESSIONS` profiler sessions of ``measure()``,
+    which returns (device counts by wrapper group, the counts they must
+    equal, its profile): passes when one session counts every group
+    exactly and no session counts over, since a session can lose kernel
+    records but never adds one.  Returns the exact session's profile and
+    every session's counts."""
+    sessions = []
+    for _ in range(PROFILE_SESSIONS):
+        seen, want, prof = measure()
         over = sorted(g for g in seen if seen[g] > want[g])
         short = sorted(g for g in seen if seen[g] < want[g])
         sessions.append(dict(device=seen, want=want, short=short, over=over))
         if over:
-            _fail(f"run {label}: {over} kernels ran on the device more often over two replays "
-                  f"({seen}) than twice the capture's count ({want})")
+            _fail(f"run {label}: {over} kernels ran on the device more often {over_what} "
+                  f"({seen}) than {against} ({want})")
         if not short:
             break
     n_short = sum(bool(x["short"]) for x in sessions)
-    print(f"run {label}: device launches over two replays in {len(sessions)} profiler "
+    print(f"run {label}: device launches {over_what} in {len(sessions)} profiler "
           f"session(s), {n_short} short: {[x['device'] for x in sessions]} against "
-          f"{sessions[0]['want']}")
+          f"{[x['want'] for x in sessions]}")
     if sessions[-1]["short"]:
         _fail(f"run {label}: every one of {len(sessions)} profiler sessions counted fewer "
-              f"kernels than twice the capture's count: {sessions}")
+              f"kernels than {against}: {sessions}")
     return prof, sessions
 
 
@@ -3177,7 +3190,7 @@ def run_z13(torch, kernels, harness, FedConfig, card, cache_dir):
 
     * The main path's A/B: (b) gm2 K=1000, (a) gm --var K=50 and (c) median
       --var K=50, one round each from one seed, at --agg-impl pallas and
-      xla in turns (pallas, xla, pallas, xla): records and params within
+      xla in turns (pallas, xla): records and params within
       ITER_ATOL (the median's the same bits); under pallas the run's
       kernel launched every iteration (the wrappers' counts) and seen on
       the device in one more profiled iteration; under xla none of the
@@ -3211,7 +3224,7 @@ def run_z13(torch, kernels, harness, FedConfig, card, cache_dir):
         cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=1, display_interval=10,
                         eval_train=False, cache_dir=cache_dir)
         runs = []
-        for turn, impl in enumerate(("pallas", "xla", "pallas", "xla")):
+        for turn, impl in enumerate(("pallas", "xla")):
             c = dataclasses.replace(cfg, agg_impl=impl)
             trainer, record, launches, wall = _drive(
                 torch, kernels, harness, f"z13 {label} {impl}", c,
@@ -3234,21 +3247,19 @@ def run_z13(torch, kernels, harness, FedConfig, card, cache_dir):
         pallas, xla = runs[0], runs[1]
         p_err = float((pallas["params"] - xla["params"]).abs().max())
         r_err = _record_diff(pallas["record"], xla["record"])
-        repeat = {impl: torch.equal(runs[i]["params"], runs[i + 2]["params"])
-                  for i, impl in enumerate(("pallas", "xla"))}
         if not (p_err <= atol and r_err <= atol):
             _fail(f"run z13 {label}: pallas and xla differ by {p_err} (params), {r_err} "
                   f"(records), more than {atol}")
         rates = [(r["impl"], r["rounds_per_sec"]) for r in runs]
         print(f"run z13 {label}: pallas vs xla params max abs diff {p_err:.3e}, records "
-              f"{r_err:.3e}; repeat bitwise {repeat}; rounds/sec in turns {rates}; launches "
+              f"{r_err:.3e}; rounds/sec in turns {rates}; launches "
               f"pallas {runs[0]['launches']}, xla {runs[1]['launches']}; device, one more "
               f"iteration: pallas {runs[0]['device_launches_profiled_iteration']}, xla "
               f"{runs[1]['device_launches_profiled_iteration']} [{card}]")
         for r in runs:
             del r["params"], r["record"]
         out["ab"][label] = dict(params_max_abs_diff=p_err, records_max_abs_diff=r_err,
-                                repeat_bitwise=repeat, runs=runs, tolerance=atol)
+                                runs=runs, tolerance=atol)
     for label, kw, kernel in BF16_RUNS:
         entry, trainer = graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir,
                                       label, kw, kernel)
@@ -3678,6 +3689,273 @@ def run_z14(torch, kernels, harness, FedConfig, card, cache_dir, z2_record):
     return out
 
 
+# (z15): the experiment server, the chaos smoke and the tuner on the card.
+# Each tenant runs Z15_ROUNDS rounds of the MNIST MLP (d = 7,850) at full
+# width; gm2 classflip K=1000 in one group (three seeds and one poisoned by a
+# huge step), gm --var 1e-2 K=50 in another, with a gamma swap posted over
+# HTTP during its round 0 (it lands at round 1)
+Z15_GM2 = dict(agg="gm2", attack="classflip", honest_size=900, byz_size=100)
+Z15_GM_VAR = dict(agg="gm", attack="classflip", noise_var=1e-2, honest_size=40, byz_size=10)
+Z15_ROUNDS = 2
+Z15_SWAP = ("gamma", 5e-3)
+
+
+def _post(port, path, body):
+    """(status, parsed body, ms) of one POST on the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(), method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, json.loads(raw or b"{}"), (time.perf_counter() - t0) * 1e3
+
+
+def _served_record(info):
+    import pickle
+
+    with open(info["record"], "rb") as f:
+        return pickle.load(f)
+
+
+def _profiled_served_round(torch, kernels, srv, bodies):
+    """One round of each tenant of ``bodies``, submitted over HTTP and
+    served by one drain under torch.profiler: the device kernels of each
+    wrapper group against what the wrappers counted in that drain, exact
+    (:func:`_exact_sessions`; a session short of the wrappers' count serves
+    the tenants again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def measure():
+        ids = []
+        for body in bodies:
+            status, info, _ms = _post(srv.port, "/runs", body)
+            if status != 201:
+                _fail(f"run z15 profiled: POST /runs answered {status}: {info}")
+            ids.append(info["run_id"])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            srv.manager.drain()
+            torch.cuda.synchronize()
+        counted = dict(kernels.LAUNCHES)
+        states = [srv.manager.get(rid)["status"] for rid in ids]
+        if states != ["completed"] * len(ids) or not (
+                counted["weiszfeld_step"] and counted["aircomp_weiszfeld_step"]):
+            _fail(f"run z15 profiled: the tenants ended {states}, launches {counted}")
+        seen = _device_launches(torch, prof)
+        return seen, {g: sum(counted[k] for k in g.split("+")) for g in seen}, None
+
+    t0 = time.perf_counter()
+    sessions = _exact_sessions("z15 profiled served round", "in one served round",
+                               "the wrappers counted", measure)[1]
+    return dict(sessions=sessions, seconds=time.perf_counter() - t0)
+
+
+def run_z15(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z15): the experiment server on the card.
+
+    * An in-process ``ExperimentServer`` (its HTTP surface on a local port,
+      this thread driving the device through ``drain``): three gm2
+      classflip K=1000 tenants that differ in their seed, a fourth with
+      ``gamma`` 1e30 (poisoned), and one gm --var 1e-2 K=50 tenant whose
+      ``gamma`` is swapped over HTTP during its round 0, all submitted over
+      HTTP, 2 rounds each.  Every healthy lane's record is bitwise its solo
+      harness run on the card (the gm --var run with the same swap after
+      its round 0), ``roundsPerSec`` aside; one ``batch_round_fn`` build
+      per group; the wrappers' ``weiszfeld_step`` count equals the three
+      solo runs' plus the poisoned config's one round, and the
+      ``aircomp_weiszfeld_step`` count the gm --var solo run's; the
+      poisoned lane is quarantined and its cotenants complete; ``/healthz``
+      answers 200 and ``/metrics`` carries the tenants' ``run_id`` labels.
+      Then two more gm2 tenants and one gm --var tenant (one iteration a
+      round: 1,000 steps, where ten would give the profiler 10,000) are
+      served one round under torch.profiler, and the Weiszfeld kernels
+      seen on the device equal the wrappers' count
+      (:func:`_profiled_served_round`).
+      Lane and solo rounds/sec and the admission time (the client's
+      largest of the five POSTs, the server's p99 bucket edge) are
+      printed.
+    * Chaos ``smoke`` against ``python -m byzantine_aircomp_tpu_torch
+      serve`` subprocesses on the card.
+    * A tune of 2 candidates (4 lanes) x 2 generations on the adaptive
+      ladder (mean, trimmed_mean, multi_krum): one build per generation,
+      ``select_columns`` launched by the ladder's trimmed_mean rung."""
+    import shutil
+
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.serve.batch import BatchRunner
+    from byzantine_aircomp_tpu_torch.serve.server import ExperimentServer
+    from byzantine_aircomp_tpu_torch.tune import Tuner
+
+    out = dict(card=card)
+    t_all = time.perf_counter()
+    ds = datasets.load("mnist")
+    root = os.path.join(cache_dir, "z15_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(rounds=Z15_ROUNDS, display_interval=10, eval_train=False)
+    healthy = [dict(base, **Z15_GM2, seed=s) for s in (2021, 2022, 2023)]
+    poisoned = dict(base, **Z15_GM2, seed=2024, gamma=1e30)
+    gm_var = dict(base, **Z15_GM_VAR, seed=2021)
+    srv = ExperimentServer(root, port=0, host="127.0.0.1", dataset=ds, device="cuda")
+    srv.exporter.start()  # the run API; this thread drives the device
+    port = srv.port
+    posted = []
+    orig_round = BatchRunner.run_round
+
+    def swapping_round(self, round_idx):
+        # the gm --var group's round 0 done: the swap goes over HTTP and
+        # lands at the lane's next round boundary
+        res = orig_round(self, round_idx)
+        if not posted and self.cfgs[0].noise_var is not None:
+            posted.append(_post(port, f"/runs/{ids[-1]}/knobs", dict([Z15_SWAP])))
+        return res
+
+    try:
+        admission, ids = [], []
+        for body in healthy + [poisoned, gm_var]:
+            status, info, ms = _post(port, "/runs", body)
+            if status != 201:
+                _fail(f"run z15: POST /runs answered {status}: {info}")
+            admission.append(ms)
+            ids.append(info["run_id"])
+        BatchRunner.run_round = swapping_round
+        gc.collect()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            srv.manager.drain()
+        finally:
+            BatchRunner.run_round = orig_round
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        served = dict(kernels.LAUNCHES)
+        infos = {rid: json.loads(_scrape(port, f"/runs/{rid}")[1]) for rid in ids}
+        h_status, h_body, _ = _scrape(port, "/healthz")
+        m_status, metrics, scrape_ms = _scrape(port, "/metrics")
+        server_p99 = srv.registry.quantile("aircomp_http_request_seconds", 0.99,
+                                           route="POST /runs")
+        profiled = _profiled_served_round(
+            torch, kernels, srv, [dict(healthy[0], rounds=1, seed=s) for s in (2031, 2032)]
+            + [dict(gm_var, rounds=1, seed=2031, display_interval=1)])
+    finally:
+        srv.exporter.close()
+        srv.manager.close()
+    backend = "vmap (a group's lanes in turn, one stream)"
+    good = ids[:3] + ids[4:]
+    bad = infos[ids[3]]
+    if not (all(infos[r]["status"] == "completed" and infos[r].get("lowerings") == 1
+                for r in good)
+            and bad["status"] == "failed" and "quarantined" in bad.get("error", "")):
+        _fail(f"run z15: lanes not completed with one build, or the poisoned lane not "
+              f"quarantined: {infos}")
+    if not (posted and posted[0][0] == 200 and infos[ids[-1]]["swaps"] == [
+            dict(round=1, knob=Z15_SWAP[0], value=Z15_SWAP[1])]):
+        _fail(f"run z15: the swap did not land at round 1: {posted} {infos[ids[-1]]}")
+    if h_status != 200 or m_status != 200 or not all(
+            f'run_id="{r}"' in metrics for r in ids):
+        _fail(f"run z15: /healthz {h_status} {h_body} or /metrics {m_status} without the "
+              "tenants' run_id labels")
+    # the solo references, each through the harness on the card
+    solo_launch = {k: 0 for k in served}
+    lanes = []
+    for body, rid in zip(healthy + [gm_var], good):
+        swap = rid == ids[-1]
+        cfg = FedConfig(**dict(body, cache_dir=os.path.join(cache_dir, "z15_solo")))
+        kernel = "aircomp_weiszfeld_step" if swap else "weiszfeld_step"
+        _t, record, launches, wall = _drive(
+            torch, kernels, harness, f"z15 solo {rid}", cfg, kernel, ds,
+            on_round=(lambda r, t: setattr(t.cfg, *Z15_SWAP) if r == 1 else None)
+            if swap else None)
+        del _t
+        for k, v in launches.items():
+            solo_launch[k] += v
+        got = _served_record(infos[rid])
+        lane_rate, solo_rate = got.pop("roundsPerSec"), record.pop("roundsPerSec")
+        if not _same_record(got, record):
+            _fail(f"run z15: lane {rid} is not bitwise its solo run")
+        lanes.append(dict(run_id=rid, lane=infos[rid]["lane"], agg=body["agg"],
+                          lane_rounds_per_sec=lane_rate, solo_rounds_per_sec=solo_rate,
+                          solo_wall_seconds=wall))
+    # the poisoned config's one round, which its lane ran before quarantine
+    t = harness.make_trainer(FedConfig(**poisoned), dataset=ds, device="cuda")
+    kernels.reset_launches()
+    t.run_round(0)
+    torch.cuda.synchronize()
+    solo_launch["weiszfeld_step"] += kernels.LAUNCHES["weiszfeld_step"]
+    del t
+    counted = {k: (served[k], solo_launch[k]) for k in ("weiszfeld_step",
+                                                        "aircomp_weiszfeld_step")}
+    if any(a != b or a == 0 for a, b in counted.values()):
+        _fail(f"run z15: served launches differ from the solo runs' (served, solo): {counted}")
+    client_max = max(admission)
+    for lane in lanes:
+        print(f"run z15 lane {lane['run_id']} ({lane['agg']}, lane {lane['lane']}): bitwise "
+              f"its solo run; rounds/sec lane {lane['lane_rounds_per_sec']} solo "
+              f"{lane['solo_rounds_per_sec']} [{card}]")
+    print(f"run z15 served: {len(ids)} tenants in 2 groups ({backend}), drain "
+          f"{served_s:.2f}s; launches (served, solo) {counted}; poisoned lane "
+          f"{bad['error']}; admission client max {client_max:.2f} ms (of "
+          f"{len(admission)} POSTs), server p99 {None if server_p99 is None else server_p99 * 1e3} ms "
+          f"(bucket edge); /metrics {scrape_ms:.2f} ms; the profiled round "
+          f"{profiled['seconds']:.1f}s [{card}]")
+    out["serve"] = dict(infos=infos, lanes=lanes, launches_served=served,
+                        launches_solo=solo_launch, drain_seconds=served_s,
+                        admission_ms=admission, admission_max_client_ms=client_max,
+                        admission_p99_server_s=server_p99, backend=backend,
+                        profiled_served_round=profiled)
+
+    # the chaos smoke against serve subprocesses on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(cache_dir, "z15_chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "byzantine_aircomp_tpu_torch.analysis.chaos", "--scenario",
+         "smoke", "--device", "cuda", "--workdir", work],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p)))
+    chaos_s = time.perf_counter() - t0
+    print(proc.stdout.strip())
+    if proc.returncode != 0 or "smoke: OK" not in proc.stdout:
+        _fail(f"run z15 chaos smoke failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+    print(f"run z15 chaos smoke: OK in {chaos_s:.1f}s [{card}]")
+    out["chaos_smoke_seconds"] = chaos_s
+
+    # the tuner on the adaptive ladder
+    base_cfg = FedConfig(honest_size=13, byz_size=3, attack="signflip@1", agg="mean",
+                         defense="adaptive", defense_ladder="mean,trimmed_mean,multi_krum",
+                         forensics="top", forensics_top=8, display_interval=2,
+                         eval_train=False, rounds=1, defense_warmup=1, batch_size=32)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tuner = Tuner(base_cfg, population=2, generations=2, base_rounds=3, seed=0, dataset=ds,
+                  device="cuda")
+    result = tuner.run()
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tl = dict(kernels.LAUNCHES)
+    print(f"run z15 tune: 2 candidates x 2 generations (4 then 2 lanes) in {tune_s:.1f}s, "
+          f"builds {tuner.lowerings}, winner {result['tuned']['candidate']} objective "
+          f"{result['tuned']['objective']:.4f} (default "
+          f"{result['default'].get('objective', float('nan')):.4f}), launches {tl} [{card}]")
+    if tuner.lowerings != 2 or tl["select_columns"] < 1:
+        _fail(f"run z15 tune: {tuner.lowerings} builds for 2 generations, or the ladder's "
+              f"trimmed_mean never launched select_columns: {tl}")
+    out["tune"] = dict(builds=tuner.lowerings, launches=tl, seconds=tune_s,
+                       tuned=result["tuned"], default=result["default"])
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"run z15 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -3719,6 +3997,7 @@ def main():
     knob_runs = run_z13(torch, kernels, harness, FedConfig, card, cache_dir)
     layout_runs = run_z14(torch, kernels, harness, FedConfig, card, cache_dir,
                           service_runs["z2"].pop("record"))
+    serve_runs = run_z15(torch, kernels, harness, FedConfig, card, cache_dir)
     degraded_sort = time_degraded_sort(torch, kernels, card)
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -3763,7 +4042,7 @@ def main():
                        iteration_vs_cpu_max_abs_err=iter_errs, runs=runs, conv_models=conv,
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
                        obs_runs=obs_runs, telemetry_runs=telemetry_runs,
-                       knob_runs=knob_runs, layout_runs=layout_runs,
+                       knob_runs=knob_runs, layout_runs=layout_runs, serve_runs=serve_runs,
                        degraded_sort=degraded_sort, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

@@ -1247,3 +1247,36 @@ def test_dcp_round_trip_of_card_params_is_bitwise(cuda, tmp_path):
     assert round_idx == 3 and back["w"].device.type == "cuda"
     assert torch.equal(back["w"], params["w"]) and torch.equal(back["b"]["bias"],
                                                                 params["b"]["bias"])
+
+
+@pytest.mark.parametrize("backend", ["vmap", "map"])
+def test_seed_lanes_on_the_card_are_bitwise_their_solo_runs(cuda, backend):
+    """Two seed lanes of gm2 classflip K=50 (the experiment server's
+    group, serve/batch.py) on the card: each lane's record is bitwise its
+    solo ``Trainer.train`` on the card, ``roundsPerSec`` aside, with one
+    build for the group and the Weiszfeld kernel launched by both."""
+    import dataclasses
+    import pickle
+
+    from byzantine_aircomp_tpu_torch.data import datasets
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+    from byzantine_aircomp_tpu_torch.serve.batch import BatchRunner
+
+    ds = datasets.load("mnist")
+    cfgs = [FedConfig(agg="gm2", attack="classflip", honest_size=40, byz_size=10, rounds=2,
+                      display_interval=5, eval_train=False, seed=s) for s in (2021, 2022)]
+    kernels.reset_launches()
+    batch = BatchRunner(cfgs, dataset=ds, backend=backend)
+    lanes = batch.train()
+    torch.cuda.synchronize()
+    served = kernels.LAUNCHES["weiszfeld_step"]
+    assert batch.retrace.count("batch_round_fn") == 1 and batch.device == "cuda"
+    kernels.reset_launches()
+    for cfg, got in zip(cfgs, lanes):
+        solo = Trainer(dataclasses.replace(cfg), dataset=ds, device="cuda").train()
+        for paths in (solo, got):
+            paths.pop("roundsPerSec")
+        assert pickle.dumps(got) == pickle.dumps(solo)
+    torch.cuda.synchronize()
+    assert served == kernels.LAUNCHES["weiszfeld_step"] >= 2 * 2 * 5

@@ -16,6 +16,7 @@ within 0.1 of JAX's (the same one-round start, other batches), and its
 table and pickle keys to JAX's on the same grid.
 """
 
+import json
 import pickle
 
 import jax
@@ -165,11 +166,23 @@ def test_the_cube_and_its_tuned_constants_are_jax_s(jax_draws):
         tadapt.run_cube(**dict(kw, tuned={"0.3": params}), device="cpu")
 
 
-def test_batched_is_refused_with_its_reason():
-    with pytest.raises(NotImplementedError, match="batch runner"):
-        tadapt.run_matrix(["signflip"], ["off"], batched=True, device="cpu")
+def test_batched_is_refused_with_its_reason(tmp_path, capsys):
+    """``--batched`` is no longer refused (the experiment server's slice):
+    every mode of a family from one pass equals the per-cell loop, every
+    column, and the CLI's speedup flags time the loop against it."""
+    kw = dict(iters=10, onset=2, stop=7, seed=0, log=lambda s: None, device="cpu")
+    attacks, modes = ["signflip", "gradascent", "under_radar", "mimic"], list(tadapt.MODES)
+    assert (tadapt.run_matrix(attacks, modes, batched=True, **kw)
+            == tadapt.run_matrix(attacks, modes, **kw))
+    row = tmp_path / "row.json"
+    tadapt.main(["--batched", "--device", "cpu", "--attacks", "signflip", "--iters", "8",
+                 "--onset", "2", "--stop", "6", "--expect-speedup", "0", "--perf-row",
+                 str(row)])
+    got = json.loads(row.read_text())
+    assert got["metric"] == "matrix_wallclock" and got["platform"] == "cpu"
+    assert "wall-clock: eager" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        tadapt.main(["--batched", "--device", "cpu"])
+        tadapt.main(["--device", "cpu", "--perf-row", str(row)])  # needs --batched
 
 
 # ---------------------------------------------------------------------------

@@ -86,12 +86,19 @@ def test_sweep_main_prints_one_json_line_per_cell_and_the_table(tmp_path):
 
 
 def test_batched_sweeps_are_refused_with_their_reason():
-    with pytest.raises(NotImplementedError, match="BatchRunner"):
-        sweep.run_sweep(["mean"], [None], _cfg_kw(), dataset=object(), batched=True)
-    err = io.StringIO()
-    with redirect_stderr(err), pytest.raises(SystemExit):
-        sweep.main(["--device", "cpu", "--batched"])
-    assert "drop --batched" in err.getvalue()
+    """``--batched`` is no longer refused (the experiment server's slice):
+    each cell's seed replicas as the lanes of one batch runner equal the
+    eager per-seed cells (JAX ``test_sweep_batched_matches_eager``)."""
+    ds = tdata.load("mnist", synthetic_train=300, synthetic_val=100)
+    kw = _cfg_kw(honest_size=6, byz_size=2, rounds=2, gamma=1e-2, seed=3)
+    common = dict(dataset=ds, seeds=2, log=lambda s: None)
+    eager = sweep.run_sweep(["mean"], [None, "signflip"], dict(kw), **common)
+    batched = sweep.run_sweep(["mean"], [None, "signflip"], dict(kw), batched=True,
+                              **common)
+    assert eager.keys() == batched.keys()
+    for key, cell in eager.items():
+        for col in ("val_acc", "val_loss", "val_acc_std"):
+            assert cell[col] == batched[key][col], (key, col)
 
 
 def test_the_sweep_shares_the_run_cli_s_knob_flags():
