@@ -37,10 +37,27 @@ failure scenarios and asserts the recovery invariants:
   ``lowerings == 1`` and records bit-identical to an unkilled baseline,
   and the poisoned run failed as quarantined — not fatally.
 
-The two-tier scenarios (``edge_kill``, ``edge_replay``, ``edge_ledger``,
-``trace_smoke``) drive the JAX package's aggregation root and edges
-(``serve/root.py``, ``serve/edge.py``), which are ported in the next
-slice: they are refused with that reason.
+The two-tier scenarios drive a real aggregation root (``serve/root.py``)
+and edge subprocesses (``serve/edge.py``), N+1 processes on one machine:
+
+* ``edge_kill``   — 4 edges, one SIGKILLed after round 0; the root
+  quarantines it on its deadline, the survivors run the later rounds
+  degraded and finish every round; a fresh topology that nobody kills is
+  bitwise the flat single-process aggregate for every aggregator and the
+  packed sign vote; each edge sets up its round program once per
+  degraded-ness.
+* ``trace_smoke`` — a healthy topology under ``--trace on``: every stream
+  joins one trace with no orphan span, and every round's timeline covers
+  at least 90% of its wall clock.
+* ``edge_replay`` — zero-trust checks over raw HTTP: a captured
+  submission replayed byte for byte is rejected (409) and journaled
+  without evicting the edge it names; a forged MAC never reaches the fold
+  and can not evict the claimed edge; the nonce high-water mark survives a
+  root restart through the root journal; a Byzantine edge that races a
+  bogus phase schema in first is out-voted and quarantined.
+* ``edge_ledger`` — the bandwidth claim: at d=7850 with the one-bit sign
+  channel, root ingress per round is at most 1/24 of the flat f32
+  submission volume; writes a perf row for ``perf_gate --append``.
 
 Usage::
 
@@ -48,8 +65,8 @@ Usage::
 
 Stdlib-only on the client side (urllib against the server's HTTP API);
 the server runs as ``python -m byzantine_aircomp_tpu_torch serve``
-exactly as an operator would launch it, on the card unless ``--device
-cpu``.
+(``root``, ``edge``) exactly as an operator would launch it, on the card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -91,9 +108,29 @@ DEVICE = "cuda"
 #: the repository root, put on the servers' import path
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: the scenarios of the two-tier aggregation, ported in the next slice
-EDGE_SCENARIOS = ("edge_kill", "edge_replay", "edge_ledger", "trace_smoke")
-EDGE_REFUSAL = "serve/root.py and serve/edge.py are ported in the next slice"
+
+def _env() -> Dict[str, str]:
+    """The subprocesses' environment: the repository on the import path."""
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (_REPO, os.environ.get("PYTHONPATH")) if p)}
+
+
+def _await_port(proc, log_path: str, marker: str, what: str) -> int:
+    """The port a subprocess printed after ``marker`` in its log."""
+    deadline = time.time() + _BOOT_DEADLINE
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(
+                f"{what} exited rc={proc.returncode} before binding; see {log_path}")
+        try:
+            with open(log_path) as f:
+                for line in f:
+                    if marker in line:
+                        return int(line.split(marker, 1)[1].split()[0].strip("()"))
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"{what} never bound a port; see {log_path}")
 
 
 class Server:
@@ -113,30 +150,13 @@ class Server:
             ],
             stdout=self._log_fh,
             stderr=subprocess.STDOUT,
-            env={**os.environ, "PYTHONPATH": os.pathsep.join(
-                p for p in (_REPO, os.environ.get("PYTHONPATH")) if p)},
+            env=_env(),
         )
         self.port = self._await_port()
 
     def _await_port(self) -> int:
-        deadline = time.time() + _BOOT_DEADLINE
-        marker = "experiment server on 127.0.0.1:"
-        while time.time() < deadline:
-            if self.proc.poll() is not None:
-                raise AssertionError(
-                    f"server exited rc={self.proc.returncode} before "
-                    f"binding; see {self.log_path}"
-                )
-            try:
-                with open(self.log_path) as f:
-                    for line in f:
-                        if marker in line:
-                            tail = line.split(marker, 1)[1]
-                            return int(tail.split()[0].strip("()"))
-            except OSError:
-                pass
-            time.sleep(0.2)
-        raise AssertionError(f"server never bound a port; see {self.log_path}")
+        return _await_port(self.proc, self.log_path, "experiment server on 127.0.0.1:",
+                           "server")
 
     # ------------------------------------------------------ HTTP client
 
@@ -487,8 +507,475 @@ def scenario_smoke(workdir: str) -> None:
     print("smoke: OK (recovered, quarantined, bit-identical)")
 
 
+# ----------------------------------------------- two-tier edge topology
+
+_EDGE_DEADLINE = 1200.0  # N+1 processes sharing one machine
+
+
+def _topology(workdir: str, **over) -> str:
+    """Write a topology JSON with fresh random per-edge HMAC keys."""
+    cfg: Dict[str, Any] = {
+        "edges": 4, "k": 32, "d": 64, "cohort": 4, "rounds": 3,
+        "aggs": ["median", "trimmed_mean", "mean", "gm2"],
+        "sign_bits": 1, "gm2_maxiter": 40, "seed": 7,
+        "partial_timeout": 90.0,
+    }
+    cfg.update(over)
+    cfg["keys"] = {str(e): os.urandom(32).hex() for e in range(cfg["edges"])}
+    path = os.path.join(workdir, "topo.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+class Root:
+    """One aggregation-root subprocess on an ephemeral port."""
+
+    def __init__(self, topo: str, obs_dir: str, log_path: str,
+                 linger: float = 3.0, extra: Optional[List[str]] = None):
+        self.log_path = log_path
+        self._log_fh = open(log_path, "ab")
+        self.proc = subprocess.Popen(
+            [
+                sys.executable, "-m", "byzantine_aircomp_tpu_torch", "root",
+                "--config", topo, "--host", "127.0.0.1", "--port", "0",
+                "--obs-dir", obs_dir, "--linger", str(linger),
+                "--device", DEVICE, *(extra or []),
+            ],
+            stdout=self._log_fh,
+            stderr=subprocess.STDOUT,
+            env=_env(),
+        )
+        self.port = self._await_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    def _await_port(self) -> int:
+        return _await_port(self.proc, self.log_path, "edge root on 127.0.0.1:", "root")
+
+    def request(self, method: str, path: str, body: Optional[dict] = None) -> tuple:
+        """(status, parsed JSON): 4xx/5xx return, they do not raise."""
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(f"{self.url}{path}", data=data, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, json.loads(resp.read().decode())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read().decode())
+
+    def metrics_text(self) -> str:
+        with urllib.request.urlopen(f"{self.url}/metrics", timeout=30) as resp:
+            return resp.read().decode()
+
+    def wait_round(self, rnd: int, deadline: float = _EDGE_DEADLINE) -> None:
+        end = time.time() + deadline
+        while time.time() < end:
+            status, info = self.request("GET", f"/rounds/{rnd}")
+            if status == 200 and info.get("completed"):
+                return
+            time.sleep(0.2)
+        raise AssertionError(f"round {rnd} never completed")
+
+    def wait_exit(self, deadline: float = _EDGE_DEADLINE) -> dict:
+        """Wait for the root's own exit; parse its results line."""
+        self.proc.wait(timeout=deadline)
+        self._log_fh.close()
+        marker = "edge root results: "
+        with open(self.log_path) as f:
+            for line in f:
+                if marker in line:
+                    return json.loads(line.split(marker, 1)[1])
+        raise AssertionError(f"no results line in {self.log_path}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        if not self._log_fh.closed:
+            self._log_fh.close()
+
+
+class EdgeProc:
+    """One edge subprocess bound to a shard of the topology."""
+
+    def __init__(self, topo: str, shard: int, root_url: str, obs_dir: str,
+                 log_path: str, extra: Optional[List[str]] = None):
+        self.shard = shard
+        self.log_path = log_path
+        self._log_fh = open(log_path, "ab")
+        self.proc = subprocess.Popen(
+            [
+                sys.executable, "-m", "byzantine_aircomp_tpu_torch", "edge",
+                "--config", topo, "--shard", str(shard),
+                "--root-url", root_url, "--obs-dir", obs_dir,
+                "--device", DEVICE, *(extra or []),
+            ],
+            stdout=self._log_fh,
+            stderr=subprocess.STDOUT,
+            env=_env(),
+        )
+
+    def kill9(self) -> None:
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=30)
+        self._log_fh.close()
+
+    def summary(self, deadline: float = _EDGE_DEADLINE) -> dict:
+        self.proc.wait(timeout=deadline)
+        if not self._log_fh.closed:
+            self._log_fh.close()
+        marker = f"edge {self.shard}: {{"
+        with open(self.log_path) as f:
+            for line in f:
+                if marker in line:
+                    return json.loads(line.split(":", 1)[1])
+        raise AssertionError(f"edge {self.shard} printed no summary; see {self.log_path}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        if not self._log_fh.closed:
+            self._log_fh.close()
+
+
+def _flat_reference(cfg, device: Optional[str] = None) -> Dict[int, Dict[str, Any]]:
+    """The flat single-process aggregate per round, on ``device`` (the
+    harness's by default): ``SeqShardCtx`` over the same shard partition
+    plus the whole-stack packed sign vote, which the tree's results must
+    match bitwise."""
+    import torch
+
+    from ..device import resolve_device
+    from ..ops import aggregators, shardctx
+    from ..serve.edge import round_stack
+
+    dev = resolve_device(device or DEVICE)
+    out: Dict[int, Dict[str, Any]] = {}
+    for rnd in range(cfg.rounds):
+        stack = round_stack(cfg.seed, rnd, cfg.k, cfg.d, dev)
+        ctx = shardctx.SeqShardCtx(cfg.edges)
+
+        def rebuild(c, stack=stack):
+            return stack[c * cfg.cohort:(c + 1) * cfg.cohort]
+
+        ref: Dict[str, Any] = {}
+        if cfg.aggs:
+            sa, sf, nf = aggregators.stream_stats(rebuild, cfg.n_chunks, cfg.d, dev, ctx)
+            for name in cfg.aggs:
+                ref[name] = aggregators.stream_aggregate(
+                    name, rebuild, k=cfg.k, d=cfg.d, n_chunks=cfg.n_chunks, device=dev,
+                    degraded=False, sum_all=sa, sum_finite=sf, n_finite=nf,
+                    quantile=cfg.quantile, sketch_bins=cfg.sketch_bins,
+                    trim_ratio=cfg.trim_ratio, maxiter=cfg.gm2_maxiter, ctx=ctx,
+                ).cpu().numpy()
+        if cfg.sign_bits == 1:
+            words, kv = aggregators.pack_signs(
+                stack, torch.zeros(cfg.d, dtype=torch.float32, device=dev))
+            ref["signvote"] = (2 * aggregators.packed_sign_votes(words, cfg.d) - kv).to(
+                torch.int32).cpu().numpy()
+        out[rnd] = ref
+    return out
+
+
+def _assert_matches_flat(cfg, results: dict, ref: dict, rounds=None) -> None:
+    from ..ops import shardctx
+
+    for rnd in range(cfg.rounds) if rounds is None else rounds:
+        rr = results["rounds"][str(rnd)]
+        assert rr["completed"] and not rr["degraded"], (rnd, rr)
+        for name in cfg.result_names:
+            got = shardctx.decode_leaf(rr["results"][name])
+            assert got.dtype == ref[rnd][name].dtype and \
+                got.tobytes() == ref[rnd][name].tobytes(), (
+                    f"round {rnd} {name}: tree result differs from the flat "
+                    "single-process aggregate")
+        print(f"  round {rnd}: tree == flat bitwise ({', '.join(cfg.result_names)})")
+
+
+def scenario_edge_kill(workdir: str) -> None:
+    from ..serve.edge import TopologyConfig
+
+    topo = _topology(workdir)
+    cfg = TopologyConfig.load(topo)
+    obs = os.path.join(workdir, "obs")
+    root = Root(topo, obs, os.path.join(workdir, "root.log"))
+    edges = [EdgeProc(topo, e, root.url, obs, os.path.join(workdir, f"edge{e}.log"))
+             for e in range(cfg.edges)]
+    try:
+        # let round 0 close healthy, then SIGKILL edge 2: it lands in round
+        # 1, every later phase of which needs all four edges, so only the
+        # deadline can clear it
+        root.wait_round(0)
+        edges[2].kill9()
+        print("killed -9 edge 2 after round 0; survivors must finish degraded")
+        results = root.wait_exit()
+        for e in (0, 1, 3):
+            s = edges[e].summary()
+            assert s["status"] == "completed", s
+            assert s["rounds"] == cfg.rounds, s
+            assert s["steady_state_ok"], s
+            assert s["lowerings"] == {"edge_round_fn": 1, "edge_round_fn_degraded": 1}, (
+                f"edge {e} set up a program more than once: {s}")
+        assert edges[2].proc.returncode == -signal.SIGKILL
+    finally:
+        for e in edges:
+            e.close()
+        root.close()
+    assert results["quarantined"] == {"2": "partial_timeout"}, results
+    assert results["fold_lowerings"] == results["fold_signatures"], results
+    assert results["rounds"]["0"]["completed"]
+    assert not results["rounds"]["0"]["degraded"]
+    for rnd in range(1, cfg.rounds):
+        rr = results["rounds"][str(rnd)]
+        assert rr["completed"] and rr["degraded"], (rnd, rr)
+    print("degraded rounds completed over the 3 survivors; now a fresh no-kill "
+          "topology against the flat single-process aggregate")
+    obs2 = os.path.join(workdir, "obs_base")
+    root2 = Root(topo, obs2, os.path.join(workdir, "root_base.log"))
+    edges2 = [EdgeProc(topo, e, root2.url, obs2, os.path.join(workdir, f"edge_base{e}.log"))
+              for e in range(cfg.edges)]
+    try:
+        base = root2.wait_exit()
+        for e in edges2:
+            s = e.summary()
+            assert s["status"] == "completed" and s["steady_state_ok"], s
+    finally:
+        for e in edges2:
+            e.close()
+        root2.close()
+    assert not base["quarantined"], base
+    ref = _flat_reference(cfg)
+    _assert_matches_flat(cfg, base, ref)
+    # round 0 of the killed run closed healthy before the kill: it too must
+    # be bitwise the flat aggregate
+    _assert_matches_flat(cfg, results, ref, rounds=[0])
+    print("edge_kill: OK (degraded survival + bitwise no-kill run)")
+
+
+def scenario_trace_smoke(workdir: str) -> None:
+    """A healthy 4-edge topology under ``--trace on``: every stream (root
+    and 4 edges) joins one trace with no orphan span, every per-round
+    timeline covers at least 90% of its wall clock, the Perfetto export is
+    valid trace-event JSON, and tracing costs no set-up (the edges' audit
+    still passes)."""
+    from ..serve.edge import TopologyConfig
+    from . import trace_view as tv
+
+    topo = _topology(workdir)
+    cfg = TopologyConfig.load(topo)
+    obs = os.path.join(workdir, "obs")
+    root = Root(topo, obs, os.path.join(workdir, "root.log"), extra=["--trace", "on"])
+    edges = [EdgeProc(topo, e, root.url, obs, os.path.join(workdir, f"edge{e}.log"),
+                      extra=["--trace", "on"])
+             for e in range(cfg.edges)]
+    try:
+        results = root.wait_exit()
+        for e in edges:
+            s = e.summary()
+            assert s["status"] == "completed", s
+            assert s["steady_state_ok"], f"edge {s['edge']}: tracing cost a set-up: {s}"
+    finally:
+        for e in edges:
+            e.close()
+        root.close()
+    assert not results["quarantined"], results
+
+    events = tv.load_streams(tv.find_streams(obs), root=obs)
+    traces = tv.assemble(events)
+    assert len(traces) == 1, f"expected one topology-wide trace, got {sorted(traces)}"
+    trace = next(iter(traces.values()))
+    assert not trace["orphans"], trace["orphans"]
+    assert len(trace["streams"]) == cfg.edges + 1, trace["streams"]
+    rounds = tv.round_table(trace["spans"])
+    assert len(rounds) == cfg.rounds, rounds
+    for row in rounds:
+        assert row["coverage"] >= 0.90, (
+            f"round {row['round']} attributes only {row['coverage']:.0%} of wall-clock")
+
+    report_md = os.path.join(workdir, "trace_report.md")
+    report_json = os.path.join(workdir, "trace.json")
+    rc = tv.main([obs, "--out", report_md, "--trace-out", report_json,
+                  "--assert-no-orphans"])
+    assert rc == 0, f"trace_view exited {rc}"
+    with open(report_json) as f:
+        perfetto = json.load(f)
+    spans = [e for e in perfetto["traceEvents"] if e.get("ph") == "X"]
+    assert spans and all("ts" in e and "dur" in e and "pid" in e for e in spans), (
+        "malformed Perfetto events")
+    print(f"trace_smoke: OK (1 trace, {len(trace['spans'])} spans over "
+          f"{len(trace['streams'])} streams, 0 orphans, min coverage "
+          f"{min(r['coverage'] for r in rounds):.0%})")
+
+
+def scenario_edge_replay(workdir: str) -> None:
+    import numpy as np
+
+    from ..ops import shardctx
+    from ..serve import edge as edge_mod
+    from ..serve import journal as journal_lib
+    from ..utils.io import iter_jsonl
+
+    topo = _topology(workdir, edges=2, k=8, d=16, cohort=4, rounds=1, aggs=[],
+                     partial_timeout=600.0)
+    cfg = edge_mod.TopologyConfig.load(topo)
+    obs = os.path.join(workdir, "obs")
+
+    def envelope(edge: int, nonce: int, key: str = None, mac: str = None) -> dict:
+        counts = np.zeros(cfg.d, np.int32)
+        kv = np.asarray(cfg.rows_per_edge, np.int32)
+        body = {
+            "op": "partial", "round": 0, "epoch": 0, "seq": 0,
+            "meta": {"label": "signvote"},
+            **shardctx.partial_to_wire([counts, kv], ("sum", "sum")),
+            "edge": edge, "nonce": nonce,
+        }
+        body["mac"] = mac or edge_mod.sign_envelope(key or cfg.keys[edge], body)
+        return body
+
+    root = Root(topo, obs, os.path.join(workdir, "root.log"))
+    try:
+        st, resp = root.request("POST", "/partials", envelope(1, 1))
+        assert st == 200, (st, resp)
+        # a byte-for-byte replay of a captured, correctly signed edge-0
+        # submission: the mac verifies, the nonce does not; rejected and
+        # journaled, but the edge it names stays live
+        captured = envelope(0, 1)
+        st, resp = root.request("POST", "/partials", captured)
+        assert st == 200, (st, resp)
+        st, resp = root.request("POST", "/partials", captured)
+        assert st == 409 and resp["error"] == "replay", (st, resp)
+        st, resp = root.request("POST", "/partials", envelope(0, 2))
+        assert st == 200, (st, resp)  # the edge's fresh nonces still work
+        # a forged mac is rejected before any state changes, and can not
+        # quarantine the edge whose identity it claims
+        st, resp = root.request("POST", "/partials", envelope(1, 99, mac="00" * 32))
+        assert st == 401 and resp["error"] == "bad_mac", (st, resp)
+        st, resp = root.request("POST", "/partials", envelope(7, 1, key="11" * 32))
+        assert st == 401 and resp["error"] == "unknown edge", (st, resp)
+        st, res = root.request("GET", "/results")
+        assert st == 200
+        assert res["quarantined"] == {}, res
+        assert res["live"] == [0, 1], res
+        assert res["replays"] == {"0": 1}, res
+        assert res["forged"] == {"1": 1}, res
+        text = root.metrics_text()
+        for needle in ('aircomp_edge_rejects_total{reason="replay"} 1',
+                       'aircomp_edge_rejects_total{reason="bad_mac"} 1'):
+            assert needle in text, f"{needle!r} missing from /metrics"
+        assert "aircomp_edge_quarantines_total" not in text, (
+            "a replay or forgery must never quarantine")
+    finally:
+        root.close()
+    journal = os.path.join(obs, journal_lib.ROOT_JOURNAL_NAME)
+    ops = [r.get("op") for r in iter_jsonl(journal)]
+    for op in ("replay_rejected", "forged_rejected"):
+        assert op in ops, f"{op} not journaled: {ops}"
+    assert "edge_quarantined" not in ops, ops
+    # the journaled rejection carries the nonce, so the high-water mark,
+    # and with it the replay protection, survives a root restart, while
+    # the named edge stays live
+    root2 = Root(topo, obs, os.path.join(workdir, "root2.log"))
+    try:
+        st, resp = root2.request("POST", "/partials", captured)
+        assert st == 409 and resp["error"] == "replay", (st, resp)
+        st, resp = root2.request("POST", "/partials", envelope(0, 3))
+        assert st == 200, (st, resp)
+    finally:
+        root2.close()
+    # ---- schema-race containment: the first submitter does not define
+    # the phase schema; a Byzantine edge that races a bogus shape in first
+    # is out-voted and quarantined once every live edge reports
+    schema_dir = os.path.join(workdir, "schema")
+    os.makedirs(schema_dir, exist_ok=True)
+    topo4 = _topology(schema_dir, edges=4, k=16, d=16, cohort=4, rounds=1, aggs=[],
+                      partial_timeout=600.0)
+    cfg4 = edge_mod.TopologyConfig.load(topo4)
+    obs4 = os.path.join(schema_dir, "obs")
+
+    def envelope4(edge: int, nonce: int, leaves) -> dict:
+        body = {
+            "op": "partial", "round": 0, "epoch": 0, "seq": 0,
+            "meta": {"label": "signvote"},
+            **shardctx.partial_to_wire(leaves, ("sum", "sum")),
+            "edge": edge, "nonce": nonce,
+        }
+        body["mac"] = edge_mod.sign_envelope(cfg4.keys[edge], body)
+        return body
+
+    honest = [np.zeros(cfg4.d, np.int32), np.asarray(4, np.int32)]
+    bogus = [np.zeros(cfg4.d + 1, np.int32), np.asarray(4, np.int32)]
+    root3 = Root(topo4, obs4, os.path.join(workdir, "root_schema.log"))
+    try:
+        st, resp = root3.request("POST", "/partials", envelope4(0, 1, bogus))
+        assert st == 200, (st, resp)  # buffered, not yet trusted
+        for e in (1, 2):
+            st, resp = root3.request("POST", "/partials", envelope4(e, 1, honest))
+            assert st == 200, (st, resp)
+        st, res = root3.request("GET", "/results")
+        assert res["quarantined"] == {}, res  # no eviction before the vote
+        st, resp = root3.request("POST", "/partials", envelope4(3, 1, honest))
+        assert st == 200, (st, resp)
+        st, res = root3.request("GET", "/results")
+        assert res["quarantined"] == {"0": "bad_payload"}, res
+        assert res["live"] == [1, 2, 3], res
+    finally:
+        root3.close()
+    print("edge_replay: OK (replay 409 without eviction, forgery contained, HWM "
+          "survives restart, schema race out-voted)")
+
+
+def scenario_edge_ledger(workdir: str) -> None:
+    from ..serve.edge import TopologyConfig
+
+    topo = _topology(workdir, edges=4, k=128, d=7850, cohort=32, rounds=2, aggs=[],
+                     partial_timeout=300.0)
+    cfg = TopologyConfig.load(topo)
+    obs = os.path.join(workdir, "obs")
+    root = Root(topo, obs, os.path.join(workdir, "root.log"))
+    edges = [EdgeProc(topo, e, root.url, obs, os.path.join(workdir, f"edge{e}.log"))
+             for e in range(cfg.edges)]
+    try:
+        results = root.wait_exit()
+        for e in edges:
+            s = e.summary()
+            assert s["status"] == "completed" and s["steady_state_ok"], s
+            assert s["lowerings"] == {"edge_round_fn": 1}, s
+    finally:
+        for e in edges:
+            e.close()
+        root.close()
+    assert not results["quarantined"], results
+    assert results["fold_lowerings"] == results["fold_signatures"], results
+    flat_f32 = cfg.k * cfg.d * 4  # every client shipping f32 coordinates
+    per_round = [results["rounds"][str(r)]["ingress_bytes"] for r in range(cfg.rounds)]
+    worst = max(per_round)
+    ratio = flat_f32 / worst
+    assert ratio >= 24.0, (
+        f"root ingress {worst}B/round vs flat f32 {flat_f32}B: only {ratio:.1f}x "
+        "(need >= 24x)")
+    row = {
+        "metric": "edge_root_ingress_bytes_per_round_sb1",
+        "value": float(worst), "unit": "bytes/round", "platform": DEVICE,
+        "k": cfg.k, "d": cfg.d, "agg": "signmv", "sign_bits": 1,
+        "bytes_moved": worst, "bytes_moved_f32": flat_f32,
+        "note": "analysis/chaos.py edge_ledger (4 edges, packed one-bit sign wire)",
+    }
+    row_path = os.path.join(workdir, "edge_ledger_row.json")
+    with open(row_path, "w") as f:
+        json.dump(row, f, indent=1)
+    print(f"edge_ledger: OK (ingress {worst}B/round = flat/{ratio:.1f}, row at {row_path})")
+
+
 SCENARIOS = {
     "kill9": scenario_kill9,
+    "edge_kill": scenario_edge_kill,
+    "edge_replay": scenario_edge_replay,
+    "trace_smoke": scenario_trace_smoke,
+    "edge_ledger": scenario_edge_ledger,
     "torn_tail": scenario_torn_tail,
     "kill_midckpt": scenario_kill_midckpt,
     "kill_midckpt_rd4": scenario_kill_midckpt_rd4,
@@ -506,7 +993,7 @@ def main(argv=None) -> int:
         description="kill the experiment server and assert it heals",
     )
     p.add_argument(
-        "--scenario", choices=sorted(SCENARIOS) + list(EDGE_SCENARIOS) + ["all"],
+        "--scenario", choices=sorted(SCENARIOS) + ["all"],
         default="smoke",
     )
     p.add_argument(
@@ -514,10 +1001,8 @@ def main(argv=None) -> int:
         help="scratch dir (default: a fresh temp dir, removed on success)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="the servers' device: cuda (default) or cpu")
+                   help="the servers', roots' and edges' device: cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.scenario in EDGE_SCENARIOS:
-        p.error(f"scenario {args.scenario}: {EDGE_REFUSAL}")
     DEVICE = args.device
     names = sorted(SCENARIOS) if args.scenario == "all" else [args.scenario]
     for name in names:

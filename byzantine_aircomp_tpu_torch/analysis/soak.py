@@ -30,6 +30,14 @@ SLOs gated:
 * one build per batched tenant (``lowerings`` 1: the signature contract
   holds under refill), zero failed runs, every run terminal
 
+Where the queue can take every tenant (``--queue-cap`` 0 or at least
+``--tenants``), the scheduler is held until the arrival phase ends
+(``RunManager.hold``), so the seeded op sequence alone decides the group's
+make-up: unheld, how many tenants land inside the first batch window
+depends on the machine's load, and with few tenants a small first group's
+drain tail can trip the occupancy floor.  A smaller cap leaves it unheld:
+its 429'd tenants land only as the scheduler drains the queue.
+
 The server runs its tenants on the card unless ``--device cpu``.  The JSON
 report goes to ``--out`` (a path the caller gives) or stdout.
 
@@ -47,6 +55,7 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -175,6 +184,7 @@ def run_soak(args, log=print) -> Dict[str, Any]:
 
     from ..data import datasets as data_lib
     from ..obs.alerts import AlertEngine
+    from ..obs.sinks import EventSink
     from ..serve.server import ExperimentServer
 
     rng = random.Random(args.seed)
@@ -210,23 +220,36 @@ def run_soak(args, log=print) -> Dict[str, Any]:
     run_ids: List[str] = []
     occupancy_samples: List[float] = []
     ticks = [0]
-    last_group_count = [0.0]
+    engine_lock = threading.Lock()
+
+    class _RoundTap(EventSink):
+        """Evaluates the alert pack once per group boundary at which a
+        round runs (the per-round cadence the occupancy rule's window is
+        written for), on the scheduler thread, right after the registry
+        folded that boundary's ``lane_group`` event: every boundary is
+        sampled once, in order, however loaded the machine.  (A client
+        that polled the registry, as the JAX tool does, saw a boundary or
+        not depending on its timing, and a group's closing boundary, where
+        no lane is live and no round runs, now and then: with the final
+        evaluation that stretched a short drain tail into the occupancy
+        floor's 4-sample breach.)"""
+
+        def emit(self, event: Dict[str, Any]) -> None:
+            if event.get("kind") != "lane_group" or not event.get("live"):
+                return
+            with engine_lock:
+                occupancy_samples.append(float(event["occupancy"]))
+                _publish_gauges()
+                engine.evaluate(ticks[0], alert_sink)
+                ticks[0] += 1
+
+    srv.manager.tap_scheduler(_RoundTap())
 
     def _tick_engine() -> None:
-        """Evaluate the alert pack once per NEW lane_group sample (the
-        per-round cadence the occupancy rule's window is written for —
-        wall-clock polling would stretch a 2-round drain tail into a
-        4-sample breach)."""
-        seen = srv.registry.value("aircomp_events_total", kind="lane_group")
-        if seen is None or seen <= last_group_count[0]:
-            return
-        last_group_count[0] = seen
-        occ = srv.registry.value("aircomp_lane_occupancy")
-        if occ is not None:
-            occupancy_samples.append(float(occ))
-        _publish_gauges()
-        engine.evaluate(ticks[0], alert_sink)
-        ticks[0] += 1
+        """Refresh the soak's own gauges between boundaries (the client's
+        latency percentiles, the 429 misfires)."""
+        with engine_lock:
+            _publish_gauges()
 
     def _publish_gauges() -> None:
         reg = srv.registry
@@ -318,6 +341,9 @@ def run_soak(args, log=print) -> Dict[str, Any]:
 
     t_start = time.perf_counter()
     deadline = t_start + args.max_secs
+    hold = args.queue_cap == 0 or args.queue_cap >= args.tenants
+    if hold:
+        srv.manager.hold()
     try:
         # ---- phase 1: churny arrivals until the tenant budget lands
         while counts["submit_2xx"] < args.tenants:
@@ -338,6 +364,10 @@ def run_soak(args, log=print) -> Dict[str, Any]:
             counts["ops"] += 1
             _tick_engine()
             time.sleep(rng.expovariate(1000.0 / args.arrival_ms))
+        if hold:
+            # every arrival has landed (or been cancelled while queued):
+            # the scheduler groups them all in its first drain
+            srv.manager.release()
 
         # ---- phase 2: keep scraping/swapping until every run is done
         while time.perf_counter() < deadline:
@@ -364,8 +394,9 @@ def run_soak(args, log=print) -> Dict[str, Any]:
         # of a lane group that has ended, twice, which stretches a 2-round
         # drain tail into the occupancy floor's 4-sample breach that the
         # per-sample cadence of _tick_engine is written to avoid)
-        _publish_gauges()
-        summary = engine.finalize(ticks[0], alert_sink)
+        with engine_lock:
+            _publish_gauges()
+            summary = engine.finalize(ticks[0], alert_sink)
     finally:
         srv.close()
         if args.workdir is None:

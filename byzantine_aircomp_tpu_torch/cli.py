@@ -86,8 +86,9 @@ Subcommands: ``serve`` boots the multi-tenant experiment server
 (``serve/``; ``--host``, ``--port``, ``--obs-root``, ``--backend``,
 ``--batch-window``, ``--queue-cap``, ``--run-retries``, ``--run-backoff``,
 ``--wedge-secs``, ``--auth-token``, ``--device``), ``tune`` the defense
-tuner (``tune/tuner.py``).  ``root`` and ``edge``, the two-tier
-aggregation, are ported in the next slice and refused.
+tuner (``tune/tuner.py``), ``root`` and ``edge`` the two-tier
+aggregation's root and edges (``serve/root.py``, ``serve/edge.py``; each on
+the card unless ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -503,12 +504,6 @@ def config_from_args(args: argparse.Namespace,
     return cfg
 
 
-#: the subcommands the next slice ports (JAX ``cli.py:704-709``)
-TWO_TIER_REFUSAL = (
-    "the two-tier aggregation (serve/root.py and serve/edge.py) is ported in the "
-    "next slice; this port serves one experiment server (`serve`)")
-
-
 def serve_main(argv: Sequence[str]):
     """``python -m byzantine_aircomp_tpu_torch serve``: boot the multi-tenant
     experiment server (JAX ``cli.py:633-701``) on the card (``--device cpu``
@@ -590,8 +585,14 @@ def main(argv: Optional[Sequence[str]] = None):
         from .tune.tuner import main as tune_main
 
         return tune_main(list(argv[1:]))
-    if argv and argv[0] in ("root", "edge"):
-        raise SystemExit(f"byzantine_aircomp_tpu_torch {argv[0]}: {TWO_TIER_REFUSAL}")
+    if argv and argv[0] == "root":
+        from .serve.root import main as root_main
+
+        return root_main(list(argv[1:]))
+    if argv and argv[0] == "edge":
+        from .serve.edge import main as edge_main
+
+        return edge_main(list(argv[1:]))
     args = build_parser().parse_args(argv)
     if (args.multihost or args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):

@@ -36,8 +36,12 @@ class RetraceError(RuntimeError):
 
 
 class RetraceDetector:
-    def __init__(self) -> None:
-        self.counts: Dict[str, int] = {k: 0 for k in KEYS}
+    """Build counts by program name.  ``keys`` are the programs reported
+    at 0 before their first build (the trainer's :data:`KEYS`; the edges of
+    the two-tier topology start empty and report what they built)."""
+
+    def __init__(self, keys=KEYS) -> None:
+        self.counts: Dict[str, int] = {k: 0 for k in keys}
 
     def build(self, name: str) -> None:
         """Count one build of the program ``name``."""

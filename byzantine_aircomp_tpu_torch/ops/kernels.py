@@ -73,6 +73,10 @@ NVCC_FLAGS = (
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SOURCES}
+# this process's one-time set-ups, counted where they happen and never
+# reset: a kernel's library loaded ("load:NAME") and a Weiszfeld workspace
+# allocated ("workspace:KxD"), so a second set-up of one kind shows as a 2
+SETUPS: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -229,7 +233,12 @@ def build(names: Iterable[str] = tuple(_SOURCES)) -> Dict[str, float]:
             q = getattr(lib, qname)
             q.argtypes, q.restype = argtypes, restype
         _LIBS[name] = lib
+        _count_setup(f"load:{name}")
     return seconds
+
+
+def _count_setup(key: str) -> None:
+    SETUPS[key] = SETUPS.get(key, 0) + 1
 
 
 def _launch_fn(name: str):
@@ -556,6 +565,7 @@ def _workspace(name: str, w: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"{name}: no tiling for K={k}, d={d} (CUDA error {-nbytes})")
         ws = torch.zeros(nbytes, dtype=torch.uint8, device=w.device)
         _WORKSPACES[key] = ws
+        _count_setup(f"workspace:{k}x{d}")
     return ws
 
 

@@ -12,9 +12,10 @@
   on the metrics exporter's routes hook to submit, inspect, cancel and
   hot-swap runs, with per-run obs subtrees, ``run_id``-labelled metrics,
   checkpoints and a watchdog.
-
-The two-tier aggregation (the JAX package's ``serve/root.py`` and
-``serve/edge.py``) is not ported yet.
+* :mod:`.edge` + :mod:`.root` — the two-tier aggregation: edge processes
+  each run the streamed aggregators over their shard of the cohort chunks
+  and exchange signed partials with one root, which folds them in shard
+  order, so the tree's results are bitwise the flat aggregate.
 """
 
 from .batch import (  # noqa: F401
@@ -25,6 +26,18 @@ from .batch import (  # noqa: F401
     static_signature,
     validate_batch,
 )
+from .edge import (  # noqa: F401
+    EdgeClient,
+    EdgeCompute,
+    EdgeQuarantined,
+    EdgeShardCtx,
+    RoundRestart,
+    TopologyConfig,
+    canonical_bytes,
+    round_stack,
+    run_edge,
+    sign_envelope,
+)
 from .elastic import (  # noqa: F401
     ElasticBatchRunner,
     pinned_knobs,
@@ -32,5 +45,6 @@ from .elastic import (  # noqa: F401
     seat_order,
     validate_stream_batch,
 )
+from .root import Reject, RootServer, RootState  # noqa: F401
 from .runs import RunManager  # noqa: F401
 from .server import ExperimentServer  # noqa: F401

@@ -219,6 +219,7 @@ class RunManager:
         self._seq = 0
         self._wake = threading.Event()
         self._stop = False
+        self._held = False
         self._thread: Optional[threading.Thread] = None
         self._watchdog: Optional[threading.Thread] = None
         self._dataset_cache: Dict[str, Any] = {}
@@ -647,6 +648,30 @@ class RunManager:
                 self._watchdog.start()
         return self
 
+    def tap_scheduler(self, sink) -> None:
+        """Fan the scheduler-scope events (``lane_group``, ``lane_refill``)
+        out to ``sink`` as well, on the scheduler thread, each right after
+        the registry has folded it: a reader that must see every group
+        boundary once, in order (the soak's occupancy gate), gets them
+        without polling the registry.  Needs the server's registry."""
+        if self._sched is obs_lib.NULL:
+            raise ValueError("tap_scheduler needs a RunManager with a registry")
+        self._sched.sink = obs_lib.MultiSink([self._sched.sink, sink])
+
+    def hold(self) -> None:
+        """Keep the scheduler thread from draining until :meth:`release`.
+        Submissions queue meanwhile, and the first drain after the release
+        groups every one of them: a caller that submits a known set of
+        tenants (the soak's arrival phase) gets a group whose make-up does
+        not hang on how fast its requests land against the batch window."""
+        self._held = True
+
+    def release(self) -> None:
+        """End a :meth:`hold`: the scheduler drains the queue after its batch
+        window, as after a submission."""
+        self._held = False
+        self._wake.set()
+
     def close(self) -> None:
         self._stop = True
         self._wake.set()
@@ -672,7 +697,7 @@ class RunManager:
             self._wake.clear()
             if self._stop:
                 break
-            if self._pending:
+            if self._pending and not self._held:
                 time.sleep(self._batch_window)
                 try:
                     self.drain()

@@ -224,6 +224,19 @@
    ``fault_matrix``, ``bits_matrix`` and ``adaptive_matrix`` on the card,
    each kernel's launches counted, the two smoke gates passing;
 
+   the experiment server (``run_z15``): (z15) an in-process server's lanes
+   bitwise their solo runs, a profiled served round, the chaos ``smoke``
+   on ``serve`` subprocesses and a tune (its docstring);
+
+   the two-tier aggregation (``run_z16``): (z16) (a) one ``root`` and four
+   ``edge`` subprocesses at k=1000, d=7850, 3 rounds, every result bitwise
+   the flat aggregate on the card, which holds against the CPU's; the
+   edges' ``weiszfeld_step`` launches equal the flat's and their
+   ``packed_vote_counts`` launches edges x rounds, a profiled flat round
+   counting both on the device; (b) edge 2 SIGKILLed after round 0, the
+   survivors finishing degraded; (c) chaos ``edge_ledger`` at ingress at
+   most flat/24;
+
    In runs z4-z8 and z13 the device count over two replays must be exactly
    twice the capture's: a profiler session that counts short (a lost
    record) is profiled again, at most three sessions, and one exact
@@ -287,6 +300,8 @@ SELECT_TIMED = ((50, 7850), (1000, 7850), (30, 7850), (50, 1), (50, EMNIST_D),
 # (K, d) at which the Weiszfeld steps' fused mode and the popcount are timed
 TIMED = ((50, 7850), (1000, 7850), (50, EMNIST_D), (1000, EMNIST_D), (13, WIDE_D),
          (50, CNN_D), (50, RESNET_D), (200, CIFAR_CNN_D))
+# run (z16)'s one-bit vote: one edge's 250 rows at the MLP's width (246 words)
+Z16_VOTE = (250, 7850)
 
 
 def _fail(msg):
@@ -772,8 +787,8 @@ def check_select_and_popcount(torch, kernels, card):
             if not deterministic:
                 _fail(f"select_columns {mode} gave different bits on a rerun at K={k} d={d}")
 
-    for k, d in ((1, 1), (70, 33), (13, 300), (50, 7850), (1000, 7850), (50, EMNIST_D),
-                 (1000, EMNIST_D), (200, CIFAR_CNN_D)):
+    for k, d in ((1, 1), (70, 33), (13, 300), (50, 7850), Z16_VOTE, (1000, 7850),
+                 (50, EMNIST_D), (1000, EMNIST_D), (200, CIFAR_CNN_D)):
         g = torch.Generator(device="cuda").manual_seed(k * d)
         w_cnt = -(-d // 32)
         words = torch.randint(-(2**31), 2**31 - 1, (k, w_cnt), dtype=torch.int32,
@@ -792,7 +807,7 @@ def check_select_and_popcount(torch, kernels, card):
                    max_abs_err=0.0 if ok else float("inf"), ok=ok,
                    deterministic=deterministic, device_ops_per_call=[_short(n) for n in issued],
                    library_ms=None)
-        if (k, d) in TIMED:
+        if (k, d) in TIMED + (Z16_VOTE,):
             row["ms"], row["host_ms"] = _time_ms(torch, kern, **_reps(k, d))
             row["plain_ms"], row["plain_host_ms"] = _time_ms(torch, ref, **_reps(k, d))
             row["bound_ms"], row["bound_by"] = _bytes_bound(k * w_cnt * 4 + d * 4)
@@ -801,7 +816,7 @@ def check_select_and_popcount(torch, kernels, card):
               f"deterministic={deterministic} device ops per call={row['device_ops_per_call']} "
               + " ".join(f"{key}={row[key]:.5f}" for key in
                          ("ms", "host_ms", "plain_ms", "bound_ms") if key in row)
-              + (f" [{card}]" if (k, d) in TIMED else ""))
+              + (f" [{card}]" if (k, d) in TIMED + (Z16_VOTE,) else ""))
         if not ok or not deterministic:
             _fail(f"packed_vote_counts wrong or not repeatable at K={k} d={d}")
         if not one_kernel:
@@ -3901,8 +3916,8 @@ def run_z15(torch, kernels, harness, FedConfig, card, cache_dir):
               f"{lane['solo_rounds_per_sec']} [{card}]")
     print(f"run z15 served: {len(ids)} tenants in 2 groups ({backend}), drain "
           f"{served_s:.2f}s; launches (served, solo) {counted}; poisoned lane "
-          f"{bad['error']}; admission client max {client_max:.2f} ms (of "
-          f"{len(admission)} POSTs), server p99 {None if server_p99 is None else server_p99 * 1e3} ms "
+          f"{bad['error']}; admission max of {len(admission)} POSTs {client_max:.2f} ms "
+          f"(client clock), server p99 {None if server_p99 is None else server_p99 * 1e3} ms "
           f"(bucket edge); /metrics {scrape_ms:.2f} ms; the profiled round "
           f"{profiled['seconds']:.1f}s [{card}]")
     out["serve"] = dict(infos=infos, lanes=lanes, launches_served=served,
@@ -3956,6 +3971,244 @@ def run_z15(torch, kernels, harness, FedConfig, card, cache_dir):
     return out
 
 
+# (z16): the two-tier aggregation on the card.  One root and four edges
+# (``python -m byzantine_aircomp_tpu_torch root|edge --device cuda``) at the
+# MNIST MLP's width: each edge owns 5 chunks of 50 rows of a [1000, 7850]
+# round stack, runs the streamed median, trimmed mean, mean and gm2 over
+# them and packs its 250 rows' signs; gm2 launches weiszfeld_step in num/den
+# mode once per chunk per Weiszfeld step, the vote packed_vote_counts once
+# per edge per round; median and trimmed_mean bisect ranks in torch ops
+Z16_TOPOLOGY = dict(edges=4, k=1000, d=7850, cohort=50, rounds=3,
+                    aggs=["median", "trimmed_mean", "mean", "gm2"], sign_bits=1,
+                    gm2_maxiter=1000, seed=2021, partial_timeout=10.0)
+# the card's flat aggregate against the CPU's plain versions
+Z16_TOL = {"median": 0.0, "signvote": 0.0, "mean": 1e-6, "trimmed_mean": 1e-6,
+           "gm2": ITER_ATOL}
+
+
+def _z16_topology(work):
+    cfg = dict(Z16_TOPOLOGY, keys={str(e): os.urandom(32).hex()
+                                   for e in range(Z16_TOPOLOGY["edges"])})
+    path = os.path.join(work, "topo.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _z16_tree(chaos, topo, work, label, kill=None):
+    """One root and its edges as subprocesses on the card; with ``kill``,
+    that edge is SIGKILLed once round 0 completes.  Returns the root's
+    results, the edges' summaries (None for the killed one) and the wall
+    seconds from the root's start to its exit."""
+    obs = os.path.join(work, f"{label}_obs")
+    t0 = time.perf_counter()
+    root = chaos.Root(topo, obs, os.path.join(work, f"{label}_root.log"), linger=0.5)
+    edges = [chaos.EdgeProc(topo, e, root.url, obs, os.path.join(work, f"{label}_edge{e}.log"))
+             for e in range(Z16_TOPOLOGY["edges"])]
+    try:
+        if kill is not None:
+            root.wait_round(0, deadline=300)
+            edges[kill].kill9()
+        results = root.wait_exit(deadline=600)
+        wall = time.perf_counter() - t0
+        summaries = [None if e == kill else edges[e].summary(deadline=120)
+                     for e in range(len(edges))]
+    finally:
+        for e in edges:
+            e.close()
+        root.close()
+    return results, summaries, wall
+
+
+def run_z16(torch, kernels, card, cache_dir):
+    """(z16): the two-tier aggregation on the card.
+
+    (a) A root and four edges at ``Z16_TOPOLOGY`` (k=1000, d=7850, 3
+    rounds): no edge quarantined, every round's every result bitwise the
+    flat single-process aggregate (``analysis/chaos.py::_flat_reference``,
+    ``SeqShardCtx`` and the whole-stack vote) computed here on the card,
+    whose results hold against the CPU's plain versions (median and the
+    vote bitwise, mean and trimmed_mean within 1e-6, gm2 within 1e-4);
+    summed over the edges, their ``weiszfeld_step`` launches equal the
+    flat's, and their ``packed_vote_counts`` launches equal edges x rounds;
+    one profiled flat round shows both kernels on the device, as often as
+    the wrappers counted (:func:`_exact_sessions`).  Per round: wall time,
+    exchanges, the root's ingress bytes and fold ms, the edges' ms on the
+    wire.
+    (b) The same topology with edge 2 SIGKILLed once round 0 completes: the
+    root quarantines it (``partial_timeout``), the three survivors finish
+    rounds 1-2 degraded, round 0 bitwise the flat.  JAX's build count is
+    one per program by construction; the set-ups the card makes
+    (``ops/kernels.py::SETUPS``: each kernel's load, the [cohort, d]
+    Weiszfeld workspace) are each made once, all by the healthy program,
+    in (a) and (b).
+    (c) chaos ``edge_ledger`` on the card (JAX's k=128, d=7850 one-bit
+    topology), run beside (b): root ingress at most flat/24."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from byzantine_aircomp_tpu_torch.analysis import chaos
+    from byzantine_aircomp_tpu_torch.ops import shardctx
+    from byzantine_aircomp_tpu_torch.serve.edge import TopologyConfig
+
+    out = dict(card=card, topology=Z16_TOPOLOGY)
+    t_all = time.perf_counter()
+    work = os.path.join(cache_dir, "z16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    topo = _z16_topology(work)
+    cfg = TopologyConfig.load(topo)
+    chaos.DEVICE = "cuda"
+
+    # an edge's one-time set-ups on the card (ops/kernels.py::SETUPS), all
+    # made by the program that runs first: the two kernels' loads and one
+    # Weiszfeld workspace of the [cohort, d] chunk
+    setups = {"load:weiszfeld_step": 1, "load:packed_vote_counts": 1,
+              f"workspace:{cfg.cohort}x{cfg.d}": 1}
+
+    # (a) the healthy tree, then the flat aggregate on the card and the CPU
+    results, summaries, wall = _z16_tree(chaos, topo, work, "a")
+    if results["quarantined"] or any(s["status"] != "completed" or s["rounds"] != cfg.rounds
+                                     or s["lowerings"] != {"edge_round_fn": 1}
+                                     or s["setups"] != {"edge_round_fn": setups}
+                                     or s["device"] != "cuda" for s in summaries):
+        _fail(f"run z16a: an edge was quarantined or did not finish with one set-up "
+              f"{setups}: {results['quarantined']} {summaries}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    flat = chaos._flat_reference(cfg, device="cuda")
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    flat_launch = dict(kernels.LAUNCHES)
+    chaos._assert_matches_flat(cfg, results, flat)
+    t0 = time.perf_counter()
+    flat_cpu = chaos._flat_reference(cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, tol in Z16_TOL.items():
+        errs[name] = max(float(np.max(np.abs(flat[r][name].astype(np.float64)
+                                              - flat_cpu[r][name].astype(np.float64))))
+                         for r in range(cfg.rounds))
+        same = all(flat[r][name].tobytes() == flat_cpu[r][name].tobytes()
+                   for r in range(cfg.rounds))
+        if (tol == 0.0 and not same) or errs[name] > tol:
+            _fail(f"run z16a: the card's flat {name} is {errs[name]} from the CPU's (tol {tol})")
+    edge_launch = {k: sum(s["launches"][k] for s in summaries) for k in flat_launch}
+    votes = cfg.edges * cfg.rounds
+    if (edge_launch["weiszfeld_step"] != flat_launch["weiszfeld_step"]
+            or not flat_launch["weiszfeld_step"]
+            or edge_launch["packed_vote_counts"] != votes):
+        _fail(f"run z16a: the edges launched {edge_launch}, the flat {flat_launch}; "
+              f"packed_vote_counts should be {votes}")
+    one = dataclasses.replace(cfg, rounds=1)
+
+    def measure():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chaos._flat_reference(one, device="cuda")
+            torch.cuda.synchronize()
+        counted = dict(kernels.LAUNCHES)
+        seen = _device_launches(torch, prof)
+        return seen, {g: sum(counted[k] for k in g.split("+")) for g in seen}, None
+
+    sessions = _exact_sessions("z16a profiled flat round", "in one flat round",
+                               "the wrappers counted", measure)[1]
+    if not (sessions[-1]["device"]["weiszfeld_step+aircomp_weiszfeld_step"]
+            and sessions[-1]["device"]["packed_vote_counts"]):
+        _fail(f"run z16a: a kernel of the path was not seen on the device: {sessions}")
+    per_round = []
+    for r in range(cfg.rounds):
+        rr = results["rounds"][str(r)]
+        er = [s["per_round"][r] for s in summaries]
+        per_round.append(dict(round=r, wall_ms=max(e["ms"] for e in er),
+                              exchanges=er[0]["exchanges"], folds=rr["folds"],
+                              ingress_bytes=rr["ingress_bytes"], fold_ms=rr["fold_ms"],
+                              edge_exchange_ms=[e["exchange_ms"] for e in er],
+                              edge_stack_ms=[e["stack_ms"] for e in er]))
+        print(f"run z16a round {r}: wall {per_round[-1]['wall_ms']:.1f} ms, "
+              f"{per_round[-1]['exchanges']} exchanges per edge ({rr['folds']} folds), root "
+              f"ingress {rr['ingress_bytes']} B, root fold {rr['fold_ms']:.1f} ms, edges' "
+              f"exchange ms {[round(x, 1) for x in per_round[-1]['edge_exchange_ms']]}, stack "
+              f"draw ms {[round(x, 1) for x in per_round[-1]['edge_stack_ms']]} [{card}]")
+    print(f"run z16a: 4 edges x 3 rounds at k=1000 d=7850 in {wall:.1f}s (processes "
+          f"included), every result bitwise the card's flat aggregate; card vs CPU flat max "
+          f"abs err {errs}; launches edges {edge_launch} flat {flat_launch}; flat on the card "
+          f"{flat_s:.2f}s, on the CPU {cpu_s:.2f}s [{card}]")
+    out["a"] = dict(wall_seconds=wall, per_round=per_round, card_vs_cpu=errs,
+                    launches_edges=edge_launch, launches_flat=flat_launch,
+                    profiled_flat_round=sessions, flat_card_seconds=flat_s,
+                    flat_cpu_seconds=cpu_s, summaries=summaries,
+                    fold_lowerings=results["fold_lowerings"],
+                    fold_signatures=results["fold_signatures"])
+
+    # (c) the bandwidth claim on JAX's own topology, started now so that its
+    # processes' start-up overlaps (b)'s: its numbers are bytes, which the
+    # overlap does not move
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_c = time.perf_counter()
+    ledger = subprocess.Popen(
+        [sys.executable, "-m", "byzantine_aircomp_tpu_torch.analysis.chaos", "--scenario",
+         "edge_ledger", "--device", "cuda", "--workdir", os.path.join(work, "ledger")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p)))
+
+    # (b) the kill leg
+    try:
+        results, summaries, wall = _z16_tree(chaos, topo, work, "b", kill=2)
+    except BaseException:
+        ledger.kill()
+        ledger.wait()
+        raise
+    survivors = [s for s in summaries if s is not None]
+    if results["quarantined"] != {"2": "partial_timeout"} or any(
+            s["status"] != "completed" or s["rounds"] != cfg.rounds
+            or s["lowerings"] != {"edge_round_fn": 1, "edge_round_fn_degraded": 1}
+            or s["setups"] != {"edge_round_fn": setups, "edge_round_fn_degraded": {}}
+            for s in survivors):
+        _fail(f"run z16b: {results['quarantined']} {survivors}")
+    rounds = results["rounds"]
+    if rounds["0"]["degraded"] or not all(rounds[str(r)]["completed"] and rounds[str(r)]["degraded"]
+                                          for r in range(1, cfg.rounds)):
+        _fail(f"run z16b: rounds 1-2 not completed degraded: {rounds}")
+    chaos._assert_matches_flat(cfg, results, flat, rounds=[0])
+    print(f"run z16b: edge 2 SIGKILLed after round 0, quarantined {results['quarantined']}, "
+          f"3 survivors finished rounds 1-2 degraded, builds "
+          f"{[s['lowerings'] for s in survivors]} (1 per program by construction), set-ups "
+          f"{[s['setups'] for s in survivors]}, round 0 bitwise the flat; {wall:.1f}s "
+          f"[{card}]")
+    out["b"] = dict(wall_seconds=wall, quarantined=results["quarantined"],
+                    builds=[s["lowerings"] for s in survivors],
+                    setups=[s["setups"] for s in survivors],
+                    per_round=[s["per_round"] for s in survivors])
+
+    # (c), waited for
+    try:
+        stdout, stderr = ledger.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        ledger.kill()
+        stdout, stderr = ledger.communicate()
+    ledger_s = time.perf_counter() - t_c
+    print(stdout.strip())
+    if ledger.returncode != 0 or "edge_ledger: OK" not in stdout:
+        _fail(f"run z16c edge_ledger failed (rc {ledger.returncode}): {stderr[-3000:]}")
+    with open(os.path.join(work, "ledger", "edge_ledger", "edge_ledger_row.json")) as f:
+        row = json.load(f)
+    ratio = row["bytes_moved_f32"] / row["bytes_moved"]
+    print(f"run z16c edge_ledger: root ingress {row['bytes_moved']} B a round against flat "
+          f"f32 {row['bytes_moved_f32']} B (flat/{ratio:.2f}) in {ledger_s:.1f}s, beside (b) "
+          f"[{card}]")
+    out["c"] = dict(row=row, flat_over_ingress=ratio, seconds=ledger_s)
+    out["wall_seconds"] = time.perf_counter() - t_all
+    print(f"run z16 added {out['wall_seconds']:.1f}s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -3978,27 +4231,39 @@ def main():
     build_s = kernels.build()
     print(f"built kernels in {time.perf_counter() - t0:.1f}s: {build_s}")
 
-    rows = check_kernels(torch, kernels)
-    rows += check_fused(torch, kernels)
-    rows += check_select_and_popcount(torch, kernels, card)
-    rows += time_fused_nan_rows_and_idle(torch, kernels, card)
-    iter_errs = check_solver_and_iteration(torch)
-    iter_errs.update(check_option_iterations(torch, FedConfig))
-    iter_errs.update(check_service_iterations(torch, kernels, FedConfig))
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return res
+
+    rows = phase("check_kernels", check_kernels, torch, kernels)
+    rows += phase("check_fused", check_fused, torch, kernels)
+    rows += phase("check_select_and_popcount", check_select_and_popcount, torch, kernels, card)
+    rows += phase("time_fused_nan_rows_and_idle", time_fused_nan_rows_and_idle, torch, kernels,
+                  card)
+    iter_errs = phase("check_solver_and_iteration", check_solver_and_iteration, torch)
+    iter_errs.update(phase("check_option_iterations", check_option_iterations, torch, FedConfig))
+    iter_errs.update(phase("check_service_iterations", check_service_iterations, torch, kernels,
+                           FedConfig))
     root = os.path.dirname(os.path.abspath(__file__))
     cache_dir = os.path.join(root, "build", "chip_smoke")
-    runs = run_main_path(torch, kernels, harness, FedConfig, card, cache_dir)
-    conv = check_conv_models(torch, kernels, harness, FedConfig, card, cache_dir)
-    service_runs = run_service_and_streams(torch, kernels, harness, FedConfig, card, cache_dir)
-    graphed_runs = run_graphed(torch, kernels, harness, FedConfig, card, cache_dir)
-    graphed_runs["j3"] = run_j3(torch, kernels, harness, FedConfig, card, cache_dir)
-    obs_runs = run_obs(torch, kernels, harness, FedConfig, card, cache_dir)
-    telemetry_runs = run_telemetry(torch, kernels, harness, FedConfig, card, cache_dir)
-    knob_runs = run_z13(torch, kernels, harness, FedConfig, card, cache_dir)
-    layout_runs = run_z14(torch, kernels, harness, FedConfig, card, cache_dir,
-                          service_runs["z2"].pop("record"))
-    serve_runs = run_z15(torch, kernels, harness, FedConfig, card, cache_dir)
-    degraded_sort = time_degraded_sort(torch, kernels, card)
+    ctx = (torch, kernels, harness, FedConfig, card, cache_dir)
+    runs = phase("run_main_path", run_main_path, *ctx)
+    conv = phase("check_conv_models", check_conv_models, *ctx)
+    service_runs = phase("run_service_and_streams", run_service_and_streams, *ctx)
+    graphed_runs = phase("run_graphed", run_graphed, *ctx)
+    graphed_runs["j3"] = phase("run_j3", run_j3, *ctx)
+    obs_runs = phase("run_obs", run_obs, *ctx)
+    telemetry_runs = phase("run_telemetry", run_telemetry, *ctx)
+    knob_runs = phase("run_z13", run_z13, *ctx)
+    layout_runs = phase("run_z14", run_z14, *ctx, service_runs["z2"].pop("record"))
+    serve_runs = phase("run_z15", run_z15, *ctx)
+    topology_runs = phase("run_z16", run_z16, torch, kernels, card, cache_dir)
+    degraded_sort = phase("time_degraded_sort", time_degraded_sort, torch, kernels, card)
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
     # ResNet-18's widths (the Weiszfeld kernels in their fused mode, which
@@ -4043,7 +4308,8 @@ def main():
                        service_and_streamed_runs=service_runs, graphed_runs=graphed_runs,
                        obs_runs=obs_runs, telemetry_runs=telemetry_runs,
                        knob_runs=knob_runs, layout_runs=layout_runs, serve_runs=serve_runs,
-                       degraded_sort=degraded_sort, kernels=line,
+                       topology_runs=topology_runs, degraded_sort=degraded_sort,
+                       phase_seconds=phase_s, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": line}))

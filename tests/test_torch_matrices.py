@@ -166,10 +166,10 @@ def test_the_cube_and_its_tuned_constants_are_jax_s(jax_draws):
         tadapt.run_cube(**dict(kw, tuned={"0.3": params}), device="cpu")
 
 
-def test_batched_is_refused_with_its_reason(tmp_path, capsys):
-    """``--batched`` is no longer refused (the experiment server's slice):
-    every mode of a family from one pass equals the per-cell loop, every
-    column, and the CLI's speedup flags time the loop against it."""
+def test_batched_matrix_equals_the_per_cell_loop_and_times_it(tmp_path, capsys):
+    """``--batched``: every mode of a family from one pass equals the
+    per-cell loop, every column, and the CLI's speedup flags time the loop
+    against it."""
     kw = dict(iters=10, onset=2, stop=7, seed=0, log=lambda s: None, device="cpu")
     attacks, modes = ["signflip", "gradascent", "under_radar", "mimic"], list(tadapt.MODES)
     assert (tadapt.run_matrix(attacks, modes, batched=True, **kw)

@@ -625,8 +625,28 @@ def test_a_server_without_a_gpu_fails_at_start_up(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         ExperimentServer(str(tmp_path / "root"), port=0, host="127.0.0.1")
-    from byzantine_aircomp_tpu_torch import cli
 
-    for sub in ("root", "edge"):
-        with pytest.raises(SystemExit, match="next slice"):
-            cli.main([sub])
+
+def test_root_and_edge_without_a_gpu_fail_at_start_up_unless_told_cpu(tmp_path, monkeypatch):
+    """``root`` and ``edge`` run on the card unless ``--device cpu``: without
+    a GPU they fail at start-up, naming the flag, never falling back."""
+    import urllib.error
+
+    from byzantine_aircomp_tpu_torch import cli
+    from byzantine_aircomp_tpu_torch.serve.root import RootServer
+
+    topo = tmp_path / "topo.json"
+    topo.write_text(json.dumps({"edges": 2, "k": 8, "d": 4, "cohort": 4, "rounds": 1,
+                                "sign_bits": 1, "keys": {"0": "aa" * 32, "1": "bb" * 32}}))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edge = ["edge", "--config", str(topo), "--shard", "0", "--root-url", "http://127.0.0.1:9"]
+    for argv in (["root", "--config", str(topo), "--port", "0"], edge):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main(argv)
+    # told the CPU, the edge gets past its device and fails on the dead URL
+    with pytest.raises(urllib.error.URLError):
+        cli.main(edge + ["--device", "cpu"])
+    from byzantine_aircomp_tpu_torch.serve.edge import TopologyConfig
+
+    with RootServer(TopologyConfig.load(str(topo)), host="127.0.0.1", device="cpu") as srv:
+        assert srv.state.device.type == "cpu" and srv.port

@@ -85,10 +85,10 @@ def test_sweep_main_prints_one_json_line_per_cell_and_the_table(tmp_path):
     assert len((tmp_path / "sweep.events.jsonl").read_text().splitlines()) == 4
 
 
-def test_batched_sweeps_are_refused_with_their_reason():
-    """``--batched`` is no longer refused (the experiment server's slice):
-    each cell's seed replicas as the lanes of one batch runner equal the
-    eager per-seed cells (JAX ``test_sweep_batched_matches_eager``)."""
+def test_a_batched_sweep_equals_the_eager_per_seed_cells():
+    """``--batched``: each cell's seed replicas as the lanes of one batch
+    runner equal the eager per-seed cells (JAX
+    ``test_sweep_batched_matches_eager``)."""
     ds = tdata.load("mnist", synthetic_train=300, synthetic_val=100)
     kw = _cfg_kw(honest_size=6, byz_size=2, rounds=2, gamma=1e-2, seed=3)
     common = dict(dataset=ds, seeds=2, log=lambda s: None)
