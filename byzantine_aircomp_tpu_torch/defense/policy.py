@@ -26,6 +26,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..obs.span import span
 from ..registry import AGGREGATORS
 
 #: policy state: (rung i32, up_streak i32, down_streak i32, budget f32)
@@ -94,12 +95,12 @@ def validate_ladder(names: Sequence[str], base_agg: "str | None") -> None:
         )
 
 
-#: torch.profiler range around the host read of the rung
+#: the span around the host read of the rung
 RUNG_READ_RANGE = "defense_rung_read"
 
 
 def _rung_name(rung: torch.Tensor, ladder: Sequence[str]) -> str:
-    with torch.profiler.record_function(RUNG_READ_RANGE):
+    with span(RUNG_READ_RANGE):
         return ladder[int(rung)]
 
 

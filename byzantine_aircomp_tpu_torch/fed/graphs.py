@@ -31,19 +31,141 @@ of R rounds is R replays with no host read between them.
 * **Launch counts.**  The kernel wrappers count at capture, where nothing
   is launched: those counts are taken back out, and every replay adds them
   (``ops.kernels.add_launches``).
+* **Spans.**  A replay opens no profiler range inside the graph, so the
+  capture notes where each span of the round (``obs/span.py``) begins and
+  ends in the graph: the count of its nodes that the profiler records as
+  device work (kernels, copies and sets), at each span's entry and exit,
+  read through libcuda's graph calls and adding no node.  :data:`LAST_CAPTURE`
+  keeps the last capture's layout.  A replay's device records share the
+  correlation id of its ``cudaGraphLaunch``, the runtime call inside its
+  ``graph.replay`` span, and the round is one chain of nodes, so sorted by
+  start the k-th record is the k-th counted node.
 
 :func:`dispatch_graph` says which configurations are captured, and why not.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
-import time
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..obs.span import Span, capture_marks, span
 from ..ops import kernels
+
+#: the graph node types that the profiler records as device work
+#: (``CUgraphNodeType``), by the letter :attr:`CaptureLayout.kinds` gives
+COUNTED_NODES = {0: "k", 1: "c", 2: "s"}  # kernel, memcpy, memset
+
+
+@dataclass
+class CaptureLayout:
+    """Where the spans of a captured round lie in its graph.  ``nodes``
+    counts the graph's counted nodes (:data:`COUNTED_NODES`) and ``kinds``
+    gives each one's letter, in the graph's order; ``spans`` maps each span
+    opened inside the capture to its ``[first, end)`` ranges of counted
+    node indices, one per entry in the order entered (a stage's, one per
+    iteration).  ``nodes``, ``kinds`` and ``spans`` are None where the
+    libcuda did not answer.  ``warmup_seconds`` and ``capture_seconds`` are
+    the durations of the ``graph.warmup`` and ``graph.capture`` spans."""
+
+    warmup_seconds: float
+    capture_seconds: float
+    nodes: Optional[int]
+    kinds: Optional[str]
+    spans: Optional[Dict[str, List[Tuple[int, int]]]]
+
+
+#: the layout of this process's last capture (None before any)
+LAST_CAPTURE: Optional[CaptureLayout] = None
+
+_LIBCUDA: Optional[ctypes.CDLL] = None
+
+
+def _libcuda():
+    """libcuda with the three calls the node marks make, or None where
+    there is none."""
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        try:
+            lib = ctypes.CDLL("libcuda.so.1")
+            calls = (lib.cuStreamGetCaptureInfo_v2, lib.cuGraphGetNodes,
+                     lib.cuGraphNodeGetType)
+        except (OSError, AttributeError):
+            return None
+        p, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+        calls[0].argtypes = [p, i32, p, ctypes.POINTER(p), p, p]
+        calls[1].argtypes = [p, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_size_t)]
+        calls[2].argtypes = [p, i32]
+        for fn in calls:
+            fn.restype = ctypes.c_int
+        _LIBCUDA = lib
+    return _LIBCUDA
+
+
+class _NodeMarks:
+    """The marker of one capture (:func:`..obs.span.capture_marks`): at
+    each span's entry and exit the number of counted nodes the graph that
+    ``stream`` captures into holds.  libcuda lists a graph's nodes in
+    the order they were added; a node seen once keeps its place, which
+    each look checks.  Any failed call stops the marks, never the
+    capture."""
+
+    def __init__(self, stream: int):
+        self.stream = stream
+        self.lib = _libcuda()
+        self.failed = self.lib is None
+        self.seen = 0  # the graph's nodes looked at so far
+        self.last: Optional[int] = None  # the last of them
+        self.kinds: List[str] = []
+        self.spans: Dict[str, List[Tuple[int, int]]] = {}
+        self._open: Dict[str, List[int]] = {}
+
+    def count(self, graph: Optional[int] = None) -> Optional[int]:
+        """The counted nodes of ``graph`` (default: the one being captured
+        into), or None once a call failed."""
+        lib = self.lib
+        if self.failed:
+            return None
+        if graph is None:
+            handle = ctypes.c_void_p()
+            status = ctypes.c_int()
+            if lib.cuStreamGetCaptureInfo_v2(self.stream, ctypes.byref(status), None,
+                                             ctypes.byref(handle), None, None) != 0:
+                self.failed = True
+                return None
+            graph = handle.value
+        n = ctypes.c_size_t(0)
+        if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+            self.failed = True
+            return None
+        if n.value > self.seen:
+            nodes = (ctypes.c_void_p * n.value)()
+            kind = ctypes.c_int()
+            if (lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0
+                    or (self.seen and nodes[self.seen - 1] != self.last)):
+                self.failed = True
+                return None
+            for node in nodes[self.seen:n.value]:
+                if lib.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+                    self.failed = True
+                    return None
+                if kind.value in COUNTED_NODES:
+                    self.kinds.append(COUNTED_NODES[kind.value])
+            self.seen, self.last = n.value, nodes[n.value - 1]
+        return len(self.kinds)
+
+    def __call__(self, name: str, entering: bool) -> None:
+        at = self.count()
+        if at is None:
+            return
+        if entering:
+            self._open.setdefault(name, []).append(at)
+        else:
+            self.spans.setdefault(name, []).append((self._open[name].pop(), at))
 
 def dispatch_graph(cfg, device) -> Tuple[bool, str]:
     """Whether a dispatch of ``cfg`` on ``device`` replays a CUDA graph of
@@ -114,7 +236,9 @@ class RoundGraph:
     """The CUDA graph of one round of ``trainer``: captured at the first
     :meth:`run`, replayed once per round after.  ``captures`` counts the
     captures (one per trainer), ``warmup_seconds`` and ``capture_seconds``
-    time the warm-up round and the capture with its instantiation,
+    time the warm-up round and the capture with its instantiation (the
+    spans ``graph.warmup`` and ``graph.capture``; the capture's
+    :class:`CaptureLayout` becomes :data:`LAST_CAPTURE`),
     ``replay_launches`` holds the kernel launches of one replay and
     ``replays`` counts them.  The graph is kept after instantiation
     (``keep_graph=True``), so that a measurement can count its nodes
@@ -136,55 +260,64 @@ class RoundGraph:
         ``round_idx``); :meth:`run` calls it at its first dispatch."""
         from .train import _clone_state as _clone
 
+        global LAST_CAPTURE
         t = self.trainer
         dev = t.device
         self.static = _clone(t._state())
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            t._set_state(_clone(self.static))
-            t.run_round(round_idx)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
+        with Span("graph.warmup") as warmup:
+            with torch.cuda.stream(side):
+                t._set_state(_clone(self.static))
+                t.run_round(round_idx)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
 
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for g in t._slot_generators.values():
-            graph.register_generator_state(g)
-        t._set_state(self.static)
-        before = dict(kernels.LAUNCHES)
-        mode = torch.cuda.get_sync_debug_mode()
-        # a trainer and its RoundGraph form a reference cycle, so an earlier
-        # trainer's graph and pinned buffers are freed by the cyclic
-        # collector, and a free that lands inside this capture invalidates
-        # it: collect first, and keep the collector off until the capture
-        # ends
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    variance = t.run_round(round_idx)
-                    self.outputs = (variance, t.last_fault_metrics, t.last_defense_metrics,
-                                    t.last_service_metrics, t.last_forensic_metrics)
-                    _copy_into(self.static, t._state())
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-        finally:
-            if collecting:
-                gc.enable()
-        graph.instantiate()
-        torch.cuda.synchronize(dev)
+        with Span("graph.capture") as capture:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for g in t._slot_generators.values():
+                graph.register_generator_state(g)
+            t._set_state(self.static)
+            before = dict(kernels.LAUNCHES)
+            mode = torch.cuda.get_sync_debug_mode()
+            marks = _NodeMarks(side.cuda_stream)
+            # a trainer and its RoundGraph form a reference cycle, so an
+            # earlier trainer's graph and pinned buffers are freed by the
+            # cyclic collector, and a free that lands inside this capture
+            # invalidates it: collect first, and keep the collector off
+            # until the capture ends
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        with capture_marks(marks):
+                            variance = t.run_round(round_idx)
+                        self.outputs = (variance, t.last_fault_metrics,
+                                        t.last_defense_metrics, t.last_service_metrics,
+                                        t.last_forensic_metrics)
+                        _copy_into(self.static, t._state())
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+            finally:
+                if collecting:
+                    gc.enable()
+            nodes = marks.count(graph.raw_cuda_graph())
+            graph.instantiate()
+            torch.cuda.synchronize(dev)
         self.replay_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         kernels.LAUNCHES.update(before)
         t._set_state(self.static)
         self.graph = graph
         self.captures += 1
-        self.warmup_seconds = t1 - t0
-        self.capture_seconds = time.perf_counter() - t1
+        self.warmup_seconds = warmup.seconds
+        self.capture_seconds = capture.seconds
+        whole = nodes is not None
+        LAST_CAPTURE = CaptureLayout(
+            self.warmup_seconds, self.capture_seconds, nodes,
+            "".join(marks.kinds) if whole else None, marks.spans if whole else None)
 
     def run(self, start_round: int, num_rounds: int):
         """Replay rounds ``start_round ..`` ``num_rounds`` times (capturing
@@ -195,17 +328,21 @@ class RoundGraph:
         t = self.trainer
         if self.graph is None:
             self.capture(start_round)
-        _copy_into(self.static, t._state())
-        t._set_state(self.static)
-        stacked = [None if o is None else
-                   torch.empty((num_rounds,) + tuple(o.shape), dtype=o.dtype, device=o.device)
-                   for o in self.outputs]
+        with span("graph.prepare"):
+            _copy_into(self.static, t._state())
+            t._set_state(self.static)
+            stacked = [None if o is None else
+                       torch.empty((num_rounds,) + tuple(o.shape), dtype=o.dtype,
+                                   device=o.device)
+                       for o in self.outputs]
         for i in range(num_rounds):
-            t.reseed_slot_generators(start_round + i)
-            self.graph.replay()
+            with span("graph.replay"):
+                t.reseed_slot_generators(start_round + i)
+                self.graph.replay()
             kernels.add_launches(self.replay_launches)
-            for buf, out in zip(stacked, self.outputs):
-                if buf is not None:
-                    buf[i].copy_(out)
+            with span("graph.outputs"):
+                for buf, out in zip(stacked, self.outputs):
+                    if buf is not None:
+                        buf[i].copy_(out)
         self.replays += num_rounds
         return DispatchOutputs(*stacked)

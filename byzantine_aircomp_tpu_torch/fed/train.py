@@ -100,6 +100,7 @@ from ..ops import flatten as flatten_lib
 from ..ops import kernels
 from ..ops import shardctx as shardctx_lib
 from ..obs import forensics as forensics_lib
+from ..obs.span import span
 from ..registry import MODELS
 from . import graphs as graphs_lib
 from . import server_opt as server_opt_lib
@@ -150,7 +151,7 @@ _SERVICE_SUBSTREAMS = ("churn", "draw", "deadline", "link_key")
 #: the iteration streams a streamed round draws per chunk
 CHANNEL_STREAM, MESSAGE_STREAM, FAULT_STREAM = 1, 3, 4
 
-# torch.profiler range around the clients' local steps (all E of them)
+# the span around the clients' local steps (all E of them)
 CLIENT_STEP_RANGE = "client_step"
 
 
@@ -937,16 +938,17 @@ class Trainer:
             offsets, sizes = self.offsets[shard], self.sizes[shard]
         # the [m, E*B] indices in one draw: at E = 1 the stream of the
         # single-step trainer
-        idx = data_lib.sample_client_batch_indices(
-            offsets, sizes, cfg.local_steps * cfg.batch_size,
-            generator=gens.batch, u=draws.get("u"),
-        )
+        with span("batch"):
+            idx = data_lib.sample_client_batch_indices(
+                offsets, sizes, cfg.local_steps * cfg.batch_size,
+                generator=gens.batch, u=draws.get("u"),
+            )
         # one device bool gates every Byzantine behavior until the onset
         is_byz, attack_on = self._part_mask, None
         if self._attack_onset is not None:
             attack_on = self.attack_iter >= self._attack_onset
             is_byz = is_byz & attack_on
-        with torch.profiler.record_function(CLIENT_STEP_RANGE):
+        with span(CLIENT_STEP_RANGE):
             w_stack = self._client_stage(flat_params, idx, is_byz, part)
         if fault is not None:
             # before the attack: the buffer keeps what the clients sent
@@ -954,12 +956,14 @@ class Trainer:
             ge_bad = self.fault_state.ge_bad
         w_stack = self._whole_stack(w_stack)
         if self.attack is not None:
-            # a defense-aware attack reads the detector state published
-            # after the previous iteration (under service, the drawn ids')
-            view = (self._defense_view(flat_params, pop_ids)
-                    if self.attack.defense_aware else None)
-            w_att = self._attack_stage(w_stack, gens, draws, view)
-            w_stack = w_att if attack_on is None else torch.where(attack_on, w_att, w_stack)
+            with span("attack"):
+                # a defense-aware attack reads the detector state published
+                # after the previous iteration (under service, the drawn ids')
+                view = (self._defense_view(flat_params, pop_ids)
+                        if self.attack.defense_aware else None)
+                w_att = self._attack_stage(w_stack, gens, draws, view)
+                w_stack = w_att if attack_on is None else torch.where(attack_on, w_att,
+                                                                      w_stack)
         if fault is not None:
             # after it: corruption and the channel's faults hit every row
             w_stack, ge_bad, n_erased, n_corrupt = fault_lib.apply_transmission(
@@ -969,22 +973,23 @@ class Trainer:
         adaptive = spec is not None and spec.mode == "adaptive"
         terms = None
         if cfg.noise_var is not None and agg_lib.needs_oma_prepass(cfg.agg):
-            terms = draws.get("oma")
-            if service:
-                # each row's link is that of its stable id
-                w_stack = channel_lib.oma_by_id(w_stack, pop_ids, cfg.noise_var,
-                                                key=gens.link_key, terms=terms)
-                terms = None
-            else:
-                if terms is None:
-                    terms = channel_lib.oma_terms(
-                        m_h + m_b, self.dim, cfg.noise_var, generator=gens.channel,
-                        device=w_stack.device,
-                    )
-                terms = self._held_terms(terms)
-                if not self.channel_fused:
-                    w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
+            with span("channel"):
+                terms = draws.get("oma")
+                if service:
+                    # each row's link is that of its stable id
+                    w_stack = channel_lib.oma_by_id(w_stack, pop_ids, cfg.noise_var,
+                                                    key=gens.link_key, terms=terms)
                     terms = None
+                else:
+                    if terms is None:
+                        terms = channel_lib.oma_terms(
+                            m_h + m_b, self.dim, cfg.noise_var, generator=gens.channel,
+                            device=w_stack.device,
+                        )
+                    terms = self._held_terms(terms)
+                    if not self.channel_fused:
+                        w_stack = channel_lib.oma(w_stack, cfg.noise_var, terms=terms)
+                        terms = None
         if service:
             # the round closes now: absent and late rows are erased to NaN
             w_stack, n_absent, n_late = fault_lib.apply_deadline(
@@ -1044,12 +1049,13 @@ class Trainer:
         # --stack-dtype bf16: the rule reads a bf16 copy of the stack; its
         # arithmetic stays f32 and the aggregate comes back f32
         w_agg = w_agg.to(self._stack_dtype)
-        if adaptive:
-            # rung 0 is cfg.agg, so a quiet run aggregates as --defense off
-            aggregated = defense_lib.aggregate_rung(rung, spec.ladder, w_agg, **agg_kw)
-        else:
-            # reference semantics (:354-358)
-            aggregated = self._aggregate(w_agg, agg_kw)
+        with span("aggregate"):
+            if adaptive:
+                # rung 0 is cfg.agg, so a quiet run aggregates as --defense off
+                aggregated = defense_lib.aggregate_rung(rung, spec.ladder, w_agg, **agg_kw)
+            else:
+                # reference semantics (:354-358)
+                aggregated = self._aggregate(w_agg, agg_kw)
         if degraded:
             # the receiver's finite guard: a coordinate that no finite row
             # reached keeps its previous value
@@ -1059,10 +1065,12 @@ class Trainer:
             self.iteration_fault_metrics = torch.stack([n_dropped, n_erased, n_corrupt, eff_k])
         if service:
             self.iteration_service_metrics = torch.stack([n_avail, n_absent, n_late, eff_k])
-        new_flat = self._server_step(flat_params, aggregated)
+        with span("server_step"):
+            new_flat = self._server_step(flat_params, aggregated)
         variance = None
         if want_variance:
-            variance = self._variance(w_stack, m_h, terms, service)
+            with span("variance"):
+                variance = self._variance(w_stack, m_h, terms, service)
         if self.attack_iter is not None:
             self.attack_iter = self.attack_iter + 1
         return new_flat, variance
@@ -1101,7 +1109,7 @@ class Trainer:
             if attack_on is not None:
                 mask_c = mask_c & attack_on
             x, y = self._batches(idx_all[rows])
-            with torch.profiler.record_function(CLIENT_STEP_RANGE):
+            with span(CLIENT_STEP_RANGE):
                 chunk = self.client_stack(flat_params, x, y, mask_c)
             # chunks are purely honest or purely Byzantine: only the last
             # ones are attacked, all of their rows
@@ -1375,7 +1383,13 @@ class Trainer:
         iteration's available count, the absent and late rows summed, the
         effective K at its minimum (JAX ``fed/train.py:1773-1782``).  With
         forensics on, ``last_forensic_metrics`` becomes the round's
-        [forensics_top, NUM_COLS] top-M of its iterations' matrices."""
+        [forensics_top, NUM_COLS] top-M of its iterations' matrices.  The
+        round is the span ``dispatch``."""
+        with span("dispatch"):
+            return self._round(round_idx)
+
+    def _round(self, round_idx: int) -> torch.Tensor:
+        """:meth:`run_round`'s round, in no span of its own."""
         interval = self.cfg.display_interval
         variance = None
         counts, observed, served, forensic = [], [], [], []
@@ -1420,28 +1434,30 @@ class Trainer:
         dispatch); else the rounds run eagerly.  Returns the stacked
         per-round outputs (:class:`DispatchOutputs`) as device tensors,
         with no host read; ``last_*_metrics`` become the last round's
-        rows, as after :meth:`run_round`."""
-        if self.dispatch_graph[0]:
-            if self.round_graph is None:
-                self.round_graph = graphs_lib.RoundGraph(self)
-            outs = self.round_graph.run(start_round, num_rounds)
-        else:
-            rows = []
-            for i in range(num_rounds):
-                variance = self.run_round(start_round + i)
-                rows.append((variance, self.last_fault_metrics,
-                             self.last_defense_metrics, self.last_service_metrics,
-                             self.last_forensic_metrics))
-            outs = DispatchOutputs(*(
-                None if col[0] is None else torch.stack(col) for col in zip(*rows)))
-        if outs.forensic is not None:
-            self.last_forensic_metrics = outs.forensic[-1]
-        if outs.fault is not None:
-            self.last_fault_metrics = outs.fault[-1]
-        if outs.defense is not None:
-            self.last_defense_metrics = outs.defense[-1]
-        if outs.service is not None:
-            self.last_service_metrics = outs.service[-1]
+        rows, as after :meth:`run_round`.  The dispatch is the span
+        ``dispatch``."""
+        with span("dispatch"):
+            if self.dispatch_graph[0]:
+                if self.round_graph is None:
+                    self.round_graph = graphs_lib.RoundGraph(self)
+                outs = self.round_graph.run(start_round, num_rounds)
+            else:
+                rows = []
+                for i in range(num_rounds):
+                    variance = self._round(start_round + i)
+                    rows.append((variance, self.last_fault_metrics,
+                                 self.last_defense_metrics, self.last_service_metrics,
+                                 self.last_forensic_metrics))
+                outs = DispatchOutputs(*(
+                    None if col[0] is None else torch.stack(col) for col in zip(*rows)))
+            if outs.forensic is not None:
+                self.last_forensic_metrics = outs.forensic[-1]
+            if outs.fault is not None:
+                self.last_fault_metrics = outs.fault[-1]
+            if outs.defense is not None:
+                self.last_defense_metrics = outs.defense[-1]
+            if outs.service is not None:
+                self.last_service_metrics = outs.service[-1]
         return outs
 
     def run_rounds(self, start_round: int, num_rounds: int) -> torch.Tensor:
@@ -1554,7 +1570,8 @@ class Trainer:
             tr = self.evaluate("train") if cfg.eval_train else (0.0, 0.0)
             return tr, self.evaluate("val")
 
-        with obs.span("eval", stage="initial", round=start_round), profiler.phase("eval"):
+        with (obs.span("eval", ranged=False, stage="initial", round=start_round),
+              profiler.phase("eval")):
             (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
         paths = {
             "trainLossPath": [tr_loss],
@@ -1593,7 +1610,7 @@ class Trainer:
         r = start_round
         while r < cfg.rounds:
             profiler.round_start(r)
-            with obs.span("round", round=r) as sp, profiler.step(r):
+            with obs.span("round", ranged=False, round=r) as sp, profiler.step(r):
                 self._sync()
                 t0 = time.perf_counter()
                 variance = self.run_round(r)
@@ -1601,7 +1618,8 @@ class Trainer:
                 dt = time.perf_counter() - t0
                 # the first round pays for the eager set-up (obs/retrace.py)
                 compiled = sp["compiled"] = r == start_round
-            with obs.span("eval", stage="round", round=r + 1), profiler.phase("eval"):
+            with (obs.span("eval", ranged=False, stage="round", round=r + 1),
+                  profiler.phase("eval")):
                 (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
             var_f = float(variance)
             if rollback_armed and self._roll_back(
@@ -1633,7 +1651,8 @@ class Trainer:
                 # the params in place cannot reach the restore point
                 snapshot = (_clone_state(self._state()), r + 1)
             if checkpoint_fn is not None:
-                with obs.span("checkpoint", round=r + 1), profiler.phase("checkpoint"):
+                with (obs.span("checkpoint", ranged=False, round=r + 1),
+                      profiler.phase("checkpoint")):
                     checkpoint_fn(r + 1, self, paths)
             profiler.round_end(r)
             r += 1
@@ -1825,7 +1844,7 @@ class Trainer:
             end = r + n
             profiler.round_start(r)
             t0 = time.perf_counter()
-            with obs.span("dispatch", round=r, rounds=n) as sp:
+            with obs.span("dispatch", ranged=False, round=r, rounds=n) as sp:
                 # the first dispatch pays for the eager set-up or the
                 # capture (obs/retrace.py)
                 compiled = sp["compiled"] = r == start_round
@@ -1854,7 +1873,8 @@ class Trainer:
             dt = time.perf_counter() - t0
             rows = host.get()
             if do_eval:
-                with obs.span("eval", stage="round", round=end), profiler.phase("eval"):
+                with (obs.span("eval", ranged=False, stage="round", round=end),
+                      profiler.phase("eval")):
                     (tr_loss, tr_acc), (va_loss, va_acc) = eval_pair()
             # judged on the dispatch's last round; a trip re-runs the whole
             # dispatch from the previous boundary's state
@@ -1869,7 +1889,8 @@ class Trainer:
                 # a copy, taken before checkpoint_fn (as in the R = 1 loop)
                 snapshot = (_clone_state(self._state()), end)
             if checkpoint_fn is not None:
-                with obs.span("checkpoint", round=end), profiler.phase("checkpoint"):
+                with (obs.span("checkpoint", ranged=False, round=end),
+                      profiler.phase("checkpoint")):
                     checkpoint_fn(end, self, paths)
             profiler.round_end(r)
             r = end

@@ -6,7 +6,8 @@ The port of the core of ``byzantine_aircomp_tpu/obs/``:
 * :mod:`.sinks`   — where events go (JSONL file / stdout / memory / fan-out)
 * :mod:`.events`  — the schema-versioned event shapes (the JAX package's
   schema v10, verbatim) and the reference-record field mapping
-* :mod:`.span`    — phase timing (rounds, eval, checkpoint, set-up)
+* :mod:`.span`    — spans on the profiler's clock: phase timing (rounds,
+  eval, checkpoint, set-up) and the training path's layer boundaries
 * :mod:`.trace`   — the context-local trace and span ids (``--trace on``)
 * :mod:`.retrace` — counts of the programs the trainer builds (CUDA-graph
   captures, the eager round's set-up)
@@ -104,8 +105,8 @@ class Observability:
     def emit(self, kind: str, **fields) -> None:
         self.sink.emit(make_event(kind, **fields))
 
-    def span(self, name: str, sync=None, **fields):
-        return self._spans.span(name, sync=sync, **fields)
+    def span(self, name: str, sync=None, ranged: bool = True, **fields):
+        return self._spans.span(name, sync=sync, ranged=ranged, **fields)
 
     def span_event(self, name: str, ms: float, **fields) -> None:
         """Emit a span timed outside a context manager (queue wait, a

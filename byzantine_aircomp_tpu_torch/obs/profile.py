@@ -5,8 +5,9 @@ The port's counterpart of ``byzantine_aircomp_tpu/obs/profile.py``:
 * **Device traces** — :class:`Profiler` runs ``torch.profiler`` so that a
   run started with ``--profile-dir DIR`` writes a Chrome/Perfetto JSON
   trace into DIR, with every round (every dispatch under
-  ``--rounds-per-dispatch``) a ``record_function("round")`` range followed
-  by ``prof.step()``, and eval and checkpoint named ranges.
+  ``--rounds-per-dispatch``) a ``round`` span (:func:`.span.span`, a
+  profiler range) followed by ``prof.step()``, and eval and checkpoint
+  spans.
   ``--profile-rounds A:B`` restricts the capture to the half-open round
   window ``[A, B)``.  On the card the profiler asks for
   ``ProfilerActivity.CUDA``; a card run's trace that holds no device
@@ -30,6 +31,8 @@ from __future__ import annotations
 import contextlib
 import os
 from typing import Dict, List, Optional, Tuple
+
+from .span import span
 
 #: reusable no-op context
 _NULL_CTX = contextlib.nullcontext()
@@ -193,9 +196,7 @@ class Profiler:
     # -- annotations ----------------------------------------------------
     @contextlib.contextmanager
     def _stepped(self, round_idx: int):
-        import torch
-
-        with torch.profiler.record_function(ROUND_RANGE):
+        with span(ROUND_RANGE):
             yield
         if self._prof is not None:
             self._prof.step()
@@ -210,9 +211,7 @@ class Profiler:
         """A named range (``eval`` / ``checkpoint``)."""
         if self._prof is None:
             return _NULL_CTX
-        import torch
-
-        return torch.profiler.record_function(name)
+        return span(name)
 
 
 #: the disabled singleton — shared, every method a no-op

@@ -37,6 +37,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.span import span
 from ..registry import AGGREGATORS
 from . import channel
 from . import kernels
@@ -44,7 +45,7 @@ from . import shardctx
 
 # Weiszfeld steps between host checks of the stopping rule
 WEISZFELD_CHUNK = 16
-# torch.profiler range around the Weiszfeld loop (its steps, not its set-up)
+# the span around the Weiszfeld loop (its steps, not its set-up)
 WEISZFELD_LOOP_RANGE = "weiszfeld_loop"
 
 # one-shot budget, in elements, of the dense selection paths' largest
@@ -107,14 +108,16 @@ def weiszfeld_solve(
     ``chunk`` with the done flag kept on the device; a step taken after
     convergence leaves the guess as it is, so the result equals the
     per-step loop's bit for bit (``chunk=1``).  The loop runs inside the
-    profiler range ``WEISZFELD_LOOP_RANGE``, so a profile can count the
-    kernels of its steps apart from the set-up's.
+    span ``WEISZFELD_LOOP_RANGE``, so a profile can count the kernels of
+    its steps apart from the set-up's.  The steps run are counted in
+    :func:`.kernels.live_steps`.
 
     ``unrolled`` (default: whether the current CUDA stream is capturing a
     graph) runs all ``maxiter`` steps with no host read, for a CUDA graph:
     the steps after convergence copy the guess and nothing else, so the
     guess is the chunked loop's bit for bit, and the steps run come back
-    as a device int64 scalar instead of an int.
+    as a device int64 scalar instead of an int, which one in-place add
+    (a node of the graph) counts on the device.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -126,8 +129,9 @@ def weiszfeld_solve(
     spare = torch.empty_like(g)
     active = torch.ones((), dtype=torch.int32, device=g.device)
     steps = torch.zeros((), dtype=torch.int64, device=g.device)
+    live = kernels.live_step_count(g.device)
     i = 0
-    with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
+    with span(WEISZFELD_LOOP_RANGE):
         while i < maxiter:
             for _ in range(maxiter - i if unrolled else min(chunk, maxiter - i)):
                 g_next, active, steps = step(g, spare, active, steps, i)
@@ -135,7 +139,12 @@ def weiszfeld_solve(
                 i += 1
             if not unrolled and not bool(active):  # the one host sync per chunk
                 break
-    return g, (steps if unrolled else int(steps))
+    if unrolled:
+        live.add_(steps)
+        return g, steps
+    ran = int(steps)
+    kernels.add_live_steps(ran)
+    return g, ran
 
 
 def _init_guess(wmatrix, guess):
@@ -991,7 +1000,7 @@ def stream_gm2_solve(rebuild, *, k, d, n_chunks, device, guess=None, maxiter=100
     else:
         g = guess.to(torch.float32)
     steps = 0
-    with torch.profiler.record_function(WEISZFELD_LOOP_RANGE):
+    with span(WEISZFELD_LOOP_RANGE):
         while steps < maxiter:
             def acc(carry, chunk, _c, g=g):
                 n_c, d_c = kernels.weiszfeld_step(chunk.contiguous(), g)

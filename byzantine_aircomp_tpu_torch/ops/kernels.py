@@ -73,6 +73,13 @@ NVCC_FLAGS = (
 
 # kernel launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {name: 0 for name in _SOURCES}
+# Weiszfeld steps that the solves ran (ops/aggregators.weiszfeld_solve, a
+# solve's own count of the steps it took while active) since the last
+# reset_launches(): the chunked loops' counts, which they read on the host,
+# and per device an int64 scalar into which a graphed (unrolled) solve adds
+# its count on the device; read on request (live_steps), with a sync
+_live_host = 0
+_LIVE_DEVICE: Dict[torch.device, torch.Tensor] = {}
 # this process's one-time set-ups, counted where they happen and never
 # reset: a kernel's library loaded ("load:NAME") and a Weiszfeld workspace
 # allocated ("workspace:KxD"), so a second set-up of one kind shows as a 2
@@ -145,8 +152,38 @@ def implementation(impl: Optional[str]):
 
 
 def reset_launches():
+    """Zero ``LAUNCHES`` and the live Weiszfeld steps."""
+    global _live_host
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    _live_host = 0
+    for count in _LIVE_DEVICE.values():
+        count.zero_()
+
+
+def live_step_count(device: torch.device) -> torch.Tensor:
+    """The int64 scalar on ``device`` into which graphed solves add their
+    live steps, allocated at first use; never inside a CUDA-graph capture
+    (a replay adds into the buffer its capture saw)."""
+    count = _LIVE_DEVICE.get(device)
+    if count is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the live-step count must be allocated before a CUDA-graph "
+                               "capture: run one solve outside the capture first")
+        count = _LIVE_DEVICE[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return count
+
+
+def add_live_steps(n: int) -> None:
+    """Count ``n`` live Weiszfeld steps that a solve read on the host."""
+    global _live_host
+    _live_host += n
+
+
+def live_steps() -> int:
+    """The Weiszfeld steps the solves ran since the last
+    :func:`reset_launches`; reads each device's count (a sync)."""
+    return _live_host + sum(int(count) for count in _LIVE_DEVICE.values())
 
 
 def add_launches(counts: Dict[str, int]):

@@ -1208,12 +1208,25 @@ def _ranges():
     return WEISZFELD_LOOP_RANGE, CLIENT_STEP_RANGE, RUNG_READ_RANGE
 
 
+def _span_names():
+    """Every profiler range the port opens: its spans (``obs/span.py``),
+    the Weiszfeld loop, the defense's rung read, and ``--profile-dir``'s
+    round and phases."""
+    from byzantine_aircomp_tpu_torch.obs.profile import PHASES, ROUND_RANGE
+    from byzantine_aircomp_tpu_torch.obs.span import SPANS
+
+    weiszfeld, _, rung = _ranges()
+    return frozenset(SPANS + (weiszfeld, rung, ROUND_RANGE) + PHASES)
+
+
 def _device_events(torch, prof):
     """The device work of a profile: kernels, copies and memsets, without
-    the device-side spans of profiler ranges."""
-    names = _ranges()
+    the device-side shadows of profiler ranges (user annotations; by name
+    too, where this torch does not flag them)."""
+    names = _span_names()
     return [ev for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
             and ev.name not in names]
 
 
@@ -2227,43 +2240,6 @@ GRAPH_RUNS = (
 )
 
 
-class _SolveSteps:
-    """Records the steps of every Weiszfeld solve of an eager run (the live
-    steps, before convergence), through ``aggregators.weiszfeld_solve``."""
-
-    def __init__(self, aggregators):
-        self.agg, self.steps = aggregators, []
-
-    def __enter__(self):
-        self.real = self.agg.weiszfeld_solve
-
-        def solve(*a, **kw):
-            g, steps = self.real(*a, **kw)
-            self.steps.append(int(steps))
-            return g, steps
-
-        self.agg.weiszfeld_solve = solve
-        return self
-
-    def __exit__(self, *exc):
-        self.agg.weiszfeld_solve = self.real
-        return False
-
-
-def _graph_nodes(graph):
-    """The nodes of a kept CUDA graph (the driver's ``cuGraphGetNodes``),
-    or None where the driver does not answer."""
-    import ctypes
-
-    try:
-        lib = ctypes.CDLL("libcuda.so.1")
-    except OSError:
-        return None
-    n = ctypes.c_size_t(0)
-    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
-    return n.value if err == 0 else None
-
-
 def _replicated(record, rounds, r):
     """An R=1 record as the R-round dispatch reports it: each round's eval
     entries repeat its dispatch's boundary eval."""
@@ -2373,17 +2349,18 @@ def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw,
     trainer)."""
     import dataclasses
 
-    from byzantine_aircomp_tpu_torch.ops import aggregators
+    from byzantine_aircomp_tpu_torch.fed import graphs
 
     twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
                          display_interval=10, cache_dir=cache_dir)
     cfg = dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    with _SolveSteps(aggregators) as live:
-        twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
+    twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
     torch.cuda.synchronize()
     twin_launches = dict(kernels.LAUNCHES)
+    # the Weiszfeld steps the twin's solves ran while active
+    twin_live = kernels.live_steps()
     twin_peak = torch.cuda.max_memory_allocated()
     # only the twin's params stay on the card: the graphed run's peak
     # is its own
@@ -2411,14 +2388,15 @@ def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw,
               f"{diff}, params max abs diff "
               f"{float((trainer.flat_params - twin_params).abs().max())}")
     del twin_params
-    nodes = _graph_nodes(rg.graph)
+    # the capture's kernel, copy and set nodes (every node of these rounds)
+    nodes = graphs.LAST_CAPTURE.nodes
     prof, sessions = count_replay_launches(torch, trainer, cfg.rounds, at_capture, label)
     per_round = {group: seen / 2 for group, seen in prof["device_launches"].items()}
     group = next(g for g in per_round if kernel in g.split("+"))
     if per_round[group] < cfg.display_interval:
         _fail(f"run {label}: {kernel} ran {per_round[group]} times per replayed round "
               f"on the device, not every iteration")
-    live_per_round = sum(live.steps) / twin_cfg.rounds if live.steps else None
+    live_per_round = twin_live / twin_cfg.rounds if twin_live else None
     after = (per_round[group] - live_per_round
              if live_per_round is not None else None)
     entry = dict(

@@ -895,6 +895,64 @@ def test_graphed_prefetch_is_bitwise_no_prefetch(cuda):
     assert [t.round_graph.replays for t in runs] == [8, 8]
 
 
+def test_capture_layout_maps_a_profiled_replay_and_counts_live_steps(cuda):
+    """The capture's node marks (``fed/graphs.py``): the stage ranges of the
+    gm2 round are disjoint, in order and within its counted nodes, and one
+    profiled replay holds exactly the counted records, kind for kind, one
+    after another.  A graphed dispatch counts the live Weiszfeld steps its
+    eager twin counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from byzantine_aircomp_tpu_torch.fed import graphs
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+    from byzantine_aircomp_tpu_torch.obs.span import STAGES
+
+    ds = _dispatch_ds()
+    cfg = FedConfig(agg="gm2", attack="classflip", honest_size=40, byz_size=10, rounds=4,
+                    rounds_per_dispatch=2, display_interval=5, eval_train=False)
+    graphed = Trainer(cfg, dataset=ds, device="cuda")
+    eager = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+    graphed.run_rounds_stacked(0, 2)
+    eager.run_rounds_stacked(0, 2)
+    layout = graphs.LAST_CAPTURE
+    assert layout.nodes == len(layout.kinds) > 0
+    assert layout.warmup_seconds > 0 and layout.capture_seconds > 0
+    stages = sorted((a, b, name) for name, ranges in layout.spans.items()
+                    if name in STAGES for a, b in ranges)
+    assert [s[2] for s in stages] == (
+        ["batch", "client_step", "attack", "aggregate", "server_step"] * 5 + ["variance"])
+    assert all(0 <= a <= b <= layout.nodes for a, b, _ in stages)
+    assert all(b > a for a, b, name in stages if name in ("client_step", "aggregate"))
+    assert all(x[1] <= y[0] for x, y in zip(stages, stages[1:]))
+
+    live = []
+    for t in (graphed, eager):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t.run_rounds_stacked(2, 2)
+        live.append((kernels.live_steps(), kernels.LAUNCHES["weiszfeld_step"]))
+    assert live[0][0] == live[1][0] > 0 and live[0][1] == 2 * 5 * cfg.agg_maxiter
+
+    cpu = torch.autograd.DeviceType.CPU
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graphed.run_rounds_stacked(4, 1)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    (launch,) = [e.correlation_id() for e in events
+                 if e.device_type() == cpu and e.name().startswith("cudaGraphLaunch")]
+    recs = sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+                   if e.device_type() != cpu and e.correlation_id() == launch
+                   and not e.is_user_annotation()))
+    # a copy node may run as a copy kernel (``memcpy32_post``)
+    kinds = "".join("c" if "memcpy" in n.lower() else "s" if "memset" in n.lower() else "k"
+                    for _, _, n in recs)
+    assert len(recs) == layout.nodes and kinds == layout.kinds
+    # one after another, but for the ~1 us by which a node may start before
+    # the last one's end is stamped (gpubench/replays.py::JITTER_NS)
+    assert all(x[1] - 1500 <= y[0] for x, y in zip(recs, recs[1:]))
+
+
 # ---------------------------------------------------------------------------
 # observability: the event stream, forensics, the profiler and the memory
 # watermarks on the card
