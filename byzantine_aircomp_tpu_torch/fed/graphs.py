@@ -22,15 +22,19 @@ of R rounds is R replays with no host read between them.
   captured on the warm-up's stream under
   ``torch.cuda.set_sync_debug_mode("error")``: a host read in the round
   raises, and so does any other failure of the capture.  Inside the capture
-  the Weiszfeld loop runs all ``agg_maxiter`` steps with no host read
-  (``ops.aggregators.weiszfeld_solve``).
+  a Weiszfeld loop reads nothing on the host
+  (``ops.aggregators.weiszfeld_solve``): gm2's runs as a conditional WHILE
+  node over chunks of fused steps (:func:`conditional_body`), which the
+  device stops at convergence; gm's draws at every step, so it is unrolled
+  to ``agg_maxiter`` steps.
 * **Outputs.**  Each replay's per-round outputs (the variance, the fault,
   defense and service rows, and the forensic top-M, computed inside the
   graph into a static buffer) are copied into the dispatch's stacked
   buffers on the device.
 * **Launch counts.**  The kernel wrappers count at capture, where nothing
   is launched: those counts are taken back out, and every replay adds them
-  (``ops.kernels.add_launches``).
+  (``ops.kernels.add_launches``).  A conditional body's launches are left
+  out of them: the body counts its runs on the device.
 * **Spans.**  A replay opens no profiler range inside the graph, so the
   capture notes where each span of the round (``obs/span.py``) begins and
   ends in the graph: the count of its nodes that the profiler records as
@@ -39,13 +43,15 @@ of R rounds is R replays with no host read between them.
   keeps the last capture's layout.  A replay's device records share the
   correlation id of its ``cudaGraphLaunch``, the runtime call inside its
   ``graph.replay`` span, and the round is one chain of nodes, so sorted by
-  start the k-th record is the k-th counted node.
+  start the k-th record is the k-th counted node; a conditional node is not
+  counted, and its body's records (as many as its runs) lie among them.
 
 :func:`dispatch_graph` says which configurations are captured, and why not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 from dataclasses import dataclass
@@ -167,6 +173,144 @@ class _NodeMarks:
         else:
             self.spans.setdefault(name, []).append((self._open[name].pop(), at))
 
+
+# libcuda's constants of a conditional node (cuda.h, CUDA 12.3 on)
+_NODE_TYPE_CONDITIONAL = 13  # CU_GRAPH_NODE_TYPE_CONDITIONAL
+_COND_IF, _COND_WHILE = 0, 1  # CUgraphConditionalNodeType
+_COND_ASSIGN_DEFAULT = 1  # CU_GRAPH_COND_ASSIGN_DEFAULT
+_SET_CAPTURE_DEPENDENCIES = 1  # CU_STREAM_SET_CAPTURE_DEPENDENCIES
+_CAPTURE_THREAD_LOCAL = 1  # CU_STREAM_CAPTURE_MODE_THREAD_LOCAL
+_STREAM_NON_BLOCKING = 1  # CU_STREAM_NON_BLOCKING
+
+
+class _ConditionalNodeParams(ctypes.Structure):
+    """``CUgraphNodeParams`` with its union's ``conditional`` member
+    (``CUDA_CONDITIONAL_NODE_PARAMS``): 256 bytes."""
+
+    _fields_ = [
+        ("type", ctypes.c_int), ("reserved0", ctypes.c_int * 3),
+        ("handle", ctypes.c_ulonglong), ("cond_type", ctypes.c_int), ("size", ctypes.c_uint),
+        ("graph_out", ctypes.POINTER(ctypes.c_void_p)), ("ctx", ctypes.c_void_p),
+        ("reserved1", ctypes.c_longlong * 25), ("reserved2", ctypes.c_longlong),
+    ]
+
+
+_VOID_P, _SIZE = ctypes.c_void_p, ctypes.c_size_t
+_OUT = ctypes.POINTER(ctypes.c_void_p)
+# the libcuda calls of a conditional node, with their argument types
+_CU_CALLS = {
+    "cuStreamGetCaptureInfo_v3": [_VOID_P, ctypes.POINTER(ctypes.c_int), _VOID_P, _OUT, _OUT,
+                                  _OUT, ctypes.POINTER(_SIZE)],
+    "cuCtxGetCurrent": [_OUT],
+    "cuGraphConditionalHandleCreate": [ctypes.POINTER(ctypes.c_ulonglong), _VOID_P, _VOID_P,
+                                       ctypes.c_uint, ctypes.c_uint],
+    "cuGraphAddNode_v2": [_OUT, _VOID_P, _VOID_P, _VOID_P, _SIZE,
+                          ctypes.POINTER(_ConditionalNodeParams)],
+    "cuStreamUpdateCaptureDependencies": [_VOID_P, _OUT, _SIZE, ctypes.c_uint],
+    "cuStreamCreate": [_OUT, ctypes.c_uint],
+    "cuStreamBeginCaptureToGraph": [_VOID_P, _VOID_P, _VOID_P, _VOID_P, _SIZE, ctypes.c_int],
+    "cuStreamEndCapture": [_VOID_P, _OUT],
+    "cuMemcpyDtoDAsync_v2": [ctypes.c_uint64, ctypes.c_uint64, _SIZE, _VOID_P],
+}
+
+
+def _cu(name: str, *args, check: bool = True) -> int:
+    """Call libcuda's ``name`` (one of :data:`_CU_CALLS`) with ``args``;
+    raises on an error where ``check``, else returns it."""
+    lib = _libcuda()
+    if lib is None:
+        raise RuntimeError("a conditional graph node needs libcuda.so.1, which did not load")
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = _CU_CALLS[name], ctypes.c_int
+    err = fn(*args)
+    if check and err != 0:
+        raise RuntimeError(f"{name} failed: libcuda error {err}")
+    return err
+
+
+def _capture_graph(stream: int):
+    """``(graph, dependencies, edge data, their count)`` of the capture
+    running on ``stream``."""
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    deps, edges, n = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+    _cu("cuStreamGetCaptureInfo_v3", stream, ctypes.byref(status), None,
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(edges), ctypes.byref(n))
+    if status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError("a conditional node is added only inside a CUDA-graph capture")
+    return graph, deps, edges, n
+
+
+# a stream per device on which conditional bodies are captured
+_BODY_STREAMS: Dict[int, torch.cuda.ExternalStream] = {}
+
+
+def _body_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _BODY_STREAMS.get(index)
+    if stream is None:
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(index):
+            _cu("cuStreamCreate", ctypes.byref(handle), _STREAM_NON_BLOCKING)
+        stream = _BODY_STREAMS[index] = torch.cuda.ExternalStream(handle.value,
+                                                                  device=f"cuda:{index}")
+    return stream
+
+
+def conditional_handle(default: int) -> int:
+    """A condition (``CUgraphConditionalHandle``) of the graph that the
+    current stream captures, set to ``default`` at each launch of the
+    graph; a kernel sets it on the device (``cudaGraphSetConditional``)."""
+    graph = _capture_graph(torch.cuda.current_stream().cuda_stream)[0]
+    ctx, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
+    _cu("cuCtxGetCurrent", ctypes.byref(ctx))
+    _cu("cuGraphConditionalHandleCreate", ctypes.byref(handle), graph, ctx, default,
+            _COND_ASSIGN_DEFAULT)
+    return handle.value
+
+
+@contextlib.contextmanager
+def conditional_body(handle: int, loop: bool):
+    """Add a conditional node on ``handle`` (a WHILE node where ``loop``,
+    else an IF node) after the work the current stream has captured, and
+    capture the block's launches into its body: on a stream of its own,
+    torch's current stream inside the block.  The body may hold only what
+    a conditional body can (kernels, copies, sets) and no torch op, whose
+    memory the caching allocator would take from outside the graph's
+    pool.  The current stream's capture goes on after the node, which the
+    node marks (:class:`_NodeMarks`) do not count."""
+    parent = torch.cuda.current_stream()
+    graph, deps, edges, n = _capture_graph(parent.cuda_stream)
+    ctx = ctypes.c_void_p()
+    _cu("cuCtxGetCurrent", ctypes.byref(ctx))
+    params = _ConditionalNodeParams(type=_NODE_TYPE_CONDITIONAL, handle=handle,
+                                    cond_type=_COND_WHILE if loop else _COND_IF, size=1,
+                                    ctx=ctx.value)
+    node = ctypes.c_void_p()
+    _cu("cuGraphAddNode_v2", ctypes.byref(node), graph, deps, edges, n,
+            ctypes.byref(params))
+    _cu("cuStreamUpdateCaptureDependencies", parent.cuda_stream, ctypes.byref(node), 1,
+            _SET_CAPTURE_DEPENDENCIES)
+    body = _body_stream(parent.device)
+    _cu("cuStreamBeginCaptureToGraph", body.cuda_stream, params.graph_out[0], None, None, 0,
+            _CAPTURE_THREAD_LOCAL)
+    end = (body.cuda_stream, ctypes.byref(ctypes.c_void_p()))
+    try:
+        with torch.cuda.stream(body):
+            yield
+    except BaseException:
+        _cu("cuStreamEndCapture", *end, check=False)  # leaves the stream usable
+        raise
+    _cu("cuStreamEndCapture", *end)
+
+
+def copy_async(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` into ``dst`` (same bytes, both on the card) on the
+    current stream through libcuda, with no torch op: a conditional
+    body may hold it."""
+    _cu("cuMemcpyDtoDAsync_v2", dst.data_ptr(), src.data_ptr(),
+            src.numel() * src.element_size(), torch.cuda.current_stream(src.device).cuda_stream)
+
+
 def dispatch_graph(cfg, device) -> Tuple[bool, str]:
     """Whether a dispatch of ``cfg`` on ``device`` replays a CUDA graph of
     the round, and why (or why not), for the run's banner.  A rule or a
@@ -216,7 +360,8 @@ def dispatch_graph(cfg, device) -> Tuple[bool, str]:
     if rule.get("unrolled_solve", False):
         return True, (f"one CUDA graph of the round, replayed once per round; the graph "
                       f"runs all {cfg.agg_maxiter} Weiszfeld steps of every solve (a step "
-                      "after convergence only copies the guess), so a solve that converges "
+                      "draws, so the device cannot loop over steps; a step after "
+                      "convergence only copies the guess), so a solve that converges "
                       "early can run slower than eagerly")
     return True, "one CUDA graph of the round, replayed once per round"
 

@@ -25,8 +25,10 @@ once ``movement <= tol`` the guess stays as it is on the device; the host
 reads the done flag once per chunk.  The result is exactly that of
 stopping at the step where the JAX ``cond`` stops; steps run after
 convergence change nothing, and their draws are discarded.  Inside a
-CUDA-graph capture (``fed/graphs.py``) the loop is unrolled to ``maxiter``
-steps with no host read at all, which gives the same bits.
+CUDA-graph capture (``fed/graphs.py``) the loop reads nothing on the host
+and gives the same bits: gm2's runs the same chunks as a conditional WHILE
+node, which the device stops after the chunk in which it converges; gm's
+steps draw, so its loop is unrolled to ``maxiter`` steps.
 """
 
 from __future__ import annotations
@@ -90,12 +92,28 @@ def mean(wmatrix: torch.Tensor, *, degraded: bool = False, **_) -> torch.Tensor:
     return torch.mean(wmatrix.to(torch.float32), dim=0)
 
 
+def solve_mode(unrolled: Optional[bool], capturing: bool,
+               loop_kernel: Optional[str]) -> str:
+    """How :func:`weiszfeld_solve` runs its loop: ``"chunked"`` (a host read
+    of the done flag per chunk), ``"unrolled"`` (all ``maxiter`` steps, no
+    host read) or ``"loop"`` (a conditional WHILE node of a CUDA graph).
+    ``unrolled`` None takes the first where no capture runs, and inside a
+    capture the loop node where the step is one launch of ``loop_kernel``
+    alone, else (a step that draws) the unrolled loop."""
+    if unrolled is None:
+        if not capturing:
+            return "chunked"
+        return "unrolled" if loop_kernel is None else "loop"
+    return "unrolled" if unrolled else "chunked"
+
+
 def weiszfeld_solve(
     step: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     init_guess: torch.Tensor,
     maxiter: int,
     chunk: int = WEISZFELD_CHUNK,
     unrolled: Optional[bool] = None,
+    loop_kernel: Optional[str] = None,
 ) -> Tuple[torch.Tensor, "int | torch.Tensor"]:
     """Run ``(g, active, steps) <- step(g, g_spare, active, steps, i)`` until
     the step clears ``active`` (``||g - g_next|| <= tol``) or ``maxiter``
@@ -112,39 +130,86 @@ def weiszfeld_solve(
     its steps apart from the set-up's.  The steps run are counted in
     :func:`.kernels.live_steps`.
 
-    ``unrolled`` (default: whether the current CUDA stream is capturing a
-    graph) runs all ``maxiter`` steps with no host read, for a CUDA graph:
-    the steps after convergence copy the guess and nothing else, so the
-    guess is the chunked loop's bit for bit, and the steps run come back
-    as a device int64 scalar instead of an int, which one in-place add
-    (a node of the graph) counts on the device.
+    Inside a CUDA-graph capture no host read can end the loop
+    (:func:`solve_mode`).  ``loop_kernel`` names the kernel (a key of
+    :data:`.kernels.LAUNCHES`) where a step is one launch of it and nothing
+    else: then the chunks run as a conditional WHILE node, its body one
+    chunk of steps and :func:`.kernels.weiszfeld_loop_condition`, which
+    stops the loop after the chunk in which ``active`` clears, and an IF
+    node runs the last ``maxiter % chunk`` steps while the solve is active;
+    the body's steps are counted on the device.  Else (a step that draws or
+    runs a torch op, which a body run again and again would repeat) the
+    loop is unrolled to ``maxiter`` steps, those after convergence copying
+    the guess.  Either way the guess is the chunked loop's bit for bit, and
+    the steps run come back as a device int64 scalar instead of an int,
+    which one in-place add (a node of the graph) counts on the device.
+    ``unrolled=True`` unrolls the loop anywhere, ``False`` chunks it.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if unrolled is None:
-        unrolled = (init_guess.device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing())
+    mode = solve_mode(unrolled, init_guess.device.type == "cuda"
+                      and torch.cuda.is_current_stream_capturing(), loop_kernel)
     # a private copy: on the card the buffers are written in place
     g = init_guess.clone()
     spare = torch.empty_like(g)
     active = torch.ones((), dtype=torch.int32, device=g.device)
     steps = torch.zeros((), dtype=torch.int64, device=g.device)
     live = kernels.live_step_count(g.device)
-    i = 0
+    if loop_kernel is not None and g.device.type == "cuda":
+        # allocated outside a capture (by the eager warm-up's solve), as
+        # `live` is
+        launched = kernels.LAUNCHES.device_count(loop_kernel, g.device)
     with span(WEISZFELD_LOOP_RANGE):
-        while i < maxiter:
-            for _ in range(maxiter - i if unrolled else min(chunk, maxiter - i)):
-                g_next, active, steps = step(g, spare, active, steps, i)
-                g, spare = g_next, g
-                i += 1
-            if not unrolled and not bool(active):  # the one host sync per chunk
-                break
-    if unrolled:
+        if mode == "loop":
+            _loop_nodes(step, g, spare, active, steps, maxiter, chunk, loop_kernel, launched)
+        else:
+            i = 0
+            while i < maxiter:
+                for _ in range(maxiter - i if mode == "unrolled" else min(chunk, maxiter - i)):
+                    g_next, active, steps = step(g, spare, active, steps, i)
+                    g, spare = g_next, g
+                    i += 1
+                if mode == "chunked" and not bool(active):  # the one host sync per chunk
+                    break
+    if mode != "chunked":
         live.add_(steps)
         return g, steps
     ran = int(steps)
     kernels.add_live_steps(ran)
     return g, ran
+
+
+def _loop_nodes(step, g, spare, active, steps, maxiter, chunk, kernel, launched):
+    """The captured loop of :func:`weiszfeld_solve`: a WHILE node of
+    ``chunk``-step bodies (where ``maxiter >= chunk``), then an IF node of
+    the ``maxiter % chunk`` left (where any are), the guess ending in ``g``
+    after every body run.  A body's capture launches nothing, so its
+    launches are taken back out of :data:`.kernels.LAUNCHES` (its runs count
+    on the device, into ``launched``)."""
+    from ..fed import graphs
+
+    full, tail = maxiter // chunk, maxiter % chunk
+    tail_handle = graphs.conditional_handle(1) if tail else None
+
+    def body(n, loop_handle):
+        a, b = g, spare
+        for j in range(n):
+            out, _, _ = step(a, b, active, steps, j)
+            a, b = out, a
+        if a is not g:  # an odd count leaves the guess in the spare buffer
+            graphs.copy_async(g, a)
+        kernels.weiszfeld_loop_condition(active, steps, launched, n, maxiter,
+                                         loop=loop_handle,
+                                         tail=tail_handle if loop_handle else None)
+        kernels.LAUNCHES.add(kernel, -n)
+
+    if full:
+        handle = graphs.conditional_handle(1)
+        with graphs.conditional_body(handle, loop=True):
+            body(chunk, handle)
+    if tail:
+        with graphs.conditional_body(tail_handle, loop=False):
+            body(tail, None)
 
 
 def _init_guess(wmatrix, guess):
@@ -160,18 +225,22 @@ def gm2_solve(
     maxiter: int = 1000,
     tol: float = 1e-5,
     chunk: int = WEISZFELD_CHUNK,
-    unrolled: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, "int | torch.Tensor"]:
-    """:func:`gm2` returning ``(aggregate, Weiszfeld steps run)``;
-    ``unrolled`` as in :func:`weiszfeld_solve`."""
+    """:func:`gm2` returning ``(aggregate, Weiszfeld steps run)``.  Inside
+    a CUDA-graph capture the loop is :func:`weiszfeld_solve`'s loop node
+    where the step launches the fused kernel (one launch a step), and
+    unrolled where it runs the plain version (torch ops, which a loop body
+    may not hold)."""
 
     def step(g, g_out, active, steps, _i):
         return kernels.weiszfeld_step_fused(wmatrix, g, g_out, active, steps, tol)
 
-    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk, unrolled)
+    loop_kernel = "weiszfeld_step" if kernels._use_kernel(wmatrix) else None
+    return weiszfeld_solve(step, _init_guess(wmatrix, guess), maxiter, chunk,
+                           loop_kernel=loop_kernel)
 
 
-@AGGREGATORS.register("gm2", streamable=True, graphable=True, unrolled_solve=True)
+@AGGREGATORS.register("gm2", streamable=True, graphable=True)
 def gm2(wmatrix: torch.Tensor, *, guess=None, maxiter: int = 1000,
         tol: float = 1e-5, **_) -> torch.Tensor:
     """Ideal geometric median by Weiszfeld iteration (reference ``gm2``,
@@ -234,7 +303,8 @@ def gm_solve(
         )
         return g, active, steps
 
-    return weiszfeld_solve(step, init, maxiter, chunk, unrolled)
+    # its step draws (or indexes the given draws): never a loop node
+    return weiszfeld_solve(step, init, maxiter, chunk, unrolled, loop_kernel=None)
 
 
 @AGGREGATORS.register("gm", owns_channel=True, graphable=True, unrolled_solve=True)

@@ -16,7 +16,31 @@
 // the stack once and summing in fixed orders (weiszfeld_common.cuh); past
 // SMs x 8192 columns (the CNN, ResNet-18) it reads the stack twice, the
 // least traffic where the stack cannot stay on chip.
+//
+// weiszfeld_loop_condition is the stopping test of a Weiszfeld loop that a
+// CUDA graph runs as a conditional node (ops/aggregators.py): one thread,
+// launched last in each run of the node's body of fused steps.
 #include "weiszfeld_common.cuh"
+
+namespace weiszfeld {
+
+// Counts the body's `chunk` step launches into *launched; where set & 1
+// (the body of a WHILE node), goes on with another chunk only while the
+// solve is active and the chunk fits under maxiter (while the solve is
+// active every step so far was live, so *steps is the steps launched);
+// where set & 2, lets the tail's IF node run only while the solve is
+// active.
+__global__ void loop_condition_kernel(const int* active, const long long* steps,
+                                      long long* launched, int chunk, long long maxiter,
+                                      int set, cudaGraphConditionalHandle loop,
+                                      cudaGraphConditionalHandle tail) {
+  *launched += chunk;
+  const bool on = *active != 0;
+  if (set & 1) cudaGraphSetConditional(loop, on && *steps + chunk <= maxiter ? 1u : 0u);
+  if (set & 2) cudaGraphSetConditional(tail, on ? 1u : 0u);
+}
+
+}  // namespace weiszfeld
 
 // num/den mode.  workspace: weiszfeld_workspace_bytes(k, d) bytes, ticket
 // zeroed.
@@ -53,4 +77,16 @@ extern "C" int weiszfeld_step_fused(const void* w, int w_is_bf16,
   p.steps = steps;
   return static_cast<int>(weiszfeld::launch<false, true>(
       p, w_is_bf16, workspace, static_cast<cudaStream_t>(stream)));
+}
+
+// The stopping test after a conditional body of `chunk` fused steps (see
+// loop_condition_kernel); `loop` and `tail` are cudaGraphConditionalHandle
+// values, read where `set` says.
+extern "C" int weiszfeld_loop_condition(const int* active, const long long* steps,
+                                        long long* launched, int chunk, long long maxiter,
+                                        int set, unsigned long long loop,
+                                        unsigned long long tail, void* stream) {
+  weiszfeld::loop_condition_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      active, steps, launched, chunk, maxiter, set, loop, tail);
+  return static_cast<int>(cudaGetLastError());
 }

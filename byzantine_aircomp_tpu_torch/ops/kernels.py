@@ -34,7 +34,8 @@ plain versions on any device and launches nothing.  ``LAUNCHES`` counts kernel
 launches per source (both modes of a Weiszfeld kernel count under its
 source), so a run can show that it went through the kernels; a CUDA-graph
 replay of a round adds the launches its capture recorded
-(:func:`add_launches`).
+(:func:`add_launches`), and the steps that a graph's Weiszfeld loop bodies
+ran are counted on the device (:class:`Launches`).
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ import re
 import shutil
 import subprocess
 import time
+from collections.abc import MutableMapping
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import torch
 
@@ -71,13 +73,73 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# kernel launches per wrapper since the last reset_launches()
-LAUNCHES: Dict[str, int] = {name: 0 for name in _SOURCES}
+
+class Launches(MutableMapping):
+    """Kernel launches per wrapper since the last :func:`reset_launches`.
+
+    A wrapper counts each launch on the host (:meth:`add`).  The steps that
+    a CUDA graph's Weiszfeld loop runs inside a conditional node's body
+    (``ops/aggregators.py::weiszfeld_solve``) are known only on the device:
+    each body run adds its steps to an int64 scalar per (kernel, device)
+    (:meth:`device_count`), and reading a kernel's entry adds those in, with
+    a sync for each.  Setting an entry sets what it reads.  Nothing on a
+    round's path reads an entry."""
+
+    def __init__(self, names: Iterable[str]):
+        self._host: Dict[str, int] = {name: 0 for name in names}
+        self._device: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    def _on_device(self, name: str) -> int:
+        return sum(int(c) for (n, _), c in self._device.items() if n == name)
+
+    def __getitem__(self, name: str) -> int:
+        return self._host[name] + self._on_device(name)
+
+    def __setitem__(self, name: str, value: int) -> None:
+        self._host[name] = value - self._on_device(name)
+
+    def __delitem__(self, name: str) -> None:
+        raise TypeError("the kernels' launch counts cannot be removed; "
+                        "reset_launches() zeroes them")
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._host)
+
+    def __len__(self) -> int:
+        return len(self._host)
+
+    def add(self, name: str, n: int) -> None:
+        """Count ``n`` launches of ``name`` on the host (no sync)."""
+        self._host[name] += n
+
+    def device_count(self, name: str, device: torch.device) -> torch.Tensor:
+        """The int64 scalar on ``device`` into which graphed loop bodies
+        add their launches of ``name``, allocated at first use; never inside
+        a CUDA-graph capture (a replay adds into the buffer its capture
+        saw)."""
+        key = (name, torch.device(device))
+        count = self._device.get(key)
+        if count is None:
+            if key[1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a device launch count must be allocated before a "
+                                   "CUDA-graph capture: run one solve outside the capture "
+                                   "first")
+            count = self._device[key] = torch.zeros((), dtype=torch.int64, device=key[1])
+        return count
+
+    def reset(self) -> None:
+        for name in self._host:
+            self._host[name] = 0
+        for count in self._device.values():
+            count.zero_()
+
+
+LAUNCHES = Launches(_SOURCES)
 # Weiszfeld steps that the solves ran (ops/aggregators.weiszfeld_solve, a
 # solve's own count of the steps it took while active) since the last
 # reset_launches(): the chunked loops' counts, which they read on the host,
-# and per device an int64 scalar into which a graphed (unrolled) solve adds
-# its count on the device; read on request (live_steps), with a sync
+# and per device an int64 scalar into which a graphed solve adds its count
+# on the device; read on request (live_steps), with a sync
 _live_host = 0
 _LIVE_DEVICE: Dict[torch.device, torch.Tensor] = {}
 # this process's one-time set-ups, counted where they happen and never
@@ -88,6 +150,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _LL, _I, _F = ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_ULL = ctypes.c_ulonglong
 _ARGTYPES = {
     "weiszfeld_step": [_P, _I, _P, _LL, _LL, _P, _P, _P, _P],
     "aircomp_weiszfeld_step": [
@@ -105,6 +168,9 @@ _QUERIES = {
         **_WORKSPACE_QUERY,
         "weiszfeld_step_fused": (
             [_P, _I, _P, _P, _LL, _LL, _F, _P, _P, _P, _P], _I,
+        ),
+        "weiszfeld_loop_condition": (
+            [_P, _P, _P, _I, _LL, _I, _ULL, _ULL, _P], _I,
         ),
     },
     "aircomp_weiszfeld_step": {
@@ -154,8 +220,7 @@ def implementation(impl: Optional[str]):
 def reset_launches():
     """Zero ``LAUNCHES`` and the live Weiszfeld steps."""
     global _live_host
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
     _live_host = 0
     for count in _LIVE_DEVICE.values():
         count.zero_()
@@ -191,7 +256,7 @@ def add_launches(counts: Dict[str, int]):
     the launches its wrappers counted (the graph module takes them back
     out), and every replay launches each of them once (``fed/graphs.py``)."""
     for name, n in counts.items():
-        LAUNCHES[name] += n
+        LAUNCHES.add(name, n)
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +689,7 @@ def weiszfeld_step(w: torch.Tensor, guess: torch.Tensor) -> Tuple[torch.Tensor, 
         )
     if err != 0:
         raise RuntimeError(f"weiszfeld_step launch failed: CUDA error {err}")
-    LAUNCHES["weiszfeld_step"] += 1
+    LAUNCHES.add("weiszfeld_step", 1)
     return num, den
 
 
@@ -660,7 +725,7 @@ def aircomp_weiszfeld_step(
         )
     if err != 0:
         raise RuntimeError(f"aircomp_weiszfeld_step launch failed: CUDA error {err}")
-    LAUNCHES["aircomp_weiszfeld_step"] += 1
+    LAUNCHES.add("aircomp_weiszfeld_step", 1)
     return num, den
 
 
@@ -706,7 +771,7 @@ def weiszfeld_step_fused(
         )
     if err != 0:
         raise RuntimeError(f"weiszfeld_step_fused launch failed: CUDA error {err}")
-    LAUNCHES["weiszfeld_step"] += 1
+    LAUNCHES.add("weiszfeld_step", 1)
     return g_out, active, steps
 
 
@@ -764,8 +829,34 @@ def aircomp_weiszfeld_step_fused(
         )
     if err != 0:
         raise RuntimeError(f"aircomp_weiszfeld_step_fused launch failed: CUDA error {err}")
-    LAUNCHES["aircomp_weiszfeld_step"] += 1
+    LAUNCHES.add("aircomp_weiszfeld_step", 1)
     return g_out, active, steps, scaler
+
+
+def weiszfeld_loop_condition(
+    active: torch.Tensor,
+    steps: torch.Tensor,
+    launched: torch.Tensor,
+    chunk: int,
+    maxiter: int,
+    loop: Optional[int] = None,
+    tail: Optional[int] = None,
+) -> None:
+    """Launch the stopping test that ends a CUDA-graph conditional body of
+    ``chunk`` fused steps (``csrc/weiszfeld_step.cu``): it adds ``chunk``
+    to ``launched`` (int64), sets the WHILE node's condition ``loop`` to
+    ``active and steps + chunk <= maxiter`` and the tail's IF condition
+    ``tail`` to ``active`` (each a ``cudaGraphConditionalHandle``, None for
+    none).  Card only."""
+    _launch_fn("weiszfeld_step")
+    with torch.cuda.device(active.device):
+        err = _LIBS["weiszfeld_step"].weiszfeld_loop_condition(
+            active.data_ptr(), steps.data_ptr(), launched.data_ptr(), chunk, maxiter,
+            int(loop is not None) | int(tail is not None) << 1, loop or 0, tail or 0,
+            torch.cuda.current_stream(active.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"weiszfeld_loop_condition launch failed: CUDA error {err}")
 
 
 def _check_select(w: torch.Tensor, channel: Optional[OmaTerms]):
@@ -833,7 +924,7 @@ def _select(w: torch.Tensor, b: int, want_mean: bool,
         )
     if err != 0:
         raise RuntimeError(f"select_columns launch failed: CUDA error {err}")
-    LAUNCHES["select_columns"] += 1
+    LAUNCHES.add("select_columns", 1)
     return out
 
 
@@ -880,5 +971,5 @@ def packed_vote_counts(words: torch.Tensor, d: int) -> torch.Tensor:
                  torch.cuda.current_stream(words.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"packed_vote_counts launch failed: CUDA error {err}")
-    LAUNCHES["packed_vote_counts"] += 1
+    LAUNCHES.add("packed_vote_counts", 1)
     return counts

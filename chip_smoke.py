@@ -238,9 +238,16 @@
    most flat/24;
 
    In runs z4-z8 and z13 the device count over two replays must be exactly
-   twice the capture's: a profiler session that counts short (a lost
-   record) is profiled again, at most three sessions, and one exact
-   session passes; every session short, or any over, fails;
+   what the wrappers counted (``LAUNCHES``): a profiler session that counts
+   short (a lost record) is profiled again, at most three sessions, and
+   one exact session passes; every session short, or any over, fails.  A
+   graph with a WHILE node (gm2's) is profiled in a fresh process: in this
+   one, after the earlier phases' profiler sessions, torch.profiler drops
+   some of the loop bodies' records.  The profiled dispatch leaves the
+   params of its eager twin's next two rounds, bit for bit, and a WHILE
+   node's launches the twin's.  (z17), last, profiles z4's dispatch in this
+   process: it must still be bitwise its twin's, and its device count,
+   which may come short, is printed;
 
 5. times the degraded median and trimmed mean (a ``torch.sort`` of the
    [1000, 7850] stack and a gather at a device rank, the path every
@@ -2255,17 +2262,25 @@ def _replicated(record, rounds, r):
 def profile_dispatch(torch, trainer, r0, n):
     """One more dispatch of ``n`` rounds of a finished graphed run under
     torch.profiler: wall ms, the union of the device spans and the idle
-    share, the device kernels, and the kernels of each wrapper group seen
-    on the device (:func:`_device_launches`); and the same dispatch's
-    device ms from CUDA events around it, without the profiler."""
+    share, the device kernels, the kernels of each wrapper group seen
+    on the device (:func:`_device_launches`), the launches the wrappers
+    counted (``LAUNCHES``, read after a sync) and the digest of the params
+    it left (:func:`_params_sha`); and the same dispatch's device ms from
+    CUDA events around it, without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
+    from byzantine_aircomp_tpu_torch.ops import kernels
+
     torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run_rounds_stacked(r0, n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    # the profiled dispatch's result, before the timed one below moves on
+    params_sha = _params_sha(trainer.flat_params)
     spans = sorted((ev.time_range.start, ev.time_range.end)
                    for ev in _device_events(torch, prof))
     busy_us, reach = 0.0, float("-inf")
@@ -2284,8 +2299,19 @@ def profile_dispatch(torch, trainer, r0, n):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms if spans else None,
                 idle_share=(1.0 - busy_ms / wall_ms) if spans else None,
                 device_kernels=len(_device_kernels(torch, prof)),
-                device_launches=_device_launches(torch, prof),
-                unprofiled_wall_ms=host_ms, unprofiled_event_ms=start_ev.elapsed_time(end_ev))
+                device_launches=_device_launches(torch, prof), launched=launched,
+                params_sha=params_sha, unprofiled_wall_ms=host_ms,
+                unprofiled_event_ms=start_ev.elapsed_time(end_ev))
+
+
+def _params_sha(t):
+    """The SHA-256 of a tensor's bytes: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()
 
 
 # profiler sessions per device count, at most: a session loses kernel
@@ -2293,22 +2319,89 @@ def profile_dispatch(torch, trainer, r0, n):
 PROFILE_SESSIONS = 3
 
 
-def count_replay_launches(torch, trainer, r0, at_capture, label):
+def count_replay_launches(torch, trainer, r0, label):
     """The device kernels of each wrapper group over one more dispatch of two
-    replays, counted by name, against twice what the wrappers counted at
-    capture: exact.  torch.profiler loses a kernel record now and then (none
+    replays, counted by name, against what the wrappers counted over it
+    (``LAUNCHES``: twice the capture's launches, and the steps a graphed
+    gm2 loop's bodies ran, counted on the device): exact.  torch.profiler loses a kernel record now and then (none
     is ever added), so a session that counts short of the capture is
     profiled again, at most :data:`PROFILE_SESSIONS` sessions in all.  Passes
     when one session counts every group exactly and no session counts over;
     fails when any session counts over, or when every session is short (as a
     launch missing from the graph would be, every time).  Returns the exact
-    session's profile and every session's counts."""
-    def measure():
-        prof = profile_dispatch(torch, trainer, r0, 2)
-        seen = prof["device_launches"]
-        return seen, {g: 2 * sum(at_capture[k] for k in g.split("+")) for g in seen}, prof
+    session's profile, every session's counts and the first session's
+    profile (the one dispatch of rounds ``r0 ..`` from the run's state)."""
+    profs = []
 
-    return _exact_sessions(label, "over two replays", "twice the capture's count", measure)
+    def measure():
+        profs.append(profile_dispatch(torch, trainer, r0, 2))
+        return profs[-1]["device_launches"], _wanted(profs[-1]), profs[-1]
+
+    prof, sessions = _exact_sessions(label, "over two replays", "the wrappers' count", measure)
+    return prof, sessions, profs[0]
+
+
+def _wanted(prof):
+    """What :func:`profile_dispatch`'s device count of each wrapper group
+    has to be: what the group's wrappers counted."""
+    return {g: sum(prof["launched"][k] for k in g.split("+")) for g in prof["device_launches"]}
+
+
+def _graphed_cfgs(FedConfig, kw, cache_dir):
+    """A graphed pair's eager R=1 twin config (2 rounds) and its R=2 one."""
+    import dataclasses
+
+    twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
+                         display_interval=10, cache_dir=cache_dir)
+    return twin_cfg, dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
+
+
+def _same_as_twin(label, prof, twin_next, kernel):
+    """Fail unless ``prof``'s dispatch left the params that the eager twin's
+    rounds 2-3 left, bit for bit, and, where ``kernel`` is given, launched
+    it as often."""
+    if prof["params_sha"] != twin_next["params_sha"] or (
+            kernel is not None and prof["launched"][kernel] != twin_next["launched"][kernel]):
+        _fail(f"run {label}: the profiled dispatch is not its eager twin's rounds 2-3: "
+              f"params digest {prof['params_sha']} against {twin_next['params_sha']}, "
+              f"launches {prof['launched']} against {twin_next['launched']}")
+
+
+def fresh_replay_count(label, kw, cache_dir):
+    """:func:`count_replay_launches` of the graphed run of ``kw`` in a new
+    process (``chip_smoke.py --count-replays``), whose profiler sessions are
+    its first.  Returns what :func:`count_in_fresh_process` wrote."""
+    out = os.path.join(cache_dir, f"count_{label}.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--count-replays", label,
+                           json.dumps(kw), out], capture_output=True, text=True, timeout=900)
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        _fail(f"run {label}: the fresh process's count failed (exit {proc.returncode}): "
+              f"{proc.stderr[-4000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def count_in_fresh_process(label, kw_json, out):
+    """The child of :func:`fresh_replay_count`: the graphed run of
+    ``kw_json`` (2 rounds, R=2), then :func:`count_replay_launches`; writes
+    its profile, sessions and first profile to ``out`` as JSON."""
+    import torch
+
+    from byzantine_aircomp_tpu_torch.device import resolve_device
+    from byzantine_aircomp_tpu_torch.fed import harness
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.ops import kernels
+
+    resolve_device("cuda")
+    kernels.build()
+    cfg = _graphed_cfgs(FedConfig, json.loads(kw_json), os.path.dirname(out))[1]
+    trainer, _ = harness.run_with_trainer(cfg, device="cuda")
+    prof, sessions, first = count_replay_launches(torch, trainer, cfg.rounds,
+                                                  f"{label} (fresh process)")
+    with open(out, "w") as f:
+        json.dump(dict(prof=prof, sessions=sessions, first=first), f)
+    return 0
 
 
 def _exact_sessions(label, over_what, against, measure):
@@ -2339,21 +2432,28 @@ def _exact_sessions(label, over_what, against, measure):
     return prof, sessions
 
 
-def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw, kernel):
+def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw, kernel,
+                 profile_here=False):
     """One R=2 graphed run of ``kw`` (2 rounds) through
     ``harness.run_with_trainer`` and its eager R=1 twin from the same seed:
     the graphed record must be the twin's with the evals repeated within the
     dispatch, and the final params the twin's, bit for bit; one capture; the
     run's kernel launched from the graph every iteration, counted on the
-    device (:func:`count_replay_launches`).  Returns (entry, the graphed
-    trainer)."""
-    import dataclasses
+    device (:func:`count_replay_launches`) over one more dispatch, whose
+    params must be the twin's after two more eager rounds, bit for bit.
 
+    Where the capture counted none of the kernel's launches, the graph runs
+    it in loop bodies (gm2's WHILE node), which count their steps on the
+    device: that dispatch must also launch it as often as the twin's rounds,
+    and it is profiled in a fresh process (:func:`fresh_replay_count`), since
+    in a process that profiled much before torch.profiler drops some of a
+    loop body's kernel records.  ``profile_here`` profiles it in this
+    process instead, once, and fails on the params, the launches or a count
+    over the wrappers', but only prints a short one.  Returns (entry, the
+    graphed trainer)."""
     from byzantine_aircomp_tpu_torch.fed import graphs
 
-    twin_cfg = FedConfig(**dict(dict(attack="classflip"), **kw), rounds=2,
-                         display_interval=10, cache_dir=cache_dir)
-    cfg = dataclasses.replace(twin_cfg, rounds_per_dispatch=2)
+    twin_cfg, cfg = _graphed_cfgs(FedConfig, kw, cache_dir)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     twin_t, twin = harness.run_with_trainer(twin_cfg, device="cuda")
@@ -2365,6 +2465,13 @@ def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw,
     # only the twin's params stay on the card: the graphed run's peak
     # is its own
     twin_params = twin_t.flat_params.clone()
+    # the twin's next two rounds, eagerly: what one more graphed dispatch
+    # must leave, bit for bit, and launch
+    before = dict(kernels.LAUNCHES)
+    twin_t.run_rounds_stacked(cfg.rounds, 2)
+    torch.cuda.synchronize()
+    twin_next = dict(params_sha=_params_sha(twin_t.flat_params),
+                     launched={k: kernels.LAUNCHES[k] - before[k] for k in before})
     del twin_t
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -2390,7 +2497,22 @@ def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw,
     del twin_params
     # the capture's kernel, copy and set nodes (every node of these rounds)
     nodes = graphs.LAST_CAPTURE.nodes
-    prof, sessions = count_replay_launches(torch, trainer, cfg.rounds, at_capture, label)
+    loop_node = at_capture.get(kernel, 0) == 0
+    if not loop_node:
+        prof, sessions, first = count_replay_launches(torch, trainer, cfg.rounds, label)
+    elif profile_here:
+        prof = first = profile_dispatch(torch, trainer, cfg.rounds, 2)
+        sessions = [dict(device=prof["device_launches"], want=_wanted(prof))]
+        print(f"run {label}: device launches over two replays in this process "
+              f"{sessions[0]['device']} against the wrappers' {sessions[0]['want']}")
+        over = sorted(g for g, n in sessions[0]["device"].items() if n > sessions[0]["want"][g])
+        if over:
+            _fail(f"run {label}: {over} kernels ran on the device more often than the "
+                  f"wrappers counted")
+    else:
+        fresh = fresh_replay_count(label, kw, cache_dir)
+        prof, sessions, first = fresh["prof"], fresh["sessions"], fresh["first"]
+    _same_as_twin(label, first, twin_next, kernel if loop_node else None)
     per_round = {group: seen / 2 for group, seen in prof["device_launches"].items()}
     group = next(g for g in per_round if kernel in g.split("+"))
     if per_round[group] < cfg.display_interval:
@@ -2411,7 +2533,9 @@ def graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir, label, kw,
         weiszfeld_live_steps_per_round=live_per_round,
         weiszfeld_steps_after_convergence_per_round=after,
         peak_memory_bytes=peak, twin_peak_memory_bytes=twin_peak, wall_seconds=wall,
-        dispatch_profile=prof, profile_sessions=sessions, card=card)
+        dispatch_profile=prof, profile_sessions=sessions, loop_node=loop_node,
+        profiled_in="this process" if profile_here or not loop_node else "a fresh process",
+        twin_next_launches=twin_next["launched"], card=card)
     print(f"run {label}: graphed R=2 record == eager R=1 twin (evals repeated in the "
           f"dispatch)={same}, params bitwise={params_equal}; captures {rg.captures}, "
           f"warm-up {rg.warmup_seconds:.2f}s, capture+instantiate "
@@ -2444,6 +2568,21 @@ def run_graphed(torch, kernels, harness, FedConfig, card, cache_dir):
     out["wall_seconds"] = time.perf_counter() - t_all
     print(f"runs z4-z8 added {out['wall_seconds']:.1f}s [{card}]")
     return out
+
+
+def check_profiler_loss(torch, kernels, harness, FedConfig, card, cache_dir):
+    """(z17) z4's graphed pair once more, last of all, with its profiled
+    dispatch in this process (:func:`graphed_pair`'s ``profile_here``):
+    after this process's profiler sessions torch.profiler may drop some of
+    the loop bodies' kernel records, and the dispatch must still leave its
+    eager twin's params, bit for bit, having launched the twin's steps.
+    Returns the device's count against the wrappers'."""
+    label, kw, kernel = GRAPH_RUNS[0]
+    entry, trainer = graphed_pair(torch, kernels, harness, FedConfig, card, cache_dir,
+                                  "z17_" + label, kw, kernel, profile_here=True)
+    del trainer
+    (session,) = entry["profile_sessions"]
+    return dict(session, params_bitwise_twin=True, card=card)
 
 
 def run_j3(torch, kernels, harness, FedConfig, card, cache_dir):
@@ -4194,6 +4333,8 @@ def main():
         print("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--count-replays"]:  # fresh_replay_count's child
+        return count_in_fresh_process(*sys.argv[2:5])
     from byzantine_aircomp_tpu_torch.device import resolve_device
     from byzantine_aircomp_tpu_torch.fed import harness
     from byzantine_aircomp_tpu_torch.fed.config import FedConfig
@@ -4241,6 +4382,7 @@ def main():
     serve_runs = phase("run_z15", run_z15, *ctx)
     topology_runs = phase("run_z16", run_z16, torch, kernels, card, cache_dir)
     degraded_sort = phase("time_degraded_sort", time_degraded_sort, torch, kernels, card)
+    profiler_loss = phase("check_profiler_loss", check_profiler_loss, *ctx)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
 
     # each kernel's row: the shape this slice's run gives it, the CNN's and
@@ -4287,6 +4429,7 @@ def main():
                        obs_runs=obs_runs, telemetry_runs=telemetry_runs,
                        knob_runs=knob_runs, layout_runs=layout_runs, serve_runs=serve_runs,
                        topology_runs=topology_runs, degraded_sort=degraded_sort,
+                       profiler_loss=profiler_loss,
                        phase_seconds=phase_s, kernels=line,
                        wall_seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f}s")

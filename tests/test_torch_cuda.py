@@ -753,8 +753,10 @@ def test_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
     before = dict(kernels.LAUNCHES)
     pg = graphed.train()
     launched = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    before = dict(kernels.LAUNCHES)
     pe = eager.train()
     torch.cuda.synchronize()
+    eager_launched = {n: kernels.LAUNCHES[n] - before[n] for n in before}
     rg = graphed.round_graph
     assert rg.captures == 1 and rg.replays == 2 and eager.round_graph is None
     assert set(pg) == set(pe)
@@ -763,13 +765,85 @@ def test_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
             assert _bits_equal(pg[key], pe[key]), (key, pg[key], pe[key])
     assert torch.equal(graphed.flat_params, eager.flat_params)
     # the warm-up round's launches and two replays' (the capture's own are
-    # taken back out); gm2 and gm run all agg_maxiter steps in the graph
+    # taken back out); gm runs all agg_maxiter steps in the graph, gm2's
+    # loop bodies the eager loop's chunks, counted on the device
     kernel = {"gm2": "weiszfeld_step", "gm": "aircomp_weiszfeld_step",
               "median": "select_columns", "trimmed_mean": "select_columns"}.get(cfg.agg)
-    if kernel is not None:
-        per_round = cfg.display_interval * (cfg.agg_maxiter if "gm" in cfg.agg else 1)
+    if kernel == "weiszfeld_step":
+        assert rg.replay_launches[kernel] == 0
+        # the eager run's rounds 0 and 1, and the warm-up's round 0 again:
+        # its launches are an eager round 0's
+        first = Trainer(cfg, dataset=ds, device="cuda", graphs=False)
+        before = kernels.LAUNCHES[kernel]
+        first.run_rounds_stacked(0, 1)
+        round0 = kernels.LAUNCHES[kernel] - before
+        assert 0 < round0 < eager_launched[kernel]
+        assert launched[kernel] == eager_launched[kernel] + round0
+    elif kernel is not None:
+        per_round = cfg.display_interval * (cfg.agg_maxiter if cfg.agg == "gm" else 1)
         assert rg.replay_launches[kernel] == per_round
         assert launched[kernel] >= 2 * per_round
+
+
+@pytest.mark.parametrize("maxiter", [1000, 50, 16, 7])
+@pytest.mark.parametrize("case", ["first_chunk", "never", "nan_rows"])
+def test_graphed_gm2_solve_is_bitwise_the_chunked_loop(cuda, case, maxiter):
+    """Captured in a CUDA graph, gm2's solve is a WHILE node over 16-step
+    chunks and an IF node over the rest: every replay gives the chunked
+    loop's guess and steps bit for bit, and ``LAUNCHES`` counts on the
+    device the steps the chunked loop launched.  Cases: converging in the
+    first chunk, never converging (``tol=0``) and a stack with NaN rows."""
+    w, guess, _, _ = _stack(50, 7850, torch.float32, cuda)
+    tol = {"first_chunk": 1.0, "never": 0.0, "nan_rows": 1e-5}[case]
+    if case == "nan_rows":
+        w[[3, 11, 19, 27]] = float("nan")
+
+    def solve():
+        return aggregators.gm2_solve(w, guess=guess, maxiter=maxiter, tol=tol)
+
+    before = kernels.LAUNCHES["weiszfeld_step"]
+    want, n = solve()
+    eager_launched = kernels.LAUNCHES["weiszfeld_step"] - before
+    assert n <= eager_launched <= maxiter
+    if case == "first_chunk":
+        assert n < min(16, maxiter)
+    elif case == "never":
+        assert n == eager_launched == maxiter
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, steps = solve()
+    assert kernels.LAUNCHES["weiszfeld_step"] - before == eager_launched  # the capture's out
+    for _ in range(2):
+        before = kernels.LAUNCHES["weiszfeld_step"]
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and int(steps) == n
+        assert kernels.LAUNCHES["weiszfeld_step"] - before == eager_launched
+
+
+@pytest.mark.parametrize("kw,nodes", [
+    (dict(agg="gm", noise_var=1e-2, honest_size=40, byz_size=10), 40646),
+    (dict(agg="trimmed_mean", noise_var=1e-2, honest_size=900, byz_size=100), 701),
+    (dict(agg="gm2", honest_size=900, byz_size=100), None),
+], ids=["gm_var_K50", "trimmed_mean_var_K1000", "gm2_K1000"])
+def test_captured_round_nodes(cuda, kw, nodes):
+    """The counted nodes of the benchmark's graphed rounds: gm's unrolled
+    loop and the trimmed mean's round as before; gm2's loop nodes leave it
+    under 1,000 (10,606 unrolled), with the spans still marked."""
+    from byzantine_aircomp_tpu_torch.fed import graphs
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
+    from byzantine_aircomp_tpu_torch.fed.train import Trainer
+
+    cfg = FedConfig(**kw, attack="classflip", rounds=2, rounds_per_dispatch=2,
+                    display_interval=10, eval_train=False)
+    t = Trainer(cfg, dataset=_dispatch_ds(), device="cuda")
+    t.run_rounds_stacked(0, 2)
+    layout = graphs.LAST_CAPTURE
+    assert layout.spans is not None and len(layout.kinds) == layout.nodes
+    if nodes is None:
+        assert 0 < layout.nodes < 1000
+    else:
+        assert layout.nodes == nodes
 
 
 def test_capture_runs_with_the_cyclic_collector_off(cuda):
@@ -899,8 +973,29 @@ def test_capture_layout_maps_a_profiled_replay_and_counts_live_steps(cuda):
     """The capture's node marks (``fed/graphs.py``): the stage ranges of the
     gm2 round are disjoint, in order and within its counted nodes, and one
     profiled replay holds exactly the counted records, kind for kind, one
-    after another.  A graphed dispatch counts the live Weiszfeld steps its
-    eager twin counts."""
+    after another, besides its loop bodies' records; those hold as many
+    Weiszfeld steps as ``LAUNCHES`` counted, and the replay's outputs are
+    the eager round's bit for bit.  A graphed dispatch counts the live and
+    launched Weiszfeld steps its eager twin counts.
+
+    It runs in a fresh process (:func:`_capture_layout`), whose one
+    profiler session is its first: in a process that profiled much before,
+    torch.profiler drops some of a loop body's kernel records while the
+    replay still gives the eager round's bits (``PERF.md`` §7)."""
+    import os
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = sys.argv[1:]; import test_torch_cuda as t; "
+            "t.kernels.build(); t._capture_layout()")
+    proc = subprocess.run([sys.executable, "-c", code, os.path.dirname(tests), tests],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-6000:]
+
+
+def _capture_layout():
+    """The body of the test above, run in its own process."""
     from torch.profiler import ProfilerActivity, profile
 
     from byzantine_aircomp_tpu_torch.fed import graphs
@@ -926,24 +1021,39 @@ def test_capture_layout_maps_a_profiled_replay_and_counts_live_steps(cuda):
     assert all(b > a for a, b, name in stages if name in ("client_step", "aggregate"))
     assert all(x[1] <= y[0] for x, y in zip(stages, stages[1:]))
 
+    # the graphed loops launch the steps that the eager chunked loops do
     live = []
     for t in (graphed, eager):
         torch.cuda.synchronize()
         kernels.reset_launches()
         t.run_rounds_stacked(2, 2)
         live.append((kernels.live_steps(), kernels.LAUNCHES["weiszfeld_step"]))
-    assert live[0][0] == live[1][0] > 0 and live[0][1] == 2 * 5 * cfg.agg_maxiter
+    assert live[0] == live[1] and 0 < live[0][0] <= live[0][1] < 2 * 5 * cfg.agg_maxiter
 
     cpu = torch.autograd.DeviceType.CPU
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["weiszfeld_step"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        graphed.run_rounds_stacked(4, 1)
+        got = graphed.run_rounds_stacked(4, 1)
         torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["weiszfeld_step"] - before
+    # the profiled replay ran the eager round's steps, to its bits
+    before = kernels.LAUNCHES["weiszfeld_step"]
+    want = eager.run_rounds_stacked(4, 1)
+    assert kernels.LAUNCHES["weiszfeld_step"] - before == launched > 0
+    assert torch.equal(got.variances, want.variances)
+    assert torch.equal(graphed.flat_params, eager.flat_params)
     events = prof.profiler.kineto_results.events()
     (launch,) = [e.correlation_id() for e in events
                  if e.device_type() == cpu and e.name().startswith("cudaGraphLaunch")]
+    # the loop bodies' kernels: as many records as the bodies' runs
+    body = ("step_kernel<", "wide_kernel<", "loop_condition_kernel")
+    steps = [e for e in events if e.device_type() != cpu and not e.is_user_annotation()
+             and any(b in e.name() for b in body[:2])]
+    assert len(steps) == launched
     recs = sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
                    if e.device_type() != cpu and e.correlation_id() == launch
-                   and not e.is_user_annotation()))
+                   and not e.is_user_annotation() and not any(b in e.name() for b in body)))
     # a copy node may run as a copy kernel (``memcpy32_post``)
     kinds = "".join("c" if "memcpy" in n.lower() else "s" if "memset" in n.lower() else "k"
                     for _, _, n in recs)
@@ -1242,7 +1352,9 @@ def test_bf16_graphed_dispatch_is_bitwise_the_eager_dispatch(cuda, kw):
             assert _bits_equal(pg[key], pe[key]), (key, pg[key], pe[key])
     assert torch.equal(graphed.flat_params, eager.flat_params)
     kernel = "weiszfeld_step" if cfg.agg == "gm2" else "aircomp_weiszfeld_step"
-    assert graphed.round_graph.replay_launches[kernel] == cfg.display_interval * cfg.agg_maxiter
+    # gm2's loop bodies count their launches on the device instead
+    per_round = 0 if cfg.agg == "gm2" else cfg.display_interval * cfg.agg_maxiter
+    assert graphed.round_graph.replay_launches[kernel] == per_round
 
 
 @pytest.fixture

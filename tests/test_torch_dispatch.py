@@ -3,8 +3,9 @@ knobs) against the JAX package on the CPU: validation, titles, hashes and
 CLI flags; the R>1 driver's path lengths, eval replication and per-dispatch
 rate; prefetch and the writer thread; a resume through an alignment
 dispatch; a degraded-mode rollback at a boundary; the R>1 run bitwise the
-R=1 run; the Weiszfeld loop's unrolled (graph-safe) mode bitwise the
-chunked loop; and the graph predicate's reasons.
+R=1 run; the Weiszfeld loop's graph-safe modes (gm's unrolled loop
+bitwise the chunked loop, gm2's loop nodes); and the graph predicate's
+reasons.
 
 On the CPU every dispatch runs eagerly (CUDA graphs need the card;
 ``tests/test_torch_cuda.py`` holds the graphed rounds against the eager
@@ -447,32 +448,25 @@ def _jax_gm_draws(key, k, d, steps):
         torch.from_numpy(np.stack(z))
 
 
-@pytest.mark.parametrize("rule,maxiter", [("gm2", 60), ("gm", 120), ("gm_noiseless", 60)])
+@pytest.mark.parametrize("rule,maxiter", [("gm", 120), ("gm_noiseless", 60)])
 def test_unrolled_loop_is_bitwise_the_chunked_loop(rule, maxiter):
-    """All ``maxiter`` steps with no host read give the chunked loop's guess
-    bit for bit (the steps after convergence copy it), and its steps as a
-    device scalar; both within rtol 1e-4 of the JAX solve with its draws."""
+    """gm's loop unrolled to all ``maxiter`` steps with no host read gives
+    the chunked loop's guess bit for bit (the steps after convergence copy
+    it), and its steps as a device scalar; both within rtol 1e-4 of the JAX
+    solve with its draws.  (gm2's captured loop is a loop node, below.)"""
     k, d = 13, 300
     w, g = _stack(k, d, seed=5)
     wt, gt = torch.from_numpy(w), torch.from_numpy(g)
-    if rule == "gm2":
-        tol = 1e-7
-        want = jagg.gm2(jnp.asarray(w), guess=jnp.asarray(g), maxiter=maxiter, tol=tol,
-                        impl="xla")
+    noise_var = 1e-2 if rule == "gm" else None
+    tol = 2.5e-3 if rule == "gm" else 2e-3
+    key = jax.random.PRNGKey(42)
+    want = jagg.gm(jnp.asarray(w), key=key, noise_var=noise_var, guess=jnp.asarray(g),
+                   maxiter=maxiter, tol=tol, impl="xla")
+    fades, noise = _jax_gm_draws(key, k, d, maxiter)
 
-        def solve(unrolled):
-            return tagg.gm2_solve(wt, guess=gt, maxiter=maxiter, tol=tol, unrolled=unrolled)
-    else:
-        noise_var = 1e-2 if rule == "gm" else None
-        tol = 2.5e-3 if rule == "gm" else 2e-3
-        key = jax.random.PRNGKey(42)
-        want = jagg.gm(jnp.asarray(w), key=key, noise_var=noise_var, guess=jnp.asarray(g),
-                       maxiter=maxiter, tol=tol, impl="xla")
-        fades, noise = _jax_gm_draws(key, k, d, maxiter)
-
-        def solve(unrolled):
-            return tagg.gm_solve(wt, noise_var=noise_var, guess=gt, maxiter=maxiter, tol=tol,
-                                 fades=fades, noise=noise, unrolled=unrolled)
+    def solve(unrolled):
+        return tagg.gm_solve(wt, noise_var=noise_var, guess=gt, maxiter=maxiter, tol=tol,
+                             fades=fades, noise=noise, unrolled=unrolled)
 
     chunked, n_chunked = solve(False)
     unrolled, n_unrolled = solve(True)
@@ -496,6 +490,118 @@ def test_unrolled_gm_with_a_generator_is_bitwise_the_chunked_gm():
     assert torch.equal(out[True][0], out[False][0]) and int(out[True][1]) == out[False][1]
 
 
+@pytest.mark.parametrize("launches", [True, False], ids=["kernel", "plain"])
+def test_a_drawing_step_never_gets_a_loop_node(monkeypatch, launches):
+    """Inside a capture gm2's solve takes the WHILE node where its step
+    launches the fused kernel (one launch a step), and the unrolled loop
+    where it runs the plain version (``--agg-impl xla``, or no card);
+    gm's (a step that draws) always the unrolled loop.  Outside a capture
+    every solve chunks, and an explicit ``unrolled`` overrides."""
+    assert tagg.solve_mode(None, False, "weiszfeld_step") == "chunked"
+    assert tagg.solve_mode(None, True, "weiszfeld_step") == "loop"
+    assert tagg.solve_mode(None, True, None) == "unrolled"
+    assert tagg.solve_mode(True, True, "weiszfeld_step") == "unrolled"
+    assert tagg.solve_mode(False, True, "weiszfeld_step") == "chunked"
+    assert tagg.solve_mode(None, False, None) == "chunked"
+    seen = []
+
+    def record(step, init, maxiter, chunk=tagg.WEISZFELD_CHUNK, unrolled=None,
+               loop_kernel=None):
+        seen.append(loop_kernel)
+        return init, 0
+
+    monkeypatch.setattr(tagg, "weiszfeld_solve", record)
+    asked = []
+
+    def use_kernel(w):
+        asked.append(w)
+        return launches
+
+    # the wrappers' choice (``kernels._use_kernel``): on the card a CUDA
+    # stack launches unless ``--agg-impl xla``; here a CPU stack stands in
+    monkeypatch.setattr(tkernels, "_use_kernel", use_kernel)
+    w, g = _stack(5, 20, seed=1)
+    wt = torch.from_numpy(w)
+    tagg.gm2_solve(wt)
+    assert len(asked) == 1 and asked[0] is wt
+    tagg.gm_solve(wt, noise_var=1e-2, generator=torch.Generator().manual_seed(1))
+    tagg.gm_solve(wt)
+    fades = (torch.ones(3, 5), torch.ones(3, 5))
+    tagg.gm_solve(wt, maxiter=3, fades=fades, noise=torch.zeros(3, 21), noise_var=1e-2)
+    assert seen == ["weiszfeld_step" if launches else None, None, None, None]
+
+
+@pytest.mark.parametrize("maxiter", [1000, 50, 41, 16, 7])
+def test_captured_loop_is_a_while_node_of_chunks_and_an_if_node_of_the_tail(
+        monkeypatch, maxiter):
+    """The captured gm2 loop's layout (``_loop_nodes``), with the graph calls
+    recorded in place of libcuda's: a WHILE node over one 16-step chunk
+    where ``maxiter >= 16``, and an IF node over the ``maxiter % 16`` left
+    where any are; each body ends with the guess in the first buffer (an
+    odd count copies it back) and with the stopping test, which sets the
+    loop's and the tail's conditions from the WHILE body; and the bodies'
+    capture-time launches leave ``LAUNCHES`` as it was."""
+    events = []
+    handles = iter(range(101, 110))
+
+    def conditional_handle(default):
+        h = next(handles)
+        events.append(("handle", h, default))
+        return h
+
+    class Body:
+        def __init__(self, handle, loop):
+            events.append(("while" if loop else "if", handle))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            events.append(("end",))
+
+    monkeypatch.setattr(tgraphs, "conditional_handle", conditional_handle)
+    monkeypatch.setattr(tgraphs, "conditional_body", Body)
+    monkeypatch.setattr(tgraphs, "copy_async",
+                        lambda dst, src: events.append(("copy", dst is g, src is spare)))
+
+    def condition(active, steps, launched, n, maxiter_, loop=None, tail=None):
+        events.append(("condition", n, loop, tail))
+
+    monkeypatch.setattr(tkernels, "weiszfeld_loop_condition", condition)
+    g, spare = torch.zeros(4), torch.zeros(4)
+    active = torch.ones((), dtype=torch.int32)
+    steps = torch.zeros((), dtype=torch.int64)
+
+    def step(a, b, active_, steps_, _i):
+        # as the card's fused wrapper: the guess written into b, in place
+        tkernels.LAUNCHES.add("weiszfeld_step", 1)
+        b.copy_(a + 1)
+        events.append(("step", a is g))
+        return b, active_, steps_
+
+    before = dict(tkernels.LAUNCHES)
+    tagg._loop_nodes(step, g, spare, active, steps, maxiter, 16, "weiszfeld_step",
+                     torch.zeros((), dtype=torch.int64))
+    assert dict(tkernels.LAUNCHES) == before
+    full, tail = divmod(maxiter, 16)
+    want = []
+    handle = iter(range(101, 110))
+    tail_h = next(handle) if tail else None
+    if tail:
+        want.append(("handle", tail_h, 1))
+    if full:
+        loop_h = next(handle)
+        want += [("handle", loop_h, 1), ("while", loop_h)]
+        want += [("step", j % 2 == 0) for j in range(16)]
+        want += [("condition", 16, loop_h, tail_h), ("end",)]
+    if tail:
+        want.append(("if", tail_h))
+        want += [("step", j % 2 == 0) for j in range(tail)]
+        want += [("copy", True, True)] if tail % 2 else []
+        want += [("condition", tail, None, None), ("end",)]
+    assert events == want
+
+
 # ---------------------------------------------------------------------------
 # the graph's predicate, the generators a replay draws from, launch counts
 
@@ -503,8 +609,11 @@ def test_unrolled_gm_with_a_generator_is_bitwise_the_chunked_gm():
 @pytest.mark.parametrize("kw,device,graphed,reason", [
     (dict(), "cuda", False, "one round per dispatch"),
     (dict(rounds_per_dispatch=2), "cpu", False, "CUDA graphs need the card"),
-    (dict(rounds_per_dispatch=2), "cuda", True, "runs all 50 Weiszfeld steps"),
-    (dict(rounds_per_dispatch=2, agg_maxiter=1000), "cuda", True,
+    # gm's steps draw, so its graph runs them all; gm2's loop stops on the
+    # device at convergence, and its banner is the plain one (below)
+    (dict(rounds_per_dispatch=2, agg="gm", noise_var=1e-2), "cuda", True,
+     "runs all 50 Weiszfeld steps"),
+    (dict(rounds_per_dispatch=2, agg="gm", agg_maxiter=1000), "cuda", True,
      "runs all 1000 Weiszfeld steps"),
     (dict(rounds_per_dispatch=2, agg="gm", noise_var=1e-2, model="CNN"), "cuda", True,
      "one CUDA graph"),
@@ -531,8 +640,8 @@ def test_unrolled_gm_with_a_generator_is_bitwise_the_chunked_gm():
     (dict(rounds_per_dispatch=2, model="cnn", agg="mean"), "cuda", True,
      "one CUDA graph of the round, replayed once per round"),
     (dict(rounds_per_dispatch=2, model="mlp", agg="median"), "cuda", True, "one CUDA graph"),
-    (dict(rounds_per_dispatch=2, model="resnet18", dataset="cifar10"), "cuda", True,
-     "runs all 50 Weiszfeld steps"),
+    (dict(rounds_per_dispatch=2, model="resnet18", dataset="cifar10", agg="gm",
+          noise_var=1e-2), "cuda", True, "runs all 50 Weiszfeld steps"),
     (dict(rounds_per_dispatch=2, local_steps=2, fedprox_mu=0.01, server_opt="adam"), "cuda",
      True, "one CUDA graph"),
     (dict(rounds_per_dispatch=2, client_momentum=0.9, server_opt="momentum"), "cuda", True,
@@ -545,8 +654,9 @@ def test_dispatch_graph_says_why(kw, device, graphed, reason):
     cfg = FedConfig(**_kw(**kw))
     got, why = tgraphs.dispatch_graph(cfg, device)
     assert got is graphed and reason in why
-    # only the Weiszfeld rules' banners speak of their unrolled steps
-    assert ("Weiszfeld steps" in why) == (got and cfg.agg in ("gm2", "gm"))
+    # only gm's banner speaks of its unrolled steps (gm2's graphed loop
+    # stops at convergence)
+    assert ("Weiszfeld steps" in why) == (got and cfg.agg == "gm")
 
 
 def test_banner_prints_the_dispatch_and_why(ds, capsys):

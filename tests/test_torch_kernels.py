@@ -105,6 +105,39 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
     assert tk.LAUNCHES == before
 
 
+def test_launches_is_a_mapping_that_adds_the_device_counts(monkeypatch):
+    """``LAUNCHES`` reads as a dict of the host counts plus each device's
+    count of a kernel's steps in graphed loop bodies (a CPU tensor stands
+    in for a card's); setting an entry sets what it reads, and
+    ``reset_launches`` zeroes both."""
+    from collections.abc import MutableMapping
+
+    assert isinstance(tk.LAUNCHES, MutableMapping)
+    launches = tk.Launches(["weiszfeld_step", "select_columns"])
+    monkeypatch.setattr(tk, "LAUNCHES", launches)
+    assert dict(launches) == {"weiszfeld_step": 0, "select_columns": 0}
+    launches["weiszfeld_step"] += 1
+    launches.add("select_columns", 3)
+    tk.add_launches({"weiszfeld_step": 2, "select_columns": 0})
+    assert launches.get("weiszfeld_step") == 3 and launches.get("other", 7) == 7
+    count = launches.device_count("weiszfeld_step", torch.device("cpu"))
+    assert launches.device_count("weiszfeld_step", "cpu") is count
+    count.add_(16)  # one body run of 16 steps
+    assert dict(launches) == {"weiszfeld_step": 19, "select_columns": 3}
+    before = dict(launches)
+    launches["weiszfeld_step"] += 1
+    assert launches["weiszfeld_step"] == 20
+    count.add_(8)
+    assert launches["weiszfeld_step"] == 28
+    launches.update(before)
+    assert launches == before and int(count) == 24
+    with pytest.raises(TypeError):
+        del launches["select_columns"]
+    assert len(launches) == 2
+    tk.reset_launches()
+    assert dict(launches) == {"weiszfeld_step": 0, "select_columns": 0} and int(count) == 0
+
+
 def test_fused_step_forms_the_fades_as_float32_products():
     """The fused kernel forms h_sq as f32(draw * f32(FADE_STD)), squares,
     adds and floors, each op rounded once; torch's rayleigh_fade and
