@@ -31,7 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from gpubench import cells, data as data_lib  # noqa: E402
+from gpubench import cells, data as data_lib, inputs  # noqa: E402
 from gpubench.run import reference_numbers, start  # noqa: E402
 from gpubench.reference.follow import follow  # noqa: E402
 
@@ -53,9 +53,10 @@ def program_reading(config, cell, seed, device):
 def stand_in_reading(config, cell, seed, device, **fault):
     """The reference with ``fault`` in the program's place, against the
     sound reference."""
-    data = data_lib.make_data(config, seed, device)
+    kind = inputs.of(config)
+    data = kind.make_data(config, seed, device)
     p0 = data_lib.make_params(config, seed, device)
-    sub = follow(config, cell, data_lib.on_device(data, device), p0, seed,
+    sub = follow(config, cell, kind.on_device(data, device), p0, seed,
                  cell["check_dispatches"], **fault)
     nums, _ = reference_numbers(config, cell, seed, data, p0, sub["params"], sub["variances"])
     return nums

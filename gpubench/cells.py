@@ -50,3 +50,10 @@ def metrics_of(name: str, kind: str, bench: dict = None):
     reports."""
     bench = bench or benchmark()
     return [m for m in bench[kind] if name in m.get("workloads", [name])]
+
+
+def kernel_counts():
+    """The count modules of the port's kernels (those with a ``WRAPPER``)."""
+    mods = [module("counts", p.stem) for p in sorted((HERE / "counts").glob("*.py"))
+            if p.stem != "__init__"]
+    return [m for m in mods if hasattr(m, "WRAPPER")]

@@ -9,6 +9,10 @@ WRAPPER = "weiszfeld_step"
 COUNTED = ("step_kernel", "wide_kernel")
 #: the device kernels whose time is the wrapper's
 TIMED = COUNTED
+#: the device kernels of a conditional node's body (a graphed solve's WHILE
+#: node: its steps and its stopping test), which the capture does not count
+#: as nodes (``gpubench/replays.py``)
+LOOP_BODY = COUNTED + ("loop_condition_kernel",)
 
 
 def step_bytes(k: int, d: int) -> int:

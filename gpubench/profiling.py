@@ -119,6 +119,15 @@ class Stretch:
         return sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
+def base_name(name: str) -> str:
+    """A device kernel's function name without its namespace, template
+    arguments and parameters."""
+    n = name.replace("(anonymous namespace)::", "")
+    cut = min((i for i in (n.find("<"), n.find("(")) if i >= 0), default=len(n))
+    n = n[:cut].split()
+    return n[-1].split("::")[-1] if n else ""
+
+
 def short(name: str) -> str:
     """The head of a kernel's name: templated names run to pages."""
     return name.replace("(anonymous namespace)::", "").split("(")[0][:80]

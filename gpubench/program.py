@@ -1,6 +1,7 @@
 """The system under test: the port's trainer, built and driven through the
-calls that ``Trainer.train``'s drivers make.  The only module of the
-harness that imports the port."""
+calls that ``Trainer.train``'s drivers make.  It imports the port only
+inside its functions, as an input kind's ``port_dataset`` and the readers
+of the port's counters do."""
 
 from __future__ import annotations
 
@@ -9,8 +10,9 @@ import tempfile
 import time
 from typing import Dict, List
 
-import numpy as np
 import torch
+
+from gpubench import inputs
 
 PORT = "byzantine_aircomp_tpu_torch"
 #: the program's profiler range around the clients' local steps
@@ -29,17 +31,10 @@ def import_port():
 def make_trainer(config, cell, data, p0, seed: int, device):
     """The port's trainer for the cell, on the benchmark's data set, with
     its weights set to ``p0``."""
-    from byzantine_aircomp_tpu_torch.data.datasets import Dataset
     from byzantine_aircomp_tpu_torch.fed import harness
     from byzantine_aircomp_tpu_torch.fed.config import FedConfig
 
-    shape = tuple(config["input_shape"])
-    n_val = len(data["y_val"])
-    dataset = Dataset(
-        "mnist", data["x_train_f32"].reshape((-1,) + shape), data["y_train"].astype(np.int32),
-        data["x_val"].reshape((n_val,) + shape), data["y_val"].astype(np.int32),
-        config["num_classes"], "synthetic", x_train_raw=data["x_train"].reshape((-1,) + shape),
-        stats=tuple(config["norm_stats"]))
+    dataset = inputs.of(config).port_dataset(config, data)
     r = cell["rounds_per_dispatch"]
     cfg = FedConfig(
         honest_size=cell["honest_size"], byz_size=cell["byz_size"], rounds=r * ROUNDS,
@@ -48,7 +43,7 @@ def make_trainer(config, cell, data, p0, seed: int, device):
         attack=cell["attack"], noise_var=cell["noise_var"], agg_maxiter=config["agg_maxiter"],
         agg_tol=config["agg_tol"], gm_p_max=config["gm_p_max"], seed=seed,
         model=config["model"], fc_width=config.get("fc_width", 1024), rounds_per_dispatch=r,
-        cache_dir=os.path.join(tempfile.gettempdir(), "gpubench"))
+        cache_dir=os.path.join(tempfile.gettempdir(), "gpubench"), **config.get("fed", {}))
     trainer = harness.make_trainer(cfg, dataset=dataset, device=str(device))
     if trainer.flat_params.numel() != p0.numel():
         raise ValueError(f"the port's {config['model']} has {trainer.flat_params.numel()} "

@@ -19,6 +19,7 @@ from typing import Dict, List
 
 import torch
 
+from .. import inputs
 from . import aggregate, draws, model
 
 
@@ -53,13 +54,11 @@ def iteration(config, cell, data, p, seed, round_idx, it, offsets, sizes, half_b
     idx = offsets[:, None] + local
     if half_batch:
         idx = idx[:, : b // 2]
-    mean, std = config["norm_stats"]
-    x = (data["x_train"][idx].to(torch.float32) / 255.0 - mean) / std
-    y = data["y_train"][idx]
+    kind = inputs.of(config)
+    x, y = kind.batch(config, data, idx)
     if cell["attack"] == "classflip" and cell["byz_size"]:
         # the Byzantine clients (the last rows) train on flipped labels
-        y = torch.cat([y[: cell["honest_size"]],
-                       config["num_classes"] - 1 - y[cell["honest_size"]:]])
+        y = torch.cat([y[: cell["honest_size"]], kind.flip(config, y[cell["honest_size"]:])])
     elif cell["attack"] is not None:
         raise ValueError(f"no reference for the attack {cell['attack']!r}")
     w = p - config["gamma"] * (model.client_grads(config, p, x, y)

@@ -3,12 +3,18 @@ replay's device records put down to the stages of the round by the layout
 of the port's last capture (``fed/graphs.py::LAST_CAPTURE``).  A replay's
 records share the correlation id of its ``cudaGraphLaunch``, the runtime
 call inside its ``graph.replay`` range; sorted by start, the k-th record
-is the k-th node the capture counted.  On a program that keeps no layout
-or opens no such ranges, every reading here is None."""
+is the k-th node the capture counted.  A conditional node (a graphed
+solve's WHILE node) is not counted, and its body's records fall among the
+counted ones, as many as the body ran: they are put down to the counted
+node before them.  On a program that keeps no layout or opens no such
+ranges, every reading here is None."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Set, Tuple
+
+from . import cells
+from .profiling import base_name
 
 #: the port's span around each replay
 REPLAY_SPAN = "graph.replay"
@@ -44,27 +50,58 @@ def kind(rec: Record) -> str:
     return "c" if "memcpy" in name else "s" if "memset" in name else "k"
 
 
+def body_kernels() -> Set[str]:
+    """The kernels that a conditional node's body runs: each kernel count's
+    ``LOOP_BODY`` (``counts/<kernel>.py``)."""
+    return {n for m in cells.kernel_counts() for n in getattr(m, "LOOP_BODY", ())}
+
+
+def thin(recs: List[Record], body: Set[str]) -> Optional[list]:
+    """A replay's records without those of the kernels ``body``, as
+    ``[record, ns]``: each kept record with the device ns of the body
+    records between it and the next kept one; None where a body record
+    comes before every kept one."""
+    out = []
+    for r in recs:
+        if base_name(r[0]) in body:
+            if not out:
+                return None
+            out[-1][1] += r[2] - r[1]
+        else:
+            out.append([r, 0])
+    return out
+
+
 def replay_records(stretch, layout) -> List[List[Record]]:
     """The device records of each replay of the stretch that qualifies,
     sorted by start: exactly ``layout.nodes`` records, of the kinds
     ``layout.kinds`` gives in its order, with no two overlapping by more
     than :data:`JITTER_NS` (records that overlap mean the round was not one
-    chain of nodes)."""
+    chain of nodes).  A replay with more records loses its conditional
+    bodies' records first (:func:`thin`); each kept record's end then moves
+    out by the device ns of the bodies after it, so that a stage's time
+    holds the loops that run in it.  A replay that already holds exactly
+    ``layout.nodes`` records keeps them all: an unrolled loop's steps are
+    counted nodes of the same kernels."""
     launches = {s for name, s, _ in stretch.host if name.startswith(GRAPH_LAUNCH)}
     corr = {t: c for t, c in stretch.runtime if t in launches}
     by_corr = {}
     for rec in stretch.device:
         by_corr.setdefault(rec[3], []).append(rec)
+    body = body_kernels()
     out = []
     for s, e in sorted((s, e) for name, s, e in stretch.host if name == REPLAY_SPAN):
         inside = [c for t, c in corr.items() if s <= t <= e]
         if len(inside) != 1:
             continue
-        recs = sorted(by_corr.get(inside[0], []), key=lambda r: r[1])
-        if (len(recs) == layout.nodes
-                and all(b[1] >= a[2] - JITTER_NS for a, b in zip(recs, recs[1:]))
-                and "".join(kind(r) for r in recs) == layout.kinds):
-            out.append(recs)
+        recs = [(r, 0) for r in sorted(by_corr.get(inside[0], []), key=lambda r: r[1])]
+        if len(recs) > layout.nodes:
+            recs = thin([r for r, _ in recs], body) or []
+        kept = [r for r, _ in recs]
+        if (len(kept) == layout.nodes
+                and all(b[1] >= a[2] - JITTER_NS for a, b in zip(kept, kept[1:]))
+                and "".join(kind(r) for r in kept) == layout.kinds):
+            out.append([(n, a, b + ns, c, k) for (n, a, b, c, k), ns in recs])
     return out
 
 

@@ -40,7 +40,7 @@ import torch  # noqa: E402
 
 T_TORCH = time.perf_counter()
 
-from gpubench import cells, check, profiling, program  # noqa: E402
+from gpubench import cells, check, inputs, profiling, program, replays  # noqa: E402
 from gpubench import data as data_lib  # noqa: E402
 from gpubench.readings import Readings  # noqa: E402
 from gpubench.reference.follow import follow  # noqa: E402
@@ -59,31 +59,16 @@ def p90(xs):
     return s[max(0, math.ceil(0.9 * len(s)) - 1)]
 
 
-def kernel_counts():
-    """The count modules of the port's kernels (those with a ``WRAPPER``)."""
-    mods = [cells.module("counts", p.stem) for p in sorted((cells.HERE / "counts").glob("*.py"))
-            if p.stem != "__init__"]
-    return [m for m in mods if hasattr(m, "WRAPPER")]
-
-
-def base_name(name: str) -> str:
-    """A device kernel's function name without its namespace, template
-    arguments and parameters."""
-    n = name.replace("(anonymous namespace)::", "")
-    cut = min((i for i in (n.find("<"), n.find("(")) if i >= 0), default=len(n))
-    n = n[:cut].split()
-    return n[-1].split("::")[-1] if n else ""
-
-
 def launch_shortfall(stretch) -> list:
     """Where the trace holds fewer (or more) of a kernel's records than the
     port's launch counter counted in the stretch: one line each."""
     groups = {}
-    for m in kernel_counts():
+    for m in cells.kernel_counts():
         groups.setdefault(tuple(m.COUNTED), []).append(m.WRAPPER)
     found = {}
     for name, *_ in stretch.kernels():
-        found[base_name(name)] = found.get(base_name(name), 0) + 1
+        base = profiling.base_name(name)
+        found[base] = found.get(base, 0) + 1
     lines = []
     for names, wrappers in groups.items():
         want = sum(stretch.launches.get(w, 0) for w in wrappers)
@@ -106,7 +91,7 @@ def start(config, cell, seed: int, dev):
         torch.empty(1, device=dev)
         torch.cuda.synchronize(dev)
     marks.append(("card", time.perf_counter()))
-    data = data_lib.make_data(config, seed, dev)
+    data = inputs.of(config).make_data(config, seed, dev)
     p0 = data_lib.make_params(config, seed, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -133,7 +118,7 @@ def start(config, cell, seed: int, dev):
 def reference_numbers(config, cell, seed: int, data, p0, checked, check_vars, **fault):
     """The reference over the checked dispatches, and the comparison's
     numbers (:func:`.check.numbers`).  ``fault`` goes to the reference."""
-    ref = follow(config, cell, data_lib.on_device(data, p0.device), p0, seed,
+    ref = follow(config, cell, inputs.of(config).on_device(data, p0.device), p0, seed,
                  cell["check_dispatches"], **fault)
     nums = check.numbers(config["layout"], p0, checked, check_vars, ref["params"],
                          ref["variances"])
@@ -176,6 +161,11 @@ def measure(work, config, cell, seed: int, seconds: float, trace: bool, device="
                 print(line, file=sys.stderr)
             if not short:
                 break
+        layout = replays.capture_layout()
+        if layout is not None:
+            spans = sum(name == replays.REPLAY_SPAN for name, _, _ in stretch.host)
+            print(f"replays: {len(replays.replay_records(stretch, layout))} of {spans} qualify",
+                  file=sys.stderr)
 
     del dispatch
     gc.collect()

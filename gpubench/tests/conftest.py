@@ -2,6 +2,7 @@
 the ``cuda`` marker's fixture (a test that needs the card skips without
 one, decided when it runs)."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -20,27 +21,22 @@ def card():
     return torch.device("cuda")
 
 
-# each cell at a size a CPU test run holds: fewer clients (the AirComp gm
-# keeps its 50, below which its noisy receiver diverges, with fewer steps),
-# a smaller data set, and the CNN at one iteration a round (over ten, the
-# median of five clients turns rounding into gaps of a few percent)
-TINY = {
-    "mlp.gm2.k1000.r2": ({}, dict(honest_size=8, byz_size=2)),
-    "cnn.median-var.k50.r1": ({"display_interval": 1}, dict(honest_size=4, byz_size=1)),
-    "mlp.gm-var.k50.r2": ({"agg_maxiter": 30}, {}),
-    "mlp.trimmed_mean-var.k1000.r10": ({}, dict(honest_size=18, byz_size=2,
-                                             rounds_per_dispatch=2)),
-}
+#: what every cell's CPU test cuts: a smaller data set and two checked
+#: dispatches; each cell cuts more in ``gpubench/tiny/<cell>.json``
+TINY_CONFIG = {"train_size": 3000, "val_size": 500}
+TINY_TRAFFIC = {"check_dispatches": 2}
 
 
 def tiny_cell(name):
-    """``(workload, configuration, traffic)`` of a cell at the CPU size."""
+    """``(workload, configuration, traffic)`` of a cell at the CPU size: the
+    cell's own files with :data:`TINY_CONFIG`, :data:`TINY_TRAFFIC` and its
+    ``gpubench/tiny/<cell>.json`` (``config``, ``traffic``) over them."""
     from gpubench import cells
 
     work, config, cell = cells.cell(name)
-    config_over, cell_over = TINY[name]
-    config = dict(config, train_size=3000, val_size=500, **config_over)
-    cell = dict(cell, check_dispatches=2, **cell_over)
+    tiny = json.loads((cells.HERE / "tiny" / f"{name}.json").read_text())
+    config = {**config, **TINY_CONFIG, **tiny.get("config", {})}
+    cell = {**cell, **TINY_TRAFFIC, **tiny.get("traffic", {})}
     return work, config, cell
 
 

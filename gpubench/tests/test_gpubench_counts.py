@@ -51,7 +51,5 @@ def test_the_peak_table(kind, want):
 def test_every_kernel_count_names_the_ports_counter():
     from byzantine_aircomp_tpu_torch.ops import kernels
 
-    from gpubench.run import kernel_counts
-
-    wrappers = [m.WRAPPER for m in kernel_counts()]
+    wrappers = [m.WRAPPER for m in cells.kernel_counts()]
     assert wrappers and set(wrappers) <= set(kernels.LAUNCHES)

@@ -5,8 +5,7 @@ import pytest
 
 from gpubench import calibrate, cells, run
 
-CELLS = ["mlp.gm2.k1000.r2", "cnn.median-var.k50.r1", "mlp.gm-var.k50.r2",
-         "mlp.trimmed_mean-var.k1000.r10"]
+CELLS = [w["name"] for w in cells.benchmark()["workloads"]]
 SEED = 2**31 + 1234
 
 

@@ -77,15 +77,22 @@ def test_every_per_layer_metric_has_a_reader(metric):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_the_layout_is_the_ports_flat_vector(name):
-    """The configuration's leaves, in order, are the port's flat layout."""
+    """The configuration's leaves, in order, are the port's flat layout: the
+    model built from the keywords that the benchmark's trainer gets
+    (``program.make_trainer``), as ``Trainer`` builds it."""
     import torch
+    from byzantine_aircomp_tpu_torch.fed.config import FedConfig
     from byzantine_aircomp_tpu_torch.ops.flatten import make_flat_spec
     from byzantine_aircomp_tpu_torch.registry import MODELS
 
-    config = json.loads((cells.ROOT / f"gpubench/configs/{name}.json").read_text())
-    model = MODELS.get(config["model"])(
+    entry = {c["name"]: c for c in BENCH["configs"]}[name]
+    config = json.loads((cells.ROOT / entry["file"]).read_text())
+    cfg = FedConfig(model=config["model"], fc_width=config.get("fc_width", 1024),
+                    **config.get("fed", {}))
+    model = MODELS.get(cfg.model)(
         input_shape=tuple(config["input_shape"]), num_classes=config["num_classes"],
-        generator=torch.Generator().manual_seed(0), fc_width=config.get("fc_width", 1024))
+        generator=torch.Generator().manual_seed(0), fc_width=cfg.fc_width,
+        width=cfg.resnet_width, remat=cfg.remat)
     spec = make_flat_spec(model)
     assert spec.total == config["params"]
     assert [("/".join(leaf.jax_path), list(leaf.jax_shape)) for leaf in spec.leaves] == [

@@ -6,14 +6,14 @@ import math
 import pytest
 import torch
 
-from gpubench import run
+from gpubench import cells, run
 from gpubench.reference import aggregate, draws
 
 SEED = 2**31 + 77
+WORKLOADS = [w["name"] for w in cells.benchmark()["workloads"]]
 
 
-@pytest.mark.parametrize("name", ["mlp.gm2.k1000.r2", "cnn.median-var.k50.r1",
-                                  "mlp.gm-var.k50.r2", "mlp.trimmed_mean-var.k1000.r10"])
+@pytest.mark.parametrize("name", WORKLOADS)
 def test_the_reference_follows_the_port(tiny, name):
     work, config, cell = tiny(name)
     result, nums = run.measure(work, config, cell, SEED, 0.05, False, device="cpu")
@@ -65,3 +65,16 @@ def test_a_non_finite_weight_fails_every_number():
     assert nums["step1_gap"] == math.inf and nums["step_gap"] == math.inf
     assert nums["step1_q99"] == math.inf
     assert check.numbers(layout, p0, prog, [math.nan], ref, [1.0])["var_gap"] == math.inf
+
+
+def test_an_init_rule_sizes_a_leaf_that_xavier_cannot():
+    """A 1-D leaf that is not a bias (a GroupNorm scale) needs a rule of
+    the configuration's ``init_rules``; without one, the error names it."""
+    from gpubench import data
+
+    config = {"params": 8, "layout": [["GroupNorm_0/bias", [4]], ["GroupNorm_0/scale", [4]]]}
+    with pytest.raises(ValueError, match="GroupNorm_0/scale"):
+        data.make_params(config, 1, "cpu")
+    p = data.make_params(dict(config, init_rules=[["/scale", 1.0]]), 1, "cpu")
+    assert torch.equal(p, torch.tensor([0.01] * 4 + [1.0] * 4))
+

@@ -19,16 +19,36 @@ def _layout(**kw):
                                        kinds="kkkkkkkk", spans=spans), **kw))
 
 
-def _replay(t0, corr, durations, gap=0):
+#: the records of a graphed gm2 solve's loop body: its steps and its test
+STEP = "void weiszfeld::step_kernel<float, true, true>(float const*, float*, int, int)"
+TEST = "weiszfeld::loop_condition_kernel(int const*, long long const*, long long*, int)"
+
+
+def _replay(t0, corr, durations, gap=0, names=None):
     """A replay's host ranges, its launch's runtime call and its device
-    records: ``durations`` in ms, one record after another."""
+    records: ``durations`` in ms, one record after another, named
+    ``names`` (default ``kernel<i>``)."""
     host = [("dispatch", t0, t0 + 100 * MS), ("graph.replay", t0 + MS, t0 + 3 * MS),
             ("cudaGraphLaunch", t0 + 2 * MS, t0 + 3 * MS)]
+    names = names or [f"kernel{i}" for i in range(len(durations))]
     device, t = [], t0 + 4 * MS
-    for i, d in enumerate(durations):
-        device.append((f"kernel{i}", t, t + d * MS, corr, True))
+    for name, d in zip(names, durations):
+        device.append((name, t, t + d * MS, corr, True))
         t += d * MS + gap
     return host, [(t0 + 2 * MS, corr)], device
+
+
+def _with_bodies(t0, corr, after):
+    """A replay of the 8 counted nodes (node i lasts i + 1 ms) with loop
+    body records after the nodes ``after`` maps to them: ``[(name, ms)]``."""
+    names, durations = [], []
+    for i in range(8):
+        names.append(f"kernel{i}")
+        durations.append(i + 1)
+        for name, ms in after.get(i, []):
+            names.append(name)
+            durations.append(ms)
+    return _replay(t0, corr, durations, names=names)
 
 
 def _stretch(*replays_, rounds=1):
@@ -101,6 +121,53 @@ def test_a_replay_that_does_not_qualify_is_left_out(layout, case):
     # with no qualifying replay: nothing to read
     assert replays.stage_ms(_stretch(bad), "client_step") is None
     assert _read("client_step.replay_device_ms", _readings(_stretch(bad))) is None
+
+
+def test_a_replay_with_loop_bodies_puts_them_down_to_the_node_before(layout):
+    """A WHILE node's bodies run among the counted nodes: their records go,
+    and their time goes to the counted node before them (the aggregate
+    stage's, nodes 3 and 7), so the stages read as if the loop were one
+    node of the round."""
+    body3 = [(STEP, 0.25), (STEP, 0.25), (TEST, 0.125)]
+    body7 = [(STEP, 0.5), (TEST, 0.25)]
+    s = _stretch(_with_bodies(0, 7, {3: body3, 7: body7}),
+                 _with_bodies(10**9, 9, {3: body3}))
+    recs = replays.replay_records(s, layout)
+    assert [len(r) for r in recs] == [8, 8]
+    assert [r[0] for r in recs[0]] == [f"kernel{i}" for i in range(8)]
+    r = _readings(s)
+    # client_step: nodes 0-1 and 4-5, two iterations a replay
+    assert _read("client_step.replay_device_ms", r) == pytest.approx((3 + 11) / 2)
+    # aggregate: nodes 3 and 7 with the bodies after them
+    assert replays.stage_ms(s, "aggregate") == pytest.approx(
+        ((4 + 0.625 + 8 + 0.75) + (4 + 0.625 + 8)) / 4)
+    assert _read("channel.device_ms", r) == pytest.approx((3 + 7) / 2)
+
+
+def test_an_unrolled_loop_keeps_its_counted_step_records(layout):
+    """Where the loop is unrolled its steps are counted nodes of the same
+    kernels, and a replay that holds exactly the counted records keeps
+    them all (gm's graphed rounds)."""
+    s = _stretch(_replay(0, 7, [1] * 8, names=[STEP] * 7 + [TEST]))
+    assert [len(r) for r in replays.replay_records(s, layout)] == [8]
+    assert replays.stage_ms(s, "aggregate") == pytest.approx(2 / 2)
+
+
+@pytest.mark.parametrize("case", ["not_a_body", "body_first", "short_after_thinning"])
+def test_a_replay_that_does_not_thin_to_its_nodes_is_left_out(layout, case):
+    good = _with_bodies(0, 7, {3: [(STEP, 1), (TEST, 1)]})
+    if case == "not_a_body":
+        bad = _with_bodies(10**9, 9, {3: [("void other_kernel<float>(float*)", 1)]})
+    elif case == "body_first":
+        host, runtime, device = _with_bodies(10**9, 9, {})
+        device = [(STEP, device[0][1] - 2 * MS, device[0][1] - MS, 9, True)] + device
+        bad = host, runtime, device
+    else:
+        host, runtime, device = _with_bodies(10**9, 9, {3: [(STEP, 1), (TEST, 1)]})
+        del device[6]  # node 4's record lost: 9 records, 7 once thinned
+        bad = host, runtime, device
+    assert len(replays.replay_records(_stretch(good, bad), layout)) == 1
+    assert replays.replay_records(_stretch(bad), layout) == []
 
 
 def test_without_a_layout_the_graphed_readers_find_nothing(monkeypatch):
